@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""Smoke test of repro_torch on one NVIDIA GPU: build, check, drive.
+
+Run from the repository root on a machine with a CUDA device and nvcc:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, exits non-zero and prints no result line):
+
+1. Toolchain and build: the card, CUDA, nvcc, and the kernels compiled
+   from ``src/repro_torch/csrc``.
+2. Each CUDA kernel against its plain PyTorch version on the card, at
+   the main path's shapes and at edge shapes, with its time (CUDA
+   events), the plain version's time, its lower bound and, where one
+   PyTorch call computes the same function, that call's time.
+3. The main path: a default ``Database`` session (100,000 random walks
+   of length 1,000, ``SearchConfig()``) built and searched with 16 new
+   queries through the host driver; every kernel must have launched, two
+   queries' top-1 must equal a brute force over all rows, and every
+   distance must match the float64 oracle.
+4. A small session (768 rows of 128) on the scan driver for every
+   univariate method, on the GPU and on the CPU: same indices.
+
+The last lines are the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
+# tensor cores; the kernels do scalar float32 work.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+N_ROWS, LENGTH, N_QUERIES = 100_000, 1000, 16
+BLOCK, DTW_CHUNK = 32, 16
+SEED = 0
+
+TOL = {"envelope": 0.0, "lb_keogh": 1e-4, "lb_improved_pass2": 2e-4, "dtw": 3e-4}
+SOURCES = {
+    "envelope": ("src/repro_torch/csrc/envelope.cu",
+                 "src/repro/kernels/envelope/kernel.py:52"),
+    "lb_keogh": ("src/repro_torch/csrc/lb_keogh.cu",
+                 "src/repro/kernels/lb_keogh/kernel.py:179"),
+    "lb_improved_pass2": ("src/repro_torch/csrc/lb_improved.cu",
+                          "src/repro/kernels/lb_improved/kernel.py:115"),
+    "dtw": ("src/repro_torch/csrc/dtw.cu", "src/repro/kernels/dtw/kernel.py:119"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def time_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 2) -> float:
+    """Per-call time: CUDA events around ``iters`` back-to-back calls,
+    the median over ``repeats`` such runs.  Where the host cannot enqueue
+    as fast as the card runs, this includes the host's launch cost."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return statistics.median(runs)
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel_err(got, want) -> float:
+    den = want.abs().clamp(min=1e-30)
+    return float(((got - want).abs() / den).max()) if want.numel() else 0.0
+
+
+def check_close(name, got, want, rtol, what):
+    import torch
+
+    if rtol == 0.0:
+        if not torch.equal(got, want):
+            fail(f"{name} {what}: not bit-equal to the plain version")
+        return 0.0
+    if not torch.allclose(got, want, rtol=rtol, atol=0.0):
+        fail(f"{name} {what}: max rel err {rel_err(got, want):.3g} > {rtol}")
+    return float((got - want).abs().max())
+
+
+# ------------------------------------------------------------- phase 1
+
+
+def phase_toolchain():
+    import torch
+
+    from repro_torch.kernels import cuda_lib
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    nvcc = cuda_lib.find_nvcc()
+    nvcc_ver = subprocess.run(
+        [nvcc, "--version"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[-1]
+    log(f"[toolchain] card: {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvcc: {nvcc_ver}")
+    t0 = time.perf_counter()
+    lib_path, build_log = cuda_lib.build()
+    build_s = time.perf_counter() - t0
+    cuda_lib.library()
+    log(f"[build] {lib_path.relative_to(ROOT)} in {build_s:.1f} s from "
+        f"{len(list(cuda_lib.CSRC.glob('*.cu')))} sources")
+    for line in build_log.splitlines():
+        if "Used" in line or "spill" in line or line.startswith("=="):
+            log(f"[build]   {line.strip()}")
+    return smi
+
+
+# ------------------------------------------------------------- phase 2
+
+
+def phase_kernels(dev):
+    """Every kernel against its plain version; returns the kernels record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import random_walks
+    from repro_torch.kernels.dtw.ops import dtw_launch, dtw_plain
+    from repro_torch.kernels.envelope.ops import envelope_launch, envelope_plain
+    from repro_torch.kernels.lb_improved.ops import (
+        lb_improved_pass2_launch,
+        lb_improved_pass2_plain,
+    )
+    from repro_torch.kernels.lb_keogh.ops import lb_keogh_launch, lb_keogh_plain
+
+    rng = np.random.default_rng(SEED + 1)
+    w = LENGTH // 10
+
+    def walks(count, n, dtype=torch.float32):
+        return torch.as_tensor(random_walks(rng, count, n), device=dev).to(dtype)
+
+    rec = {}
+
+    # K1 envelope: bit-equal; timed at the build's shape
+    xs = walks(N_ROWS, LENGTH)
+    u, l = envelope_launch(xs, w)
+    up, lp = envelope_plain(xs, w)
+    check_close("envelope", u, up, 0.0, "U main")
+    check_close("envelope", l, lp, 0.0, "L main")
+    for rows, n, ww, dt in [(16, LENGTH, w, torch.float32), (7, 97, 5, torch.float32),
+                            (5, 64, 63, torch.float32), (3, 2, 1, torch.float64),
+                            (9, 300, 40, torch.float64)]:
+        x = walks(rows, n, dt)
+        a, b = envelope_launch(x, ww)
+        c, d = envelope_plain(x, ww)
+        check_close("envelope", a, c, 0.0, f"U {rows}x{n} w={ww} {dt}")
+        check_close("envelope", b, d, 0.0, f"L {rows}x{n} w={ww} {dt}")
+    ms = time_ms(lambda: envelope_launch(xs, w))
+    plain = time_ms(lambda: envelope_plain(xs, w), iters=2, repeats=3)
+    lib = time_ms(lambda: torch.nn.functional.max_pool1d(
+        xs[:, None, :], 2 * w + 1, stride=1, padding=w), iters=3, repeats=3)
+    bnd, by = bound_ms(3 * xs.numel() * 4, 6 * xs.numel())
+    rec["envelope"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
+                           bound_by=by, library_ms=lib,
+                           shape=f"rows={N_ROWS} n={LENGTH} w={w}")
+    del xs, u, l, up, lp
+    log(f"[kernel] envelope ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
+        f"max_pool1d {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+
+    # K2 LB_Keogh + H: lb rtol 1e-4, H bit-equal
+    qs = walks(N_QUERIES, LENGTH)
+    cands = walks(BLOCK, LENGTH)
+    upper, lower = envelope_launch(qs, w)
+    err = 0.0
+    for p in (1, 2, math.inf):
+        lb, h = lb_keogh_launch(cands, upper, lower, p)
+        lbp, hp = lb_keogh_plain(cands, upper, lower, p)
+        e = check_close("lb_keogh", lb, lbp, TOL["lb_keogh"], f"lb p={p}")
+        err = e if p == 1 else err
+        check_close("lb_keogh", h, hp, 0.0, f"H p={p}")
+        qi = torch.as_tensor(rng.integers(0, N_QUERIES, 37), device=dev)
+        ci = torch.as_tensor(rng.integers(0, BLOCK, 37), device=dev)
+        lb, h = lb_keogh_launch(cands, upper, lower, p, qi, ci)
+        lbp, hp = lb_keogh_plain(cands, upper, lower, p, qi, ci)
+        check_close("lb_keogh", lb, lbp, TOL["lb_keogh"], f"pairs lb p={p}")
+        check_close("lb_keogh", h, hp, 0.0, f"pairs H p={p}")
+    c7 = walks(7, 50, torch.float64)
+    q3 = walks(3, 50, torch.float64)
+    u3, l3 = envelope_plain(q3, 4)
+    lb, h = lb_keogh_launch(c7, u3.contiguous(), l3.contiguous(), 2)
+    lbp, hp = lb_keogh_plain(c7, u3, l3, 2)
+    check_close("lb_keogh", lb, lbp, TOL["lb_keogh"], "float64 ragged")
+    check_close("lb_keogh", h, hp, 0.0, "float64 ragged H")
+    ms = time_ms(lambda: lb_keogh_launch(cands, upper, lower, 1))
+    plain = time_ms(lambda: lb_keogh_plain(cands, upper, lower, 1), iters=10)
+    nq, b, n = N_QUERIES, BLOCK, LENGTH
+    bnd, by = bound_ms(4 * (b * n + 2 * nq * n + nq * b + nq * b * n), 8 * nq * b * n)
+    rec["lb_keogh"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                           bound_by=by, library_ms=None,
+                           shape=f"Q={nq} B={b} n={n} p=1")
+    log(f"[kernel] lb_keogh ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
+        f"bound {bnd:.5f} ms ({by})")
+
+    # K3 LB_Improved pass 2: rtol 2e-4
+    err = 0.0
+    for p in (1, 2, math.inf):
+        _, h = lb_keogh_launch(cands, upper, lower, p)
+        got = lb_improved_pass2_launch(h, qs, w, p)
+        want = lb_improved_pass2_plain(h, qs, w, p)
+        e = check_close("lb_improved_pass2", got, want, TOL["lb_improved_pass2"], f"p={p}")
+        err = e if p == 1 else err
+        hp = h.reshape(-1, LENGTH)[:41].contiguous()
+        qi = torch.as_tensor(rng.integers(0, N_QUERIES, 41), device=dev)
+        got = lb_improved_pass2_launch(hp, qs, w, p, qi)
+        want = lb_improved_pass2_plain(hp, qs, w, p, qi)
+        check_close("lb_improved_pass2", got, want, TOL["lb_improved_pass2"],
+                    f"pairs p={p}")
+    for ww in (0, 500, 5000):
+        got = lb_improved_pass2_launch(h, qs, ww, 2)
+        want = lb_improved_pass2_plain(h, qs, ww, 2)
+        check_close("lb_improved_pass2", got, want, TOL["lb_improved_pass2"], f"w={ww}")
+    h64 = walks(3 * 5, 80, torch.float64).reshape(3, 5, 80)
+    q64 = walks(3, 80, torch.float64)
+    got = lb_improved_pass2_launch(h64, q64, 8, 1)
+    want = lb_improved_pass2_plain(h64, q64, 8, 1)
+    check_close("lb_improved_pass2", got, want, TOL["lb_improved_pass2"], "float64")
+    _, h = lb_keogh_launch(cands, upper, lower, 1)
+    ms = time_ms(lambda: lb_improved_pass2_launch(h, qs, w, 1))
+    plain = time_ms(lambda: lb_improved_pass2_plain(h, qs, w, 1), iters=10)
+    bnd, by = bound_ms(4 * (nq * b * n + nq * n + nq * b), 11 * nq * b * n)
+    rec["lb_improved_pass2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                    bound_ms=bnd, bound_by=by, library_ms=None,
+                                    shape=f"Q={nq} B={b} n={n} w={w} p=1")
+    log(f"[kernel] lb_improved_pass2 ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
+        f"bound {bnd:.5f} ms ({by})")
+
+    # K5 banded DP: rtol 3e-4; abandoned lanes only >= bound
+    db = walks(4096, LENGTH)
+    qi = torch.as_tensor(rng.integers(0, N_QUERIES, DTW_CHUNK), device=dev)
+    ci = torch.as_tensor(rng.integers(0, db.shape[0], DTW_CHUNK), device=dev)
+    err = 0.0
+    for p in (1, 2, math.inf):
+        got = dtw_launch(qs, db, w, p, qi, ci)
+        want = dtw_plain(qs, db, w, p, qi, ci)
+        e = check_close("dtw", got, want, TOL["dtw"], f"chunk p={p}")
+        err = e if p == 1 else err
+        # half the lanes get a bound below their distance
+        bounds = torch.where(torch.arange(DTW_CHUNK, device=dev) % 2 == 0,
+                             want * 0.5, want * 2.0).contiguous()
+        got = dtw_launch(qs, db, w, p, qi, ci, bounds)
+        below = want < bounds
+        check_close("dtw", got[below], want[below], TOL["dtw"], f"bounded p={p}")
+        over = got[~below] >= bounds[~below] * (1 - TOL["dtw"])
+        if not bool(over.all()):
+            fail(f"dtw p={p}: abandoned lanes returned less than their bound")
+        if p != math.inf:
+            plain_b = dtw_plain(qs, db, w, p, qi, ci, bounds)
+            if not bool((plain_b[~below] >= bounds[~below]).all()):
+                fail(f"dtw plain p={p}: abandoned lanes below their bound")
+    for nq2, nb, n, ww, dt in [(2, 37, 64, 0, torch.float32),
+                               (3, 5, 64, 200, torch.float32),
+                               (2, 9, 120, 12, torch.float64)]:
+        q2 = walks(nq2, n, dt)
+        c2 = walks(nb, n, dt)
+        for p in (1, 2, math.inf):
+            got = dtw_launch(q2, c2, ww, p)
+            want = dtw_plain(q2, c2, ww, p)
+            check_close("dtw", got, want, TOL["dtw"], f"{nq2}x{nb} n={n} w={ww} {dt} p={p}")
+    ms = time_ms(lambda: dtw_launch(qs, db, w, 1, qi, ci))
+    plain = time_ms(lambda: dtw_plain(qs, db, w, 1, qi, ci), iters=1, repeats=3, warmup=1)
+    cells = DTW_CHUNK * (LENGTH * (2 * w + 1) - w * (w + 1))
+    bnd, by = bound_ms(4 * DTW_CHUNK * (2 * LENGTH + 1), 5 * cells)
+    rec["dtw"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                      bound_by=by, library_ms=None,
+                      shape=f"pairs={DTW_CHUNK} n={LENGTH} w={w} p=1 full DP")
+    log(f"[kernel] dtw ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
+        f"bound {bnd:.5f} ms ({by})")
+    del db
+    torch.cuda.synchronize()
+    return rec
+
+
+# ------------------------------------------------------------- phase 3
+
+
+def device_busy(fn) -> tuple[float, float]:
+    """(device kernel ms, host wall ms) of one call under torch.profiler:
+    the sum of CUDA kernel self times and the wall clock around the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = sum(
+        getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        for e in prof.key_averages()
+    )
+    return busy_us / 1e3, wall_ms
+
+
+def phase_main_path(dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Database
+    from repro_torch.core.dtw import dtw_reference
+    from repro_torch.data.synthetic import random_walks
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.dtw.ops import dtw_qbatch_op
+
+    rng = np.random.default_rng(SEED)
+    x = random_walks(rng, N_ROWS, LENGTH)
+    queries = random_walks(rng, N_QUERIES, LENGTH)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    db = Database.build(x)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plan = db.plan(queries).explain()
+    if not plan.startswith("driver: host"):
+        fail(f"default session did not route to the host driver:\n{plan}")
+    t0 = time.perf_counter()
+    res = db.search(queries)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    launches = launch_counts()
+    reset_launch_counts()
+    busy_ms, wall_ms = device_busy(lambda: db.search(queries))
+    log(f"[main] {db!r}; build {build_s:.2f} s, search of {N_QUERIES} queries "
+        f"{search_s:.2f} s = {N_QUERIES / search_s:.2f} qps")
+    log("[main] plan: " + " | ".join(plan.splitlines()[:3]))
+    s = res.stats
+    log(f"[main] pruned {s.pruned_by}, full_dtw {s.full_dtw} of "
+        f"{s.n_candidates}, DP chunks {s.blocks_dtw}, DP lanes "
+        f"{s.dp_lane_useful}/{s.dp_lane_work}")
+    log(f"[main] launches: {launches}")
+    if busy_ms > 0:
+        log(f"[main] profiled second search: device busy {busy_ms:.1f} ms of "
+            f"{wall_ms:.1f} ms wall = idle share {1 - busy_ms / wall_ms:.3f}")
+    else:
+        log("[main] profiled second search: the profiler saw no device time; "
+            "idle share not measured")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched by the main path")
+
+    # top-1 of two queries against a brute force over every row (K5)
+    qs = torch.as_tensor(db.prepare_queries(queries[:2]), device=dev)
+    brute = dtw_qbatch_op(qs, db.rows_tensor, db.w, db.p)
+    best = brute.argmin(dim=1).cpu().numpy()
+    if not np.array_equal(best, res.indices[:2, 0]):
+        fail(f"top-1 {res.indices[:2, 0]} != brute force {best}")
+    log(f"[main] brute force top-1 {best.tolist()} == session top-1")
+    # every returned distance against the float64 O(n^2) oracle
+    worst = 0.0
+    for qi in range(N_QUERIES):
+        for j, idx in enumerate(res.indices[qi]):
+            ref = dtw_reference(queries[qi], x[idx], db.w, db.p)
+            got = float(res.distances[qi, j])
+            worst = max(worst, abs(got - ref) / abs(ref))
+    if worst > 2e-4:
+        fail(f"distance vs float64 dtw_reference: rel err {worst:.3g} > 2e-4")
+    log(f"[main] distances vs float64 dtw_reference: max rel err {worst:.3g}")
+    return launches, dict(build_s=build_s, search_s=search_s)
+
+
+# ------------------------------------------------------------- phase 4
+
+
+def phase_scan_sessions(dev):
+    import numpy as np
+
+    from repro_torch.api import Database, SearchConfig
+    from repro_torch.core.pipeline import PIPELINES
+    from repro_torch.data.synthetic import random_walks
+
+    rng = np.random.default_rng(SEED + 2)
+    x = random_walks(rng, 768, 128)
+    queries = random_walks(rng, 8, 128)
+    for method in PIPELINES:
+        cfg = SearchConfig(k=5, method=method)
+        gpu = Database.build(x, cfg, device=dev)
+        cpu = Database.build(x, cfg, device="cpu")
+        if not gpu.plan(queries).explain().startswith("driver: scan"):
+            fail(f"{method}: small session did not route to the scan driver")
+        rg, rc = gpu.search(queries), cpu.search(queries)
+        if not np.array_equal(rg.indices, rc.indices):
+            fail(f"{method}: scan indices differ between cuda and cpu")
+        if not np.allclose(rg.distances, rc.distances, rtol=2e-4, atol=0):
+            fail(f"{method}: scan distances differ beyond rtol 2e-4")
+        sg, sc = rg.stats, rc.stats
+        log(f"[scan] {method:<12} cuda pruned={sg.stage_pruned} dtw={sg.full_dtw} "
+            f"lanes={sg.dp_lane_useful}/{sg.dp_lane_work} | cpu "
+            f"pruned={sc.stage_pruned} dtw={sc.full_dtw} "
+            f"lanes={sc.dp_lane_useful}/{sc.dp_lane_work}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
+        return 2
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: repro_torch not found next to this script: {e}",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    smi = phase_toolchain()
+    rec = phase_kernels(dev)
+    launches, _ = phase_main_path(dev)
+    phase_scan_sessions(dev)
+    kernels = []
+    for name, r in rec.items():
+        source, replaces = SOURCES[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"],
+        ))
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

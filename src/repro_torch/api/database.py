@@ -1,0 +1,383 @@
+"""Database: the build-once / query-many session facade (port of
+``repro.api.database``, univariate).
+
+    db = Database.build(data, SearchConfig())   # rows + envelopes on the GPU
+    db.plan(queries).explain()                  # see the routing
+    res = db.search(queries)                    # scan or host driver
+    db.save("session.npz"); Database.load(...)  # the reference's bundle
+
+``build`` computes every database-side artifact once: the (z-normalized,
+precision-cast) rows on the device, their warping envelopes (envelope
+kernel), the float64 powered row norms and the planner's calibration
+probe.  Bundles keep the reference's ``.npz`` keys and format version,
+so a bundle written by ``repro.api.Database.save`` loads here and
+answers the same (``load`` / ``from_arrays``).  The session runs on
+``device`` (default: the GPU; ``RuntimeError`` when there is none).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.api.config import SearchConfig
+from repro_torch.api.planner import (
+    Calibration,
+    CascadePlan,
+    Plan,
+    calibrate,
+    choose_cascade,
+    plan_search,
+)
+from repro_torch.core.cascade import (
+    BatchSearchResult,
+    SearchResult,
+    nn_search_host,
+    nn_search_scan,
+)
+from repro_torch.core.pipeline import not_ported
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.envelope.ops import envelope_op
+
+BUNDLE_FORMAT_VERSION = 1
+
+#: the stream scanner's std floor in the reference (repro.stream.state)
+STD_EPS = 1e-8
+
+#: bundle key prefixes of tiers a later slice ports -> ROADMAP.md item
+_UNPORTED_BUNDLE_KEYS = {
+    "idx_": "6 (stage-0 triangle index)",
+    "any_": "10 (anytime tier)",
+    "tune_": "12 (kernel tuning)",
+}
+
+
+def _znorm_rows(rows: np.ndarray, eps: float = STD_EPS, dtype="float32") -> np.ndarray:
+    """Per-row global z-normalization, vectorized over rows (the
+    reference's arithmetic, in float64 numpy)."""
+    x64 = np.asarray(rows, np.float64)
+    mean = x64.mean(axis=1, keepdims=True)
+    std = np.maximum(x64.std(axis=1, keepdims=True), eps)
+    return ((x64 - mean) / std).astype(dtype)
+
+
+def _torch_dtype(precision: str) -> torch.dtype:
+    return torch.float64 if precision == "float64" else torch.float32
+
+
+def _not_ported_option(name: str, value, item: str) -> None:
+    if value:
+        raise not_ported(f"Database.build({name}=...)", item)
+
+
+class Database:
+    """One searchable time-series database session.
+
+    Construct with :meth:`build`, :meth:`load` or :meth:`from_arrays`.
+    Artifacts are tied to the frozen :class:`SearchConfig`; per-call
+    overrides are limited to ``k``, the driver and the method.
+    """
+
+    def __init__(
+        self, *, raw, data: torch.Tensor, config: SearchConfig, w: int,
+        upper: torch.Tensor, lower: torch.Tensor, row_sums, row_sumsq,
+        calibration: Calibration | None = None,
+    ):
+        self.raw = raw  # as given (precision-cast numpy), what save() persists
+        self._data = data  # (N, n) rows on the device, znormed when configured
+        self.config = config
+        self.w = w  # resolved band half-width
+        self._upper = upper  # (N, n) row envelopes on the device
+        self._lower = lower
+        self.row_sums = row_sums  # (N,) float64 sum x of the raw rows
+        self.row_sumsq = row_sumsq  # (N,) float64 sum x^2
+        self._calibration = calibration
+        self._cascade_cache: dict[int, CascadePlan] = {}
+        self._fingerprint: str | None = None
+
+    # ------------------------------------------------------ constructors
+
+    @classmethod
+    def build(
+        cls, data, config: SearchConfig | None = None, *, index=False,
+        anytime=False, tune=False, device=None,
+    ) -> "Database":
+        """Precompute every database-side artifact for ``data`` (N, n) on
+        ``device``.  The reference's ``index``, ``anytime`` and ``tune``
+        tiers are not ported yet and raise ``NotImplementedError``."""
+        _not_ported_option("index", index, _UNPORTED_BUNDLE_KEYS["idx_"])
+        _not_ported_option("anytime", anytime, _UNPORTED_BUNDLE_KEYS["any_"])
+        _not_ported_option("tune", tune, _UNPORTED_BUNDLE_KEYS["tune_"])
+        config = config if config is not None else SearchConfig()
+        dev = resolve_device(device)
+        raw = np.asarray(data, dtype=config.precision)
+        if raw.ndim == 3 and raw.shape[2] == 1:
+            raw = raw[:, :, 0]
+        if raw.ndim == 3 or config.channels > 1:
+            raise not_ported("multivariate data (d > 1)", "9 (multivariate)")
+        if raw.ndim != 2:
+            raise ValueError(
+                f"data must be (N, n) equal-length series, got shape {raw.shape}"
+            )
+        n_db, n = raw.shape
+        if n < 2:
+            raise ValueError(f"series length n={n} must be >= 2")
+        w = config.resolve_w(n)
+        config.validate_k(config.k, n_db)
+        rows = _znorm_rows(raw, dtype=config.precision) if config.znorm else raw
+        raw64 = np.asarray(raw, np.float64)
+        row_sums = raw64.sum(axis=1)
+        row_sumsq = (raw64 * raw64).sum(axis=1)
+        del raw64
+        data_t = torch.as_tensor(rows, device=dev).contiguous()
+        upper, lower = envelope_op(data_t, w)
+        cal = calibrate(data_t, w, config.p)
+        return cls(
+            raw=raw, data=data_t, config=config, w=w, upper=upper, lower=lower,
+            row_sums=row_sums, row_sumsq=row_sumsq, calibration=cal,
+        )
+
+    @classmethod
+    def from_arrays(cls, arrays: Mapping[str, np.ndarray], device=None) -> "Database":
+        """A session from the reference's bundle arrays (``.npz`` keys:
+        ``config_json``, ``resolved_w``, ``data``, ``upper``, ``lower``,
+        ``row_sums``, ``row_sumsq`` and the optional ``cal_*``).  Saved
+        artifacts are uploaded, not recomputed."""
+        for prefix, item in _UNPORTED_BUNDLE_KEYS.items():
+            if any(k.startswith(prefix) for k in arrays):
+                raise not_ported(f"a bundle with {prefix}* keys", item)
+        if "channels" in arrays and int(arrays["channels"]) > 1:
+            raise not_ported("a multivariate bundle", "9 (multivariate)")
+        version = int(arrays["bundle_format_version"])
+        if version != BUNDLE_FORMAT_VERSION:
+            raise ValueError(
+                f"database bundle format v{version} unsupported "
+                f"(expected v{BUNDLE_FORMAT_VERSION})"
+            )
+        dev = resolve_device(device)
+        config = SearchConfig.from_json(str(arrays["config_json"]))
+        raw = np.asarray(arrays["data"], dtype=config.precision)
+        rows = _znorm_rows(raw, dtype=config.precision) if config.znorm else raw
+        cal = None
+        if "cal_stage_names" in arrays:
+            cal = Calibration.from_arrays(
+                {k[len("cal_"):]: arrays[k] for k in arrays if k.startswith("cal_")}
+            )
+        dt = _torch_dtype(config.precision)
+        return cls(
+            raw=raw,
+            data=torch.as_tensor(rows, device=dev).contiguous(),
+            config=config,
+            w=int(arrays["resolved_w"]),
+            upper=torch.as_tensor(np.asarray(arrays["upper"]), dtype=dt, device=dev),
+            lower=torch.as_tensor(np.asarray(arrays["lower"]), dtype=dt, device=dev),
+            row_sums=np.asarray(arrays["row_sums"]),
+            row_sumsq=np.asarray(arrays["row_sumsq"]),
+            calibration=cal,
+        )
+
+    # ------------------------------------------------------- persistence
+
+    def save(self, path: str) -> str:
+        """Persist the session to one ``.npz`` bundle (the reference's keys)."""
+        path = str(path) if str(path).endswith(".npz") else f"{path}.npz"
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        arrays: dict[str, np.ndarray] = {
+            "bundle_format_version": np.int64(BUNDLE_FORMAT_VERSION),
+            "config_json": np.str_(self.config.to_json()),
+            "resolved_w": np.int64(self.w),
+            "data": self.raw,
+            "upper": self.upper,
+            "lower": self.lower,
+            "row_sums": self.row_sums,
+            "row_sumsq": self.row_sumsq,
+        }
+        if self._calibration is not None:
+            arrays.update(
+                {f"cal_{k}": v for k, v in self._calibration.to_arrays().items()}
+            )
+        np.savez_compressed(path, **arrays)
+        return path
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "Database":
+        """Rebuild a session from a :meth:`save` bundle, this package's or
+        the reference's."""
+        path = str(path) if str(path).endswith(".npz") else f"{path}.npz"
+        with np.load(path) as z:
+            return cls.from_arrays({k: z[k] for k in z.files}, device=device)
+
+    # -------------------------------------------------------- properties
+
+    @property
+    def device(self) -> torch.device:
+        return self._data.device
+
+    @property
+    def rows_tensor(self) -> torch.Tensor:
+        """The searched rows as the (N, n) tensor on the session's device."""
+        return self._data
+
+    @property
+    def upper(self) -> np.ndarray:
+        """(N, n) upper warping envelopes of the rows, band ``self.w``."""
+        return self._upper.cpu().numpy()
+
+    @property
+    def lower(self) -> np.ndarray:
+        return self._lower.cpu().numpy()
+
+    @property
+    def n_rows(self) -> int:
+        return int(self._data.shape[0])
+
+    @property
+    def length(self) -> int:
+        return int(self._data.shape[1])
+
+    @property
+    def p(self):
+        return self.config.p
+
+    @property
+    def fingerprint(self) -> str:
+        """sha256 over the config's canonical JSON, the resolved band and
+        the raw data bytes (the reference's serving-cache key)."""
+        if self._fingerprint is None:
+            import hashlib
+
+            h = hashlib.sha256()
+            h.update(self.config.stable_hash().encode())
+            h.update(f"|w={self.w}|{self.raw.shape}|{self.raw.dtype}|".encode())
+            h.update(np.ascontiguousarray(self.raw).tobytes())
+            self._fingerprint = h.hexdigest()
+        return self._fingerprint
+
+    def row_mean_std(self, eps: float = STD_EPS) -> tuple[np.ndarray, np.ndarray]:
+        """Per-row mean and (eps-floored) std of the raw rows, from the
+        cached powered norms."""
+        n = self.length
+        mean = self.row_sums / n
+        var = np.maximum(self.row_sumsq / n - mean * mean, 0.0)
+        return mean, np.maximum(np.sqrt(var), eps)
+
+    def __len__(self) -> int:
+        return self.n_rows
+
+    def __repr__(self) -> str:
+        return (
+            f"Database({self.n_rows} x {self.length}, w={self.w}, "
+            f"p={self.config.p}, method={self.config.method!r}, "
+            f"device={self.device})"
+        )
+
+    # --------------------------------------------------------- not ported
+
+    def use_mesh(self, *args, **kwargs):
+        raise not_ported("Database.use_mesh", "11 (sharded driver)")
+
+    def stream(self, *args, **kwargs):
+        raise not_ported("Database.stream", "7 (streaming)")
+
+    # ----------------------------------------------------------- queries
+
+    def prepare_queries(self, queries) -> np.ndarray:
+        """The exact query array the drivers consume: precision-cast and
+        (when the session z-norms) z-normalized, shape validated."""
+        qs = np.asarray(queries, dtype=self.config.precision)
+        if qs.ndim == 3 and qs.shape[-1] == 1:
+            qs = qs[:, :, 0]
+        if qs.ndim not in (1, 2):
+            raise ValueError(
+                f"queries must be one (n,) series or a (Q, n) batch, got "
+                f"shape {qs.shape}"
+            )
+        if qs.shape[-1] != self.length:
+            raise ValueError(
+                f"query length {qs.shape[-1]} != expected series length "
+                f"{self.length}: the paper's DTW bounds assume equal lengths"
+            )
+        if self.config.znorm:
+            single = qs.ndim == 1
+            qs = _znorm_rows(qs[None] if single else qs, dtype=self.config.precision)
+            if single:
+                qs = qs[0]
+        return qs
+
+    def _config_for(self, method: str | None) -> SearchConfig:
+        if method is None:
+            return self.config
+        return dataclasses.replace(self.config, method=method)
+
+    @property
+    def calibration(self) -> Calibration:
+        """The planner's selectivity probe (measured here, once, when a
+        bundle did not carry one)."""
+        if self._calibration is None:
+            self._calibration = calibrate(self._data, self.w, self.config.p)
+        return self._calibration
+
+    def _resolve_method(self, cfg: SearchConfig, k: int | None = None):
+        """``method="auto"`` -> the calibration-chosen stage order."""
+        if cfg.method != "auto":
+            return cfg, None
+        kk = cfg.k if k is None else int(k)
+        cascade = self._cascade_cache.get(kk)
+        if cascade is None:
+            cascade = choose_cascade(self.calibration, k=kk)
+            self._cascade_cache[kk] = cascade
+        return dataclasses.replace(cfg, method=cascade.method), cascade
+
+    def plan(self, queries=None, *, driver: str | None = None,
+             method: str | None = None, k: int | None = None,
+             mode: str = "exact") -> Plan:
+        """The routing decision ``search`` would take for ``queries``."""
+        if queries is None:
+            n_queries = 1
+        elif isinstance(queries, (int, np.integer)):
+            n_queries = int(queries)
+        else:
+            arr = np.asarray(queries)
+            n_queries = 1 if arr.ndim == 1 else int(arr.shape[0])
+        cfg, cascade = self._resolve_method(self._config_for(method), k)
+        return plan_search(
+            cfg, self.n_rows, n_queries, driver=driver, cascade=cascade, mode=mode
+        )
+
+    def search(self, queries, *, k: int | None = None, driver: str | None = None,
+               method: str | None = None, mode: str = "exact"):
+        """Nearest-neighbour search through the planned driver.  One (n,)
+        series -> ``SearchResult``; a (Q, n) batch -> ``BatchSearchResult``."""
+        qs = self.prepare_queries(queries)
+        k = self.config.validate_k(self.config.k if k is None else k, self.n_rows)
+        plan = self.plan(qs, driver=driver, method=method, k=k, mode=mode)
+        cfg = plan.config
+        fn = nn_search_scan if plan.driver == "scan" else nn_search_host
+        return fn(
+            qs, self._data, w=self.w, p=cfg.p, k=k, block=cfg.block,
+            method=cfg.method,
+        )
+
+    def topk(self, queries, k: int, *, driver: str | None = None):
+        """``search`` with an explicit neighbour count."""
+        return self.search(queries, k=k, driver=driver)
+
+    def classify(self, labels, queries, *, driver: str = "scan"):
+        """1-NN classification against per-row ``labels`` (paper §7)."""
+        labels = np.asarray(labels)
+        if labels.shape != (self.n_rows,):
+            raise ValueError(
+                f"labels must be one label per database row "
+                f"({self.n_rows},), got shape {labels.shape}"
+            )
+        res = self.search(queries, k=1, driver=driver)
+        if isinstance(res, SearchResult):
+            return int(labels[res.index])
+        return np.asarray(labels[res.indices[:, 0]])
+
+
+__all__ = ["BUNDLE_FORMAT_VERSION", "BatchSearchResult", "Database", "SearchResult"]

@@ -1,0 +1,307 @@
+"""Planner: pick a driver and a stage order, explainably (port of
+``repro.api.planner``, the scan/host part).
+
+``Database.search`` routes every query batch through ``plan_search``: the
+scan driver below ``SMALL_DB_ROWS`` rows (and for ``method="full"``), the
+host driver otherwise.  ``calibrate`` measures every registered bound on a
+small probe sample at build time and ``choose_cascade`` picks the cheapest
+predicted pipeline for ``method="auto"``; every pipeline returns the same
+answers, only cost differs.  The indexed, sharded and anytime routes of
+the reference are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.api.config import SearchConfig
+from repro_torch.core.pipeline import PIPELINES, not_ported
+
+#: planner-eligible drivers and the entry point each routes to.
+DRIVERS = {
+    "scan": "repro_torch.core.cascade.nn_search_scan",
+    "host": "repro_torch.core.cascade.nn_search_host",
+}
+
+#: the reference's other drivers and the ROADMAP.md queue-1 item porting each
+UNPORTED_DRIVERS = {
+    "indexed": "6 (stage-0 triangle index)",
+    "sharded": "11 (sharded driver)",
+    "anytime": "10 (anytime tier)",
+    "subsequence": "10 (anytime tier)",
+}
+
+#: below this many candidate rows the scan driver is chosen, above it the
+#: host driver (the reference's rule, unchanged).
+SMALL_DB_ROWS = 1024
+
+#: LB stages the calibration probe measures, in tightness order.
+CALIBRATED_STAGES = ("lb_kim", "lb_keogh", "lb_improved", "lb_webb")
+
+#: analytic per-candidate unit costs in O(n)-sweep units (the reference's
+#: table); the exact DP costs ``full_dp_cost(w)``.
+STAGE_UNIT_COST = {
+    "lb_kim": 1.0,
+    "lb_keogh": 3.0,
+    "lb_improved": 8.0,
+    "lb_webb": 9.0,
+}
+
+
+def full_dp_cost(w: int) -> float:
+    """Banded-DP cost per candidate, in O(n)-sweep units: one band row
+    of ``2w + 1`` cells per series sample."""
+    return 2.0 * float(w) + 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Calibration:
+    """Measured probe: every registered bound over a (q, c) row sample.
+
+    ``bounds[s, i, j]`` is the powered ``stage_names[s]`` bound between
+    probe query ``i`` and sampled candidate ``j``; ``dtw[i, j]`` the
+    true powered banded DTW.  Built once at ``Database.build``
+    (``calibrate``), persisted in the bundle, consumed by
+    ``choose_cascade`` — planning never re-measures.
+    """
+
+    stage_names: tuple[str, ...]
+    bounds: np.ndarray  # (S, q, c) powered stage bounds
+    dtw: np.ndarray  # (q, c) powered banded DTW
+    w: int  # band the probe ran at (pins full_dp_cost)
+
+    def to_arrays(self) -> dict[str, np.ndarray]:
+        """Bundle serialization (``cal_*`` keys in ``Database.save``)."""
+        return {
+            "stage_names": np.asarray(self.stage_names),
+            "bounds": self.bounds,
+            "dtw": self.dtw,
+            "w": np.int64(self.w),
+        }
+
+    @classmethod
+    def from_arrays(cls, arrays: dict[str, np.ndarray]) -> "Calibration":
+        return cls(
+            stage_names=tuple(str(s) for s in arrays["stage_names"]),
+            bounds=np.asarray(arrays["bounds"], np.float64),
+            dtw=np.asarray(arrays["dtw"], np.float64),
+            w=int(arrays["w"]),
+        )
+
+
+def calibrate(rows, w: int, p, sample_q: int = 4, sample_c: int = 128, d: int = 1,
+              device=None) -> Calibration:
+    """Measure every registered bound on a small sample of ``rows``.
+
+    Evenly-spaced rows stand in for queries (``sample_q``) against an
+    evenly-spaced candidate subsample (``sample_c``); the four powered
+    bounds and the true powered DTW are computed for every probe pair, on
+    the rows' device (through the kernels on CUDA).
+    """
+    from repro_torch.core import lb as lb_mod
+    from repro_torch.core.pipeline import query_webb_envelopes, require_univariate
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.kernels.dtw.ops import dtw_qbatch_op
+    from repro_torch.kernels.envelope.ops import envelope_op
+    from repro_torch.kernels.lb_improved.ops import lb_improved_qbatch_op
+    from repro_torch.kernels.lb_keogh.ops import lb_keogh_qbatch_op
+
+    require_univariate(d)
+    dev = resolve_device(device, like=rows)
+    rows = torch.as_tensor(rows, device=dev)
+    n_db = rows.shape[0]
+    qi = np.unique(np.linspace(0, n_db - 1, min(sample_q, n_db)).astype(np.int64))
+    ci = np.unique(np.linspace(0, n_db - 1, min(sample_c, n_db)).astype(np.int64))
+    qs = rows[torch.as_tensor(qi, device=dev)].contiguous()
+    cs = rows[torch.as_tensor(ci, device=dev)].contiguous()
+    upper, lower = envelope_op(qs, w)
+    cand_u, cand_l = envelope_op(cs, w)
+    q_ul, q_lu = query_webb_envelopes(upper, lower, w)
+
+    def host(t):
+        return t.double().cpu().numpy()
+
+    bounds = np.stack([
+        host(lb_mod.lb_kim_powered_qbatch(cs, qs, p)),
+        host(lb_keogh_qbatch_op(cs, upper, lower, p)[0]),
+        host(lb_improved_qbatch_op(cs, qs, upper, lower, w, p)),
+        host(lb_mod.lb_webb_powered_qbatch(
+            cs, qs, upper, lower, w, p, q_ul=q_ul, q_lu=q_lu,
+            cand_u=cand_u, cand_l=cand_l,
+        )),
+    ])
+    dtw = host(dtw_qbatch_op(qs, cs, w, p))
+    return Calibration(CALIBRATED_STAGES, bounds, dtw, int(w))
+
+
+@dataclasses.dataclass(frozen=True)
+class CascadePlan:
+    """One stage-order decision: the chosen pipeline + its cost model.
+
+    ``enter_frac[j]`` is the predicted fraction of candidates that
+    reach ``stages[j]`` (survivors of every earlier bound at the probe
+    sample's k-th best threshold); ``stage_cost[j]`` the analytic
+    per-candidate unit cost of running it; ``cost_per_candidate`` their
+    dot product — the objective ``choose_cascade`` minimized.
+    ``predicted`` maps every candidate pipeline to its predicted cost.
+    """
+
+    method: str  # the chosen PIPELINES key
+    stages: tuple[str, ...]
+    enter_frac: tuple[float, ...]
+    stage_cost: tuple[float, ...]
+    cost_per_candidate: float
+    k: int
+    predicted: tuple[tuple[str, float], ...]  # (method, cost), sorted
+
+    def explain(self) -> str:
+        lines = [
+            f"cascade: {' -> '.join(self.stages)} (method={self.method}, "
+            f"calibrated at k={self.k})",
+            f"predicted cost/candidate: {self.cost_per_candidate:.2f} "
+            f"O(n)-sweep units",
+            "unit costs: analytic",
+        ]
+        for s, f, c in zip(self.stages, self.enter_frac, self.stage_cost):
+            lines.append(
+                f"  {s:<12} enter {100 * f:6.2f}%  unit cost {c:5.1f}  -> {f * c:6.2f}"
+            )
+        others = ", ".join(
+            f"{m}={c:.2f}" for m, c in self.predicted if m != self.method
+        )
+        if others:
+            lines.append(f"rejected: {others}")
+        return "\n".join(lines)
+
+
+def choose_cascade(cal: Calibration, k: int = 1) -> CascadePlan:
+    """Pick the cheapest predicted stage order from the calibration.
+
+    For each pipeline the probe sample is pushed through its stages: a
+    pair survives stage ``s`` iff ``bound_s < t_i`` where ``t_i`` is
+    probe query ``i``'s k-th smallest sampled powered DTW.  Predicted
+    cost per candidate is ``sum_j unit_cost_j * enter_frac_j``, the
+    banded DP included.  Deterministic: ties break on (cost, stage
+    count, name).  The reference's measured (tuned) unit costs come with
+    kernel tuning (ROADMAP.md queue 1, item 12).
+    """
+    methods = sorted(
+        m
+        for m, stages in PIPELINES.items()
+        if all(s in cal.stage_names or s == "full" for s in stages)
+    )
+    bound_of = {s: cal.bounds[i] for i, s in enumerate(cal.stage_names)}
+    kk = min(int(k), cal.dtw.shape[1])
+    thr = np.sort(cal.dtw, axis=1)[:, kk - 1][:, None]  # (q, 1)
+
+    scored = []
+    for m in methods:
+        stages = PIPELINES[m]
+        alive = np.ones_like(cal.dtw, dtype=bool)
+        fracs, costs = [], []
+        for s in stages:
+            fracs.append(float(alive.mean()))
+            costs.append(full_dp_cost(cal.w) if s == "full" else STAGE_UNIT_COST[s])
+            if s != "full":
+                alive = alive & (bound_of[s] < thr)
+        total = float(np.dot(fracs, costs))
+        scored.append((total, len(stages), m, tuple(fracs), tuple(costs)))
+    scored.sort(key=lambda t: (t[0], t[1], t[2]))
+    total, _, method, fracs, costs = scored[0]
+    return CascadePlan(
+        method=method,
+        stages=PIPELINES[method],
+        enter_frac=fracs,
+        stage_cost=costs,
+        cost_per_candidate=total,
+        k=kk,
+        predicted=tuple((m, t) for t, _, m, _, _ in scored),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One routing decision: driver + stage order + why."""
+
+    driver: str  # a DRIVERS key
+    stages: tuple[str, ...]
+    reasons: tuple[str, ...]
+    n_queries: int
+    config: SearchConfig
+    cascade: CascadePlan | None = None  # set when the planner chose the order
+
+    def explain(self) -> str:
+        lines = [
+            f"driver: {self.driver} ({DRIVERS[self.driver]})",
+            f"stages: {' -> '.join(self.stages)}",
+            f"queries: {self.n_queries} (method={self.config.method}, "
+            f"p={self.config.p}, k={self.config.k}, "
+            f"block={self.config.block})",
+            "because:",
+        ]
+        lines += [f"  - {r}" for r in self.reasons]
+        if self.cascade is not None:
+            lines.append(self.cascade.explain())
+        return "\n".join(lines)
+
+
+def plan_search(
+    config: SearchConfig,
+    n_rows: int,
+    n_queries: int,
+    *,
+    driver: str | None = None,
+    cascade: CascadePlan | None = None,
+    mode: str = "exact",
+) -> Plan:
+    """Choose the driver for a query batch against one database session:
+    an explicit ``driver`` override wins; then ``method="full"`` and
+    databases below ``SMALL_DB_ROWS`` rows go to the scan driver, the rest
+    to the host driver."""
+    if mode == "anytime":
+        raise not_ported("mode='anytime'", UNPORTED_DRIVERS["anytime"])
+    if mode != "exact":
+        raise ValueError(f"mode={mode!r} unknown; use 'exact' or 'anytime'")
+    stages = PIPELINES[config.method]
+    because = (
+        (
+            f"stage order chosen by calibration: method="
+            f"{config.method!r} predicts "
+            f"{cascade.cost_per_candidate:.2f} sweep units/candidate",
+        )
+        if cascade is not None
+        else ()
+    )
+    if driver is not None:
+        if driver in UNPORTED_DRIVERS:
+            raise not_ported(f"driver={driver!r}", UNPORTED_DRIVERS[driver])
+        if driver not in DRIVERS:
+            raise ValueError(
+                f"driver={driver!r} unknown; available: {sorted(DRIVERS)}"
+            )
+        return Plan(driver, stages, ("caller override",) + because,
+                    n_queries, config, cascade)
+    if config.method == "full":
+        return Plan(
+            "scan", stages,
+            ("method='full' has no LB stages to compact, so the dense "
+             "block scan is the fastest layout",) + because,
+            n_queries, config, cascade,
+        )
+    if n_rows < SMALL_DB_ROWS:
+        return Plan(
+            "scan", stages,
+            (f"database has {n_rows} rows (< {SMALL_DB_ROWS}): one device "
+             f"sweep beats host orchestration overhead at this size",) + because,
+            n_queries, config, cascade,
+        )
+    return Plan(
+        "host", stages,
+        (f"database has {n_rows} rows (>= {SMALL_DB_ROWS}): the host "
+         f"driver gathers LB survivors into pooled fixed-size DP "
+         f"chunks, so post-LB wall-clock tracks surviving work",) + because,
+        n_queries, config, cascade,
+    )

@@ -1,0 +1,345 @@
+"""Two-pass pruned nearest-neighbour search — the paper's Algorithms 2/3.
+
+Port of ``repro.core.cascade`` (scan and host drivers).  Candidates are
+processed in blocks and queries in batches: each query lane keeps its own
+top-k and prunes against its own tightening bound.
+
+* ``nn_search_scan`` — a loop over blocks, each through the stage
+  pipeline of ``repro_torch.core.pipeline`` (first LB stage dense, later
+  stages survivor-compacted, the DP early-abandoning per lane), merged
+  into each query's top-k by a stable sort, so a tie goes to the lower
+  position as with the reference's ``lax.top_k``.
+* ``nn_search_host`` — every LB stage dense per block, the survivors of
+  the whole query batch pooled into ``dtw_chunk``-sized DP launches, and
+  a stable host argsort merge.
+
+Both take numpy arrays or tensors.  They run on the tensors' device, or
+on ``device`` (default: the GPU; ``RuntimeError`` when there is none).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.core import pipeline as pipe
+from repro_torch.core.dtw import BIG, PNorm, finish_cost
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.dtw.ops import dtw_pairs_op
+from repro_torch.kernels.envelope.ops import envelope_op
+
+__all__ = [
+    "BatchSearchResult",
+    "SearchResult",
+    "SearchStats",
+    "nn_search_host",
+    "nn_search_scan",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchStats:
+    """Per-candidate stage counts (paper semantics: Figs 6-10 'pruning').
+
+    ``stage_pruned`` has one pruned count per LB stage of the method's
+    pipeline (``stage_names``, cascade order), and
+    ``sum(stage_pruned) + full_dtw == n_candidates``.  ``blocks_*`` and
+    the DP lane counters are batch-level execution counts.
+    """
+
+    n_candidates: int
+    full_dtw: int  # candidates that reached the O(nw) DP
+    stage_names: tuple[str, ...] = ()
+    stage_pruned: tuple[int, ...] = ()
+    blocks_total: int = 0
+    blocks_lb2: int = 0  # blocks where a post-first LB stage ran
+    blocks_dtw: int = 0  # blocks (scan) or DP chunks (host) that ran the DP
+    dp_lane_work: int = 0  # DP lanes executed, chunk-padded
+    dp_lane_useful: int = 0  # alive DP lanes among them
+
+    @property
+    def pruned_by(self) -> dict[str, int]:
+        """Per-stage pruned counts keyed by registry stage name."""
+        return dict(zip(self.stage_names, self.stage_pruned))
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchResult:
+    distances: np.ndarray  # (k,) ascending
+    indices: np.ndarray  # (k,)
+    stats: SearchStats
+
+    @property
+    def distance(self) -> float:
+        return float(self.distances[0])
+
+    @property
+    def index(self) -> int:
+        return int(self.indices[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSearchResult:
+    """Results for a ``(Q, n)`` query batch; ``result[i]`` is query i's
+    ``SearchResult`` and ``stats`` aggregates the batch."""
+
+    distances: np.ndarray  # (Q, k)
+    indices: np.ndarray  # (Q, k)
+    stats: SearchStats
+    per_query: tuple[SearchStats, ...] = ()
+
+    def __len__(self) -> int:
+        return int(self.distances.shape[0])
+
+    def __getitem__(self, i: int) -> SearchResult:
+        stats = self.per_query[i] if self.per_query else self.stats
+        return SearchResult(
+            distances=self.distances[i], indices=self.indices[i], stats=stats
+        )
+
+    def __iter__(self) -> Iterator[SearchResult]:
+        return (self[i] for i in range(len(self)))
+
+
+def _as_inputs(q, db, device, d: int):
+    """(qs (Q, n), db (N, n), single) as tensors on one device; numpy
+    queries take the database's dtype."""
+    pipe.require_univariate(d)
+    dev = resolve_device(device, like=db if isinstance(db, torch.Tensor) else q)
+    db_t = torch.as_tensor(db, device=dev)
+    if db_t.dtype not in (torch.float32, torch.float64):
+        db_t = db_t.to(torch.float32)
+    q_t = torch.as_tensor(q, device=dev).to(db_t.dtype)
+    single = q_t.ndim == 1
+    qs = q_t[None, :] if single else q_t
+    return qs.contiguous(), db_t.contiguous(), single
+
+
+def _pad_db(db: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
+    n_db = db.shape[0]
+    n_pad = (-n_db) % block
+    if n_pad:
+        # pad rows never win: their LB vs any envelope is huge
+        filler = db.new_full((n_pad, db.shape[1]), 0.5 * BIG ** 0.25)
+        db = torch.cat([db, filler], dim=0)
+    return db, n_pad
+
+
+def init_carry(k: int, nq: int, n_lb: int, dtype, device):
+    """Fresh query-major carry: (top_v (Q, k), top_i (Q, k),
+    stage_pruned (S, Q), dtw_count (Q,), lb2_blocks, dtw_blocks,
+    dp_lane_work, dp_lane_useful)."""
+    return (
+        torch.full((nq, k), BIG, dtype=dtype, device=device),
+        torch.full((nq, k), -1, dtype=torch.int64, device=device),
+        torch.zeros((n_lb, nq), dtype=torch.int64, device=device),
+        torch.zeros((nq,), dtype=torch.int64, device=device),
+        0, 0, 0, 0,
+    )
+
+
+def make_block_step(ctx: pipe.PipeContext, k: int, block: int, method: str, n_real: int):
+    """The per-block body of the scan driver: run the block's stages
+    against each query's k-th best, merge into the top-k by a stable
+    sort, and count.  Lanes with ``cand_i >= n_real`` (database pad rows)
+    are masked off on entry, never evaluated or counted."""
+    nq = ctx.qs.shape[0]
+    n_lb = len(pipe.lb_stage_names(method))
+
+    def body(carry, blk, cand_i):
+        top_v, top_i, c_stage, c_dtw, b_lb2, b_dtw, w_dp, u_dp = carry
+        mask0 = (cand_i < n_real)[None, :].expand(nq, block)
+        bound = top_v[:, -1]
+        st = pipe.run_block_stages(
+            ctx.qs, ctx.upper, ctx.lower, ctx.w, ctx.p, method, blk, bound,
+            mask0, ctx=ctx,
+        )
+        all_v = torch.cat([top_v, st.d], dim=1)
+        all_i = torch.cat([top_i, cand_i[None, :].expand(nq, block)], dim=1)
+        sel = torch.argsort(all_v, dim=1, stable=True)[:, :k]
+        top_v = torch.gather(all_v, 1, sel)
+        top_i = torch.gather(all_i, 1, sel)
+        if n_lb:
+            c_stage = c_stage + torch.stack(
+                [(st.masks[s] & ~st.masks[s + 1]).sum(dim=1) for s in range(n_lb)]
+            )
+        c_dtw = c_dtw + st.masks[-1].sum(dim=1)
+        return (
+            top_v, top_i, c_stage, c_dtw,
+            b_lb2 + int(st.need_lb2), b_dtw + int(st.need_dtw),
+            w_dp + st.dp_lane_work, u_dp + st.dp_lane_useful,
+        )
+
+    return body
+
+
+def _batch_stats(
+    n_db, stage_names, stage_pruned, c3, b2, b3, blocks_total,
+    dp_lane_work=0, dp_lane_useful=0,
+):
+    """Per-query and aggregated stats from the per-stage counter vectors
+    (``stage_pruned`` is (S, Q) in ``stage_names`` order)."""
+    nq = len(c3)
+    stage_pruned = np.asarray(stage_pruned).reshape(len(stage_names), nq)
+    per_query = tuple(
+        SearchStats(
+            n_candidates=n_db,
+            stage_names=tuple(stage_names),
+            stage_pruned=tuple(int(v) for v in stage_pruned[:, i]),
+            full_dtw=int(c3[i]),
+            blocks_total=blocks_total,
+            blocks_lb2=int(b2),
+            blocks_dtw=int(b3),
+            dp_lane_work=int(dp_lane_work),
+            dp_lane_useful=int(dp_lane_useful),
+        )
+        for i in range(nq)
+    )
+    agg = SearchStats(
+        n_candidates=nq * n_db,
+        stage_names=tuple(stage_names),
+        stage_pruned=tuple(int(v) for v in stage_pruned.sum(axis=1)),
+        full_dtw=sum(s.full_dtw for s in per_query),
+        blocks_total=blocks_total,
+        blocks_lb2=int(b2),
+        blocks_dtw=int(b3),
+        dp_lane_work=int(dp_lane_work),
+        dp_lane_useful=int(dp_lane_useful),
+    )
+    return agg, per_query
+
+
+def _result(distances, indices, single, agg, per_query):
+    if single:
+        return SearchResult(distances=distances[0], indices=indices[0], stats=per_query[0])
+    return BatchSearchResult(
+        distances=distances, indices=indices, stats=agg, per_query=per_query
+    )
+
+
+def nn_search_scan(
+    q, db, w: int, p: PNorm = 1, k: int = 1, block: int = 32,
+    method: str = "lb_improved", d: int = 1, device=None,
+) -> SearchResult | BatchSearchResult:
+    """Block-scan cascade.  ``q`` is one series (n,) -> ``SearchResult``
+    or a batch (Q, n) -> ``BatchSearchResult`` (one shared sweep)."""
+    qs, db_t, single = _as_inputs(q, db, device, d)
+    pipe.check_method(method)
+    nq, n = qs.shape
+    n_db = db_t.shape[0]
+    w = int(min(w, n - 1))
+    upper, lower = envelope_op(qs, w)
+    ctx = pipe.make_context(qs, upper, lower, w, p, method)
+    dbp, _ = _pad_db(db_t, block)
+    nb = dbp.shape[0] // block
+    body = make_block_step(ctx, int(k), int(block), method, n_db)
+    n_lb = len(pipe.lb_stage_names(method))
+    carry = init_carry(int(k), nq, n_lb, db_t.dtype, db_t.device)
+    lanes = torch.arange(block, device=db_t.device)
+    for t in range(nb):
+        carry = body(carry, dbp[t * block : (t + 1) * block], t * block + lanes)
+    top_v, top_i, cs, c3, b2, b3, w_dp, u_dp = carry
+    agg, per_query = _batch_stats(
+        n_db, pipe.lb_stage_names(method), cs.cpu().numpy(), c3.cpu().numpy(),
+        b2, b3, blocks_total=nb, dp_lane_work=w_dp, dp_lane_useful=u_dp,
+    )
+    distances = finish_cost(top_v, p).cpu().numpy()
+    return _result(distances, top_i.cpu().numpy(), single, agg, per_query)
+
+
+# ------------------------------------------------------------------ host
+
+
+def _dtw_pairs_block(qs, db, qidx, cidx, w, p, bounds=None):
+    """Banded DP over explicit (query, candidate) row pairs, the pooled
+    survivor chunks of the host driver; the DP kernel gathers the rows
+    from ``qs`` and ``db`` itself.  ``bounds`` (P,) enables abandoning."""
+    return dtw_pairs_op(qs, db, qidx, cidx, w, p, bounds)
+
+
+def nn_search_host(
+    q, db, w: int, p: PNorm = 1, k: int = 1, block: int = 256,
+    dtw_chunk: int = 16, method: str = "lb_improved",
+    early_abandon: bool = False, d: int = 1, device=None,
+) -> SearchResult | BatchSearchResult:
+    """Host-orchestrated cascade with survivor compaction.
+
+    Per block, every LB stage of the method runs dense over the whole
+    query batch (later stages only while lanes survive); the surviving
+    (query, candidate) pairs of the whole batch are pooled into
+    ``dtw_chunk``-sized DP launches and merged into each query's top-k by
+    a stable host argsort.  ``early_abandon`` additionally stops each DP
+    once its band clears the running bound.
+    """
+    qs, db_t, single = _as_inputs(q, db, device, d)
+    pipe.check_method(method)
+    nq, n = qs.shape
+    n_db = db_t.shape[0]
+    w = int(min(w, n - 1))
+    upper, lower = envelope_op(qs, w)
+    ctx = pipe.make_context(qs, upper, lower, w, p, method)
+    dev = db_t.device
+
+    top_v = np.full((nq, k), BIG)
+    top_i = np.full((nq, k), -1, np.int64)
+    lb_names = pipe.lb_stage_names(method)
+    lb_pruned = np.zeros((len(lb_names), nq), np.int64)
+    c3 = np.zeros(nq, np.int64)
+    blocks_lb2 = blocks_dtw = 0
+    dp_lane_work = dp_lane_useful = 0
+    nb = -(-n_db // block)
+
+    def merge(qi: int, vals: np.ndarray, idxs: np.ndarray):
+        av = np.concatenate([top_v[qi], vals])
+        ai = np.concatenate([top_i[qi], idxs])
+        order = np.argsort(av, kind="stable")[:k]
+        top_v[qi], top_i[qi] = av[order], ai[order]
+
+    for t in range(nb):
+        lo, hi = t * block, min((t + 1) * block, n_db)
+        blk = db_t[lo:hi]
+        if blk.shape[0] < block:  # pad the tail block with its last row
+            blk = torch.cat([blk, blk[-1:].expand(block - blk.shape[0], n)], dim=0)
+        bound = top_v[:, -1]
+
+        alive = np.ones((nq, hi - lo), bool)
+        for si, name in enumerate(lb_names):
+            if si > 0:
+                if not alive.any():
+                    break
+                if si == 1:
+                    blocks_lb2 += 1
+            lb = pipe.STAGES[name].dense(ctx, blk)[:, : hi - lo].cpu().numpy()
+            alive_next = alive & (lb < bound[:, None])
+            lb_pruned[si] += (alive & ~alive_next).sum(axis=1)
+            alive = alive_next
+
+        # pooled survivor pairs, query-major
+        pair_q, pair_c = np.nonzero(alive)
+        pair_c = pair_c + lo
+        c3 += alive.sum(axis=1)
+        for s0 in range(0, len(pair_q), dtw_chunk):
+            sel_q = pair_q[s0 : s0 + dtw_chunk]
+            sel_c = pair_c[s0 : s0 + dtw_chunk]
+            blocks_dtw += 1
+            dp_lane_work += dtw_chunk
+            dp_lane_useful += len(sel_q)
+            qi_t = torch.as_tensor(sel_q, dtype=torch.int64, device=dev)
+            ci_t = torch.as_tensor(sel_c, dtype=torch.int64, device=dev)
+            bounds = None
+            if early_abandon:
+                bounds = torch.as_tensor(top_v[sel_q, -1], dtype=db_t.dtype, device=dev)
+            dvals = _dtw_pairs_block(qs, db_t, qi_t, ci_t, w, p, bounds).cpu().numpy()
+            for qi in np.unique(sel_q):
+                sel = sel_q == qi
+                merge(int(qi), dvals[sel], sel_c[sel])
+
+    agg, per_query = _batch_stats(
+        n_db, lb_names, lb_pruned, c3, blocks_lb2, blocks_dtw, blocks_total=nb,
+        dp_lane_work=dp_lane_work, dp_lane_useful=dp_lane_useful,
+    )
+    distances = finish_cost(torch.as_tensor(top_v, dtype=db_t.dtype), p).numpy()
+    return _result(distances, top_i, single, agg, per_query)

@@ -1,0 +1,33 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
+
+Four kernels carry the default session: ``envelope`` (K1), ``lb_keogh``
+(K2, LB_Keogh + the projection H), ``lb_improved`` (K3, pass 2 over H)
+and ``dtw`` (K5, the banded DP with per-lane abandoning).  Each package
+holds ``ops.py`` — the wrappers, the plain PyTorch version and the
+kernel's launch function, which counts its launches — and ``ref.py``,
+the oracle.  A wrapper launches the kernel for CUDA tensors (or raises)
+and runs the plain version for CPU tensors.
+"""
+
+from repro_torch.kernels.dtw.ops import dtw_launch
+from repro_torch.kernels.envelope.ops import envelope_launch
+from repro_torch.kernels.lb_improved.ops import lb_improved_pass2_launch
+from repro_torch.kernels.lb_keogh.ops import lb_keogh_launch
+
+#: kernel name -> its launch function (which carries ``.launches``)
+LAUNCHERS = {
+    "envelope": envelope_launch,
+    "lb_keogh": lb_keogh_launch,
+    "lb_improved_pass2": lb_improved_pass2_launch,
+    "dtw": dtw_launch,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset, by kernel name."""
+    return {name: fn.launches for name, fn in LAUNCHERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in LAUNCHERS.values():
+        fn.launches = 0

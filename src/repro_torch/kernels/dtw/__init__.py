@@ -1,0 +1,18 @@
+from repro_torch.kernels.dtw.ops import (
+    dtw_launch,
+    dtw_op,
+    dtw_pairs_op,
+    dtw_plain,
+    dtw_qbatch_op,
+)
+from repro_torch.kernels.dtw.ref import dtw_early_ref, dtw_ref
+
+__all__ = [
+    "dtw_early_ref",
+    "dtw_launch",
+    "dtw_op",
+    "dtw_pairs_op",
+    "dtw_plain",
+    "dtw_qbatch_op",
+    "dtw_ref",
+]

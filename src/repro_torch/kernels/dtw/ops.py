@@ -1,0 +1,102 @@
+"""Banded DTW: the K5 CUDA kernel's wrappers and plain version.
+
+The kernel (``csrc/dtw.cu``) replaces the TPU kernel
+``repro/kernels/dtw/kernel.py::dtw_banded_pallas``.  It takes (query,
+candidate) pairs as the dense (Q, B) grid or as explicit (qidx, cidx)
+index lists into the query and candidate rows, and gathers the rows
+itself, so the drivers build no (chunk, n) copies.  Per-lane powered
+``bounds`` (the cascade's running k-th best) let a lane abandon: it then
+returns a value >= its bound instead of the exact distance.  Omitted,
+every lane runs the full DP.  p in {1, 2, inf}, float32 and float64.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.dtw import BIG, _dtw_rows_early, dtw_banded_diag, finish_cost
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype, p_code
+
+
+def dtw_plain(qs, cands, w: int, p=1, qidx=None, cidx=None, bounds=None):
+    """Plain PyTorch version: powered DTW, (Q, B) dense or (P,) for pair
+    lists.  At p = inf it is the anti-diagonal DP of
+    ``core.dtw.dtw_banded_diag`` and ignores ``bounds`` (an exact value
+    meets the abandon contract)."""
+    n = qs.shape[1]
+    w = int(min(w, n - 1))
+    if qidx is None:
+        nq, b = qs.shape[0], cands.shape[0]
+        qrows = qs[:, None, :].expand(nq, b, n).reshape(nq * b, n)
+        crows = cands[None, :, :].expand(nq, b, n).reshape(nq * b, n)
+        lead = (nq, b)
+    else:
+        qrows, crows, lead = qs[qidx], cands[cidx], (qidx.shape[0],)
+    if p == math.inf:
+        out = dtw_banded_diag(qrows, crows, w, p, powered=True)
+    else:
+        if bounds is None:
+            bound = torch.full((qrows.shape[0],), BIG, dtype=qs.dtype, device=qs.device)
+        else:
+            bound = bounds.reshape(-1)
+        out = _dtw_rows_early(qrows, crows, w, bound, p)
+    return out.reshape(lead)
+
+
+def dtw_launch(qs, cands, w: int, p=1, qidx=None, cidx=None, bounds=None):
+    """Launch K5 on CUDA tensors; shapes follow dtw_plain."""
+    dev, dt = qs.device, qs.dtype
+    nq, n = qs.shape
+    w = int(min(w, n - 1))
+    check_cuda_tensor("qs", qs, dev, dt)
+    check_cuda_tensor("cands", cands, dev, dt, (cands.shape[0], n))
+    if qidx is None:
+        npairs, lead = nq * cands.shape[0], (nq, cands.shape[0])
+    else:
+        npairs, lead = qidx.shape[0], (qidx.shape[0],)
+        check_cuda_tensor("qidx", qidx, dev, torch.int64, (npairs,))
+        check_cuda_tensor("cidx", cidx, dev, torch.int64, (npairs,))
+    if bounds is not None:
+        check_cuda_tensor("bounds", bounds, dev, dt, lead)
+    out = torch.empty(lead, dtype=dt, device=dev)
+    code = cuda_lib.library().repro_dtw(
+        kernel_dtype(qs), p_code(p), qs.data_ptr(), cands.data_ptr(),
+        cuda_lib.ptr(qidx), cuda_lib.ptr(cidx), cuda_lib.ptr(bounds), npairs,
+        cands.shape[0], n, w, out.data_ptr(), cuda_lib.stream_of(dev),
+    )
+    cuda_lib.check("dtw", code)
+    if npairs:
+        dtw_launch.launches += 1
+    return out
+
+
+dtw_launch.launches = 0
+
+
+def _dispatch(qs, cands, w, p, qidx, cidx, bounds):
+    if qs.device.type == "cpu":
+        return dtw_plain(qs, cands, w, p, qidx, cidx, bounds)
+    if qs.device.type != "cuda":
+        raise ValueError(f"dtw runs on cuda or cpu, got {qs.device}")
+    return dtw_launch(qs, cands, w, p, qidx, cidx, bounds)
+
+
+def dtw_qbatch_op(qs, cands, w: int, p=1, bounds=None):
+    """Powered DTW of queries (Q, n) x candidates (B, n) -> (Q, B)."""
+    return _dispatch(qs, cands, w, p, None, None, bounds)
+
+
+def dtw_pairs_op(qs, cands, qidx, cidx, w: int, p=1, bounds=None):
+    """Powered DTW of the pairs (qs[qidx[i]], cands[cidx[i]]) -> (P,)."""
+    return _dispatch(qs, cands, w, p, qidx, cidx, bounds)
+
+
+def dtw_op(q, cands, w: int, p=1, powered: bool = False, bounds=None):
+    """DTW_p of query (n,) against candidates (B, n) -> (B,), as the
+    reference's ``dtw_op``; ``bounds`` (B,) are powered abandon bounds."""
+    b = None if bounds is None else bounds.reshape(1, -1)
+    out = dtw_qbatch_op(q[None, :], cands, w, p, b)[0]
+    return out if powered else finish_cost(out, p)

@@ -1,0 +1,57 @@
+"""Warping envelope: the K1 CUDA kernel's wrapper and its plain version.
+
+The kernel (``csrc/envelope.cu``) replaces the TPU kernel
+``repro/kernels/envelope/kernel.py::envelope_pallas_padded``.  The op keeps
+the reference op's semantics: w is clamped to n - 1 and w = 0 returns
+(x, x) without a launch.  The kernel pads inside shared memory, so no
++-BIG padded copies are made here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.envelope import envelope_batch
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype
+
+
+def envelope_plain(xs: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel (van Herk–Gil–Werman)."""
+    return envelope_batch(xs, w)
+
+
+def envelope_launch(xs: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K1 on a contiguous CUDA (rows, n) batch, 1 <= w <= n - 1."""
+    rows, n = xs.shape
+    check_cuda_tensor("xs", xs, xs.device, xs.dtype)
+    u = torch.empty_like(xs)
+    l = torch.empty_like(xs)
+    code = cuda_lib.library().repro_envelope(
+        kernel_dtype(xs), xs.data_ptr(), u.data_ptr(), l.data_ptr(),
+        rows, n, w, cuda_lib.stream_of(xs.device),
+    )
+    cuda_lib.check("envelope", code)
+    if rows:
+        envelope_launch.launches += 1
+    return u, l
+
+
+envelope_launch.launches = 0
+
+
+def envelope_op(xs: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched warping envelope (U, L) of ``xs`` (..., n).
+
+    CUDA tensors go through the kernel (or raise); CPU tensors take the
+    plain version."""
+    n = xs.shape[-1]
+    w = int(min(w, n - 1))
+    if w == 0:
+        return xs, xs
+    if xs.device.type == "cpu":
+        return envelope_plain(xs, w)
+    if xs.device.type != "cuda":
+        raise ValueError(f"envelope_op runs on cuda or cpu, got {xs.device}")
+    u, l = envelope_launch(xs.reshape(-1, n), w)
+    return u.reshape(xs.shape), l.reshape(xs.shape)

@@ -1,0 +1,108 @@
+"""LB_Improved pass 2: the K3 CUDA kernel's wrappers and plain version.
+
+The kernel (``csrc/lb_improved.cu``) replaces the TPU kernels
+``repro/kernels/lb_improved/kernel.py::lb_improved_pass2_qbatch_pallas``
+and, as its Q = 1 case, ``lb_improved_pass2_pallas``.  Its input is a
+stack of projection rows H (P, n) with one query row per H row: either
+the dense (Q, B) stack or an explicit (P,) query index, so one entry
+serves the dense stage and the compacted per-pair stage.  The envelope
+of H is padded inside the kernel; no padded copy of H is made.
+
+The full bound is lb1 + lb2 (the max of the two at p = inf), where the
+reference op adds them even at p = inf with lb1 = inf from its LB_Keogh
+kernel; here both passes use the max form at p = inf.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core import lb as lb_mod
+from repro_torch.core.envelope import envelope_batch
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype, p_code
+from repro_torch.kernels.lb_keogh.ops import lb_keogh_qbatch_op
+
+
+def lb_improved_pass2_plain(h, qs, w: int, p=1, qidx=None):
+    """Plain PyTorch version: h (Q, B, n) dense or (P, n) with qidx (P,)
+    -> lb2 (Q, B) or (P,)."""
+    w = int(min(w, h.shape[-1] - 1))
+    hu, hl = envelope_batch(h, w)
+    q = qs[:, None, :] if qidx is None else qs[qidx]
+    return lb_mod.lb_keogh_powered(q, hu, hl, p)
+
+
+def lb_improved_pass2_launch(h, qs, w: int, p=1, qidx=None):
+    """Launch K3 on CUDA tensors; shapes follow lb_improved_pass2_plain."""
+    dev, dt = h.device, h.dtype
+    n = h.shape[-1]
+    w = int(min(w, n - 1))
+    check_cuda_tensor("h", h, dev, dt)
+    check_cuda_tensor("qs", qs, dev, dt, (qs.shape[0], n))
+    if qidx is None:
+        nq, b = h.shape[0], h.shape[1]
+        if nq != qs.shape[0]:
+            raise ValueError(f"h has {nq} query rows, qs has {qs.shape[0]}")
+        rows, lead, bstride = nq * b, (nq, b), b
+    else:
+        rows, lead, bstride = h.shape[0], (h.shape[0],), 1
+        check_cuda_tensor("qidx", qidx, dev, torch.int64, (rows,))
+    lb2 = torch.empty(lead, dtype=dt, device=dev)
+    code = cuda_lib.library().repro_lb_improved_pass2(
+        kernel_dtype(h), p_code(p), h.data_ptr(), qs.data_ptr(),
+        cuda_lib.ptr(qidx), rows, bstride, n, w, lb2.data_ptr(),
+        cuda_lib.stream_of(dev),
+    )
+    cuda_lib.check("lb_improved_pass2", code)
+    if rows:
+        lb_improved_pass2_launch.launches += 1
+    return lb2
+
+
+lb_improved_pass2_launch.launches = 0
+
+
+def _dispatch(h, qs, w, p, qidx):
+    if h.device.type == "cpu":
+        return lb_improved_pass2_plain(h, qs, w, p, qidx)
+    if h.device.type != "cuda":
+        raise ValueError(f"lb_improved runs on cuda or cpu, got {h.device}")
+    return lb_improved_pass2_launch(h, qs, w, p, qidx)
+
+
+def lb_improved_pass2_qbatch_op(h, qs, w: int, p=1):
+    """Second term of Corollary 4 for projections h (Q, B, n) against
+    queries (Q, n) -> (Q, B)."""
+    return _dispatch(h, qs, w, p, None)
+
+
+def lb_improved_pass2_pairs_op(h, qs, qidx, w: int, p=1):
+    """Second term for projection rows h (P, n), row i against
+    qs[qidx[i]] -> (P,)."""
+    return _dispatch(h, qs, w, p, qidx)
+
+
+def lb_improved_pass2_op(h, q, w: int, p=1):
+    """Second term for projections h (B, n) of one query q (n,) -> (B,)."""
+    return lb_improved_pass2_qbatch_op(h[None], q[None, :], w, p)[0]
+
+
+def combine_passes(lb1, lb2, p):
+    return torch.maximum(lb1, lb2) if p == math.inf else lb1 + lb2
+
+
+def lb_improved_qbatch_op(cands, qs, upper, lower, w: int, p=1):
+    """Full powered LB_Improved, candidates (B, n) vs queries (Q, n) ->
+    (Q, B): K2 emits the projection stack that K3 consumes."""
+    lb1, h = lb_keogh_qbatch_op(cands, upper, lower, p)
+    return combine_passes(lb1, lb_improved_pass2_qbatch_op(h, qs, w, p), p)
+
+
+def lb_improved_op(cands, q, upper, lower, w: int, p=1):
+    """Full powered LB_Improved for candidates (B, n) against one query."""
+    return lb_improved_qbatch_op(
+        cands, q[None, :], upper[None, :], lower[None, :], w, p
+    )[0]
