@@ -12,16 +12,29 @@ Phases (any failure raises, exits non-zero and prints no result line):
 2. Each CUDA kernel against its plain PyTorch version on the card, at
    the main path's shapes and at edge shapes, with its time (CUDA
    events), the plain version's time, its lower bound and, where one
-   PyTorch call computes the same function, that call's time.
+   PyTorch call computes the same function, that call's time.  The fused
+   LB kernel (K4) must be bit-equal to LB_Keogh (K2) plus pass 2 (K3),
+   the stream entry (K7) to K2 on the copied windows, and every schedule
+   of a family's tune space to its fallback.
 3. The main path: a default ``Database`` session (100,000 random walks
    of length 1,000, ``SearchConfig()``) built and searched with 16 new
-   queries through the host driver; every kernel must have launched, two
-   queries' top-1 must equal a brute force over all rows, and every
+   queries through the host driver, one fused LB launch (K4) per block
+   and no K2/K3 launch; the pruning counts must be the recorded ones,
+   two queries' top-1 must equal a brute force over all rows, and every
    distance must match the float64 oracle.
 4. A small session (768 rows of 128) on the scan driver for every
-   univariate method, on the GPU and on the CPU: same indices.
+   univariate method, on the GPU and on the CPU: same indices.  Then the
+   stream form of LB_Improved (K7, then K3) over a flat segment against
+   its plain version.
+5. The tuned session: ``Database.build(rows, tune=...)`` on phase 3's
+   rows (every family's sweep printed), a save/load round trip that
+   re-installs the table, ``method="auto"`` and ``method="kim_improved"``
+   searches that must answer as the untuned session does, measured costs
+   in ``plan().explain()``, and ``python -m repro_torch.launch.tune``.
 
-The last lines are the kernels' JSON record, the card's name and power
+Launches are counted per phase (3 build, 3 search, 4 scan, 4 stream,
+5 tuned), each from zero; phase 2's comparisons are not counted.  The
+last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -29,6 +42,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -47,7 +61,15 @@ N_ROWS, LENGTH, N_QUERIES = 100_000, 1000, 16
 BLOCK, DTW_CHUNK = 32, 16
 SEED = 0
 
-TOL = {"envelope": 0.0, "lb_keogh": 1e-4, "lb_improved_pass2": 2e-4, "dtw": 3e-4}
+#: the default session's pruning counts and top-1 rows as first measured
+#: on the card with separate LB_Keogh and LB_Improved launches (PERF.md);
+#: the fused route must reproduce them exactly
+MAIN_PRUNED = {"lb_keogh": 1_543_800, "lb_improved": 40_029}
+MAIN_FULL_DTW = 16_171
+MAIN_TOP1 = [43381, 21115]
+
+TOL = {"envelope": 0.0, "lb_keogh": 1e-4, "lb_improved_pass2": 2e-4, "dtw": 3e-4,
+       "lb_kim": 0.0, "lb_keogh_stream": 1e-4, "lb_fused": 2e-4}
 SOURCES = {
     "envelope": ("src/repro_torch/csrc/envelope.cu",
                  "src/repro/kernels/envelope/kernel.py:52"),
@@ -56,6 +78,11 @@ SOURCES = {
     "lb_improved_pass2": ("src/repro_torch/csrc/lb_improved.cu",
                           "src/repro/kernels/lb_improved/kernel.py:115"),
     "dtw": ("src/repro_torch/csrc/dtw.cu", "src/repro/kernels/dtw/kernel.py:119"),
+    "lb_fused": ("src/repro_torch/csrc/lb_fused.cu",
+                 "src/repro/kernels/lb_fused/kernel.py:219"),
+    "lb_kim": ("src/repro_torch/csrc/lb_kim.cu", "src/repro/kernels/lb_kim/kernel.py:65"),
+    "lb_keogh_stream": ("src/repro_torch/csrc/lb_keogh.cu",
+                        "src/repro/kernels/lb_keogh/kernel.py:127"),
 }
 
 
@@ -110,6 +137,34 @@ def check_close(name, got, want, rtol, what):
     if not torch.allclose(got, want, rtol=rtol, atol=0.0):
         fail(f"{name} {what}: max rel err {rel_err(got, want):.3g} > {rtol}")
     return float((got - want).abs().max())
+
+
+def check_equal(name, got, want, what):
+    """Bit-equality of one output or a tuple of outputs."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"{name} {what}: not bit-equal")
+
+
+def counted(launches: dict, phase: str, fn):
+    """Run ``fn`` with every kernel's launch count set to 0 first; keep
+    the counts it leaves under ``launches[phase]``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    launches[phase] = launch_counts()
+    reset_launch_counts()
+    return out
+
+
+def require_launched(launches: dict, phase: str, names, what: str):
+    for name in names:
+        if launches[phase][name] <= 0:
+            fail(f"{what}: kernel {name} was not launched ({launches[phase]})")
 
 
 # ------------------------------------------------------------- phase 1
@@ -306,6 +361,154 @@ def phase_kernels(dev):
     return rec
 
 
+def phase_kernels_lb(dev, rec):
+    """K6, K7 and K4 against their plain versions; adds to ``rec``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import random_walks
+    from repro_torch.kernels.envelope.ops import envelope_launch
+    from repro_torch.kernels.lb_fused.ops import fused_smem_bytes, lb_fused_launch, lb_fused_plain
+    from repro_torch.kernels.lb_improved.ops import combine_passes, lb_improved_pass2_launch
+    from repro_torch.kernels.lb_keogh import (
+        lb_keogh_launch,
+        lb_keogh_stream_launch,
+        lb_keogh_stream_plain,
+        materialize_windows,
+    )
+    from repro_torch.kernels.lb_kim.ops import lb_kim_launch, lb_kim_plain
+    from repro_torch.kernels.tuning import search_space
+
+    rng = np.random.default_rng(SEED + 3)
+    w = LENGTH // 10
+    nq, b, n = N_QUERIES, BLOCK, LENGTH
+
+    def walks(count, length, dtype=torch.float32):
+        return torch.as_tensor(random_walks(rng, count, length), device=dev).to(dtype)
+
+    qs = walks(nq, n)
+    cands = walks(b, n)
+    upper, lower = envelope_launch(qs, w)
+
+    # K6 LB_Kim: bit-equal at every p, mask, dtype and tile
+    mask = torch.as_tensor(rng.random((nq, b)) < 0.6, device=dev)
+    for p in (1, 2, math.inf):
+        for m in (None, mask, mask.float()):
+            got = lb_kim_launch(cands, qs, m, p)
+            check_equal("lb_kim", got, lb_kim_plain(cands, qs, m, p), f"p={p}")
+            for cfg in search_space("lb_kim"):
+                check_equal("lb_kim", lb_kim_launch(cands, qs, m, p, cfg.tile_b), got,
+                            f"tile_b={cfg.tile_b} p={p}")
+    c37, q5 = walks(37, 300, torch.float64), walks(5, 300, torch.float64)
+    m37 = torch.as_tensor(rng.random((5, 37)) < 0.5, device=dev)
+    for p in (1, 2, math.inf):
+        check_equal("lb_kim", lb_kim_launch(c37, q5, m37, p), lb_kim_plain(c37, q5, m37, p),
+                    f"float64 ragged p={p}")
+    ms = time_ms(lambda: lb_kim_launch(cands, qs, None, 1))
+    plain = time_ms(lambda: lb_kim_plain(cands, qs, None, 1), iters=10)
+    bnd, by = bound_ms(4 * (b * n + nq * n + nq * b), 2 * (b + nq) * n + 10 * nq * b)
+    rec["lb_kim"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=None, shape=f"Q={nq} B={b} n={n} p=1")
+    log(f"[kernel] lb_kim ok (bit-equal, every tile_b): {ms:.4f} ms vs plain "
+        f"{plain:.3f} ms, bound {bnd:.5f} ms ({by})")
+
+    # K7 stream LB_Keogh: B = 32 windows of a flat segment, hop 1 and 3
+    err = 0.0
+    for hop in (1, 3):
+        seg = walks(1, (b - 1) * hop + n)[0]
+        wins = materialize_windows(seg, n, hop)
+        for p in (1, 2, math.inf):
+            lb, h = lb_keogh_stream_launch(seg, upper, lower, n, hop, p)
+            plb, ph = lb_keogh_stream_plain(seg, upper, lower, n, hop, p)
+            e = check_close("lb_keogh_stream", lb, plb, TOL["lb_keogh_stream"],
+                            f"lb hop={hop} p={p}")
+            err = max(err, e) if p == 1 else err
+            check_equal("lb_keogh_stream", h, ph, f"H hop={hop} p={p}")
+            check_equal("lb_keogh_stream", (lb, h), lb_keogh_launch(wins, upper, lower, p),
+                        f"vs K2 on the windows hop={hop} p={p}")
+            for cfg in search_space("lb_keogh"):
+                check_equal("lb_keogh_stream",
+                            lb_keogh_stream_launch(seg, upper, lower, n, hop, p, cfg.tile_b),
+                            (lb, h), f"tile_b={cfg.tile_b} hop={hop} p={p}")
+                check_equal("lb_keogh", lb_keogh_launch(wins, upper, lower, p,
+                                                        tile_b=cfg.tile_b),
+                            (lb, h), f"tile_b={cfg.tile_b} p={p}")
+    seg64 = walks(1, 40 * 2 + 90, torch.float64)[0]
+    q64 = walks(3, 90, torch.float64)
+    u64, l64 = envelope_launch(q64, 9)
+    lb, h = lb_keogh_stream_launch(seg64, u64, l64, 90, 2, 2)
+    plb, ph = lb_keogh_stream_plain(seg64, u64, l64, 90, 2, 2)
+    check_close("lb_keogh_stream", lb, plb, TOL["lb_keogh_stream"], "float64")
+    check_equal("lb_keogh_stream", h, ph, "float64 H")
+    seg = walks(1, (b - 1) + n)[0]
+    ms = time_ms(lambda: lb_keogh_stream_launch(seg, upper, lower, n, 1, 1))
+    plain = time_ms(lambda: lb_keogh_stream_plain(seg, upper, lower, n, 1, 1), iters=10)
+    bnd, by = bound_ms(4 * (seg.numel() + 2 * nq * n + nq * b + nq * b * n), 8 * nq * b * n)
+    rec["lb_keogh_stream"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                                  bound_by=by, library_ms=None,
+                                  shape=f"Q={nq} B={b} n={n} hop=1 p=1")
+    log(f"[kernel] lb_keogh_stream ok (bit-equal to K2 on the windows, every tile_b): "
+        f"{ms:.4f} ms vs plain {plain:.3f} ms, bound {bnd:.5f} ms ({by})")
+
+    # K4 fused LB: bounds at each query's median lb1 (about half the lanes
+    # reach pass 2), query 0 with no live lane; bit-equal to K2 + K3
+    def fused_case(c, q, u, l, ww, p, what, skip_query0=True):
+        lb1_k2, h = lb_keogh_launch(c, u, l, p)
+        bounds = lb1_k2.median(dim=1).values.contiguous()
+        if skip_query0:
+            bounds[0] = 0.0
+        lb1, lb = lb_fused_launch(c, q, u, l, ww, bounds, p)
+        live = lb1 < bounds[:, None]
+        if skip_query0 and bool(live[0].any()):
+            fail(f"lb_fused {what}: query 0 has a live lane")
+        want = combine_passes(lb1_k2, lb_improved_pass2_launch(h, q, ww, p), p)
+        check_equal("lb_fused", (lb1, lb), (lb1_k2, torch.where(live, want, lb1_k2)),
+                    f"vs K2 + K3 {what}")
+        plb1, plb = lb_fused_plain(c, q, u, l, ww, torch.full_like(bounds, math.inf), p)
+        check_close("lb_fused", lb1, plb1, TOL["lb_keogh"], f"lb1 {what}")
+        e = check_close("lb_fused", lb[live], plb[live], TOL["lb_fused"], f"lb {what}")
+        check_equal("lb_fused", lb[~live], lb1[~live], f"dead lanes {what}")
+        for cfg in search_space("lb_fused"):
+            need = fused_smem_bytes(c.shape[1], min(ww, c.shape[1] - 1), cfg.tile_b,
+                                    cfg.grid, c.element_size())
+            if need > 232_448:
+                continue  # the sweep records it as not runnable
+            check_equal("lb_fused", lb_fused_launch(c, q, u, l, ww, bounds, p, cfg.tile_b,
+                                                    cfg.depth, cfg.grid),
+                        (lb1, lb), f"{cfg} {what}")
+        return bounds, int(live.sum()), e
+
+    err = 0.0
+    for p in (1, 2):
+        bounds, live, e = fused_case(cands, qs, upper, lower, w, p, f"p={p}")
+        err = e if p == 1 else err
+    c37 = walks(37, 200, torch.float64)
+    q5 = walks(5, 200, torch.float64)
+    u5, l5 = envelope_launch(q5, 20)
+    for p in (1, 2):
+        fused_case(c37, q5, u5, l5, 20, p, f"float64 ragged p={p}")
+    bounds, live, _ = fused_case(cands, qs, upper, lower, w, 1, "timed", skip_query0=False)
+    ms = time_ms(lambda: lb_fused_launch(cands, qs, upper, lower, w, bounds, 1))
+    plain = time_ms(lambda: lb_fused_plain(cands, qs, upper, lower, w, bounds, 1), iters=10)
+    # what the host driver launched per block before: K2 then K3
+    pair = time_ms(lambda: lb_improved_pass2_launch(
+        lb_keogh_launch(cands, upper, lower, 1)[1], qs, w, 1))
+    # main-path-like: bounds at each query's 2.5% quantile of lb1
+    sparse = torch.quantile(lb_keogh_launch(cands, upper, lower, 1)[0], 0.025, dim=1)
+    ms_sparse = time_ms(lambda: lb_fused_launch(cands, qs, upper, lower, w,
+                                                sparse.contiguous(), 1))
+    bnd, by = bound_ms(4 * (b * n + 3 * nq * n + nq + 2 * nq * b),
+                       8 * nq * b * n + 12 * live * n)
+    rec["lb_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                           library_ms=None, k2_k3_ms=pair, ms_sparse=ms_sparse,
+                           shape=f"Q={nq} B={b} n={n} w={w} p=1, {live} of {nq * b} "
+                                 f"lanes live")
+    log(f"[kernel] lb_fused ok (bit-equal to K2 + K3, every schedule): {ms:.4f} ms "
+        f"({live} live lanes; {ms_sparse:.4f} ms at the 2.5% quantile) vs K2 + K3 "
+        f"{pair:.4f} ms, plain {plain:.3f} ms, bound {bnd:.5f} ms ({by})")
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------------------------- phase 3
 
 
@@ -327,14 +530,13 @@ def device_busy(fn) -> tuple[float, float]:
     return busy_us / 1e3, wall_ms
 
 
-def phase_main_path(dev):
+def phase_main_path(dev, launches):
     import numpy as np
     import torch
 
     from repro_torch.api import Database
     from repro_torch.core.dtw import dtw_reference
     from repro_torch.data.synthetic import random_walks
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.dtw.ops import dtw_qbatch_op
 
     rng = np.random.default_rng(SEED)
@@ -342,38 +544,51 @@ def phase_main_path(dev):
     queries = random_walks(rng, N_QUERIES, LENGTH)
     torch.cuda.synchronize()
 
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    db = Database.build(x)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    def build():
+        t0 = time.perf_counter()
+        db = Database.build(x)
+        torch.cuda.synchronize()
+        return db, time.perf_counter() - t0
+
+    db, build_s = counted(launches, "build", build)
     plan = db.plan(queries).explain()
     if not plan.startswith("driver: host"):
         fail(f"default session did not route to the host driver:\n{plan}")
-    t0 = time.perf_counter()
-    res = db.search(queries)
-    torch.cuda.synchronize()
-    search_s = time.perf_counter() - t0
-    launches = launch_counts()
-    reset_launch_counts()
+
+    def search():
+        t0 = time.perf_counter()
+        res = db.search(queries)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    res, search_s = counted(launches, "search", search)
     busy_ms, wall_ms = device_busy(lambda: db.search(queries))
     log(f"[main] {db!r}; build {build_s:.2f} s, search of {N_QUERIES} queries "
         f"{search_s:.2f} s = {N_QUERIES / search_s:.2f} qps")
     log("[main] plan: " + " | ".join(plan.splitlines()[:3]))
     s = res.stats
     log(f"[main] pruned {s.pruned_by}, full_dtw {s.full_dtw} of "
-        f"{s.n_candidates}, DP chunks {s.blocks_dtw}, DP lanes "
-        f"{s.dp_lane_useful}/{s.dp_lane_work}")
-    log(f"[main] launches: {launches}")
+        f"{s.n_candidates}, blocks {s.blocks_total}, DP chunks {s.blocks_dtw}, "
+        f"DP lanes {s.dp_lane_useful}/{s.dp_lane_work}")
+    log(f"[main] launches: build {launches['build']}; search {launches['search']}")
     if busy_ms > 0:
         log(f"[main] profiled second search: device busy {busy_ms:.1f} ms of "
             f"{wall_ms:.1f} ms wall = idle share {1 - busy_ms / wall_ms:.3f}")
     else:
         log("[main] profiled second search: the profiler saw no device time; "
             "idle share not measured")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched by the main path")
+    require_launched(launches, "build", ("envelope", "lb_kim", "lb_keogh",
+                                         "lb_improved_pass2", "dtw"), "build")
+    require_launched(launches, "search", ("envelope", "lb_fused", "dtw"), "search")
+    got = launches["search"]
+    if got["lb_fused"] != s.blocks_total or got["lb_keogh"] or got["lb_improved_pass2"]:
+        fail(f"search: expected one lb_fused launch per block ({s.blocks_total}) and "
+             f"no lb_keogh / lb_improved_pass2 launch, got {got}")
+    if s.pruned_by != MAIN_PRUNED or s.full_dtw != MAIN_FULL_DTW:
+        fail(f"pruning {s.pruned_by}, full_dtw {s.full_dtw} != recorded "
+             f"{MAIN_PRUNED}, {MAIN_FULL_DTW}")
+    if res.indices[:2, 0].tolist() != MAIN_TOP1:
+        fail(f"top-1 rows {res.indices[:2, 0].tolist()} != recorded {MAIN_TOP1}")
 
     # top-1 of two queries against a brute force over every row (K5)
     qs = torch.as_tensor(db.prepare_queries(queries[:2]), device=dev)
@@ -392,13 +607,13 @@ def phase_main_path(dev):
     if worst > 2e-4:
         fail(f"distance vs float64 dtw_reference: rel err {worst:.3g} > 2e-4")
     log(f"[main] distances vs float64 dtw_reference: max rel err {worst:.3g}")
-    return launches, dict(build_s=build_s, search_s=search_s)
+    return dict(x=x, queries=queries, db=db, res=res)
 
 
 # ------------------------------------------------------------- phase 4
 
 
-def phase_scan_sessions(dev):
+def phase_scan_sessions(dev, launches):
     import numpy as np
 
     from repro_torch.api import Database, SearchConfig
@@ -408,13 +623,20 @@ def phase_scan_sessions(dev):
     rng = np.random.default_rng(SEED + 2)
     x = random_walks(rng, 768, 128)
     queries = random_walks(rng, 8, 128)
-    for method in PIPELINES:
-        cfg = SearchConfig(k=5, method=method)
-        gpu = Database.build(x, cfg, device=dev)
-        cpu = Database.build(x, cfg, device="cpu")
-        if not gpu.plan(queries).explain().startswith("driver: scan"):
-            fail(f"{method}: small session did not route to the scan driver")
-        rg, rc = gpu.search(queries), cpu.search(queries)
+
+    def scan_all():
+        out = {}
+        for method in PIPELINES:
+            cfg = SearchConfig(k=5, method=method)
+            gpu = Database.build(x, cfg, device=dev)
+            if not gpu.plan(queries).explain().startswith("driver: scan"):
+                fail(f"{method}: small session did not route to the scan driver")
+            out[method] = gpu.search(queries)
+        return out
+
+    on_gpu = counted(launches, "scan", scan_all)
+    for method, rg in on_gpu.items():
+        rc = Database.build(x, SearchConfig(k=5, method=method), device="cpu").search(queries)
         if not np.array_equal(rg.indices, rc.indices):
             fail(f"{method}: scan indices differ between cuda and cpu")
         if not np.allclose(rg.distances, rc.distances, rtol=2e-4, atol=0):
@@ -424,6 +646,134 @@ def phase_scan_sessions(dev):
             f"lanes={sg.dp_lane_useful}/{sg.dp_lane_work} | cpu "
             f"pruned={sc.stage_pruned} dtw={sc.full_dtw} "
             f"lanes={sc.dp_lane_useful}/{sc.dp_lane_work}")
+    log(f"[scan] launches: {launches['scan']}")
+    require_launched(launches, "scan", ("envelope", "lb_kim", "lb_keogh",
+                                        "lb_improved_pass2", "dtw"), "scan driver")
+
+
+def phase_stream(dev, launches):
+    """The stream form of LB_Improved (K7 then K3) over the hop-strided
+    windows of one flat segment, against 16 templates."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import random_walks
+    from repro_torch.kernels.envelope.ops import envelope_op
+    from repro_torch.kernels.lb_improved.ops import (
+        lb_improved_stream_plain,
+        lb_improved_stream_qbatch_op,
+    )
+
+    rng = np.random.default_rng(SEED + 4)
+    n, w, hop, windows = LENGTH, LENGTH // 10, 8, 1024
+    seg = torch.as_tensor(random_walks(rng, 1, (windows - 1) * hop + n)[0], device=dev)
+    templates = torch.as_tensor(random_walks(rng, N_QUERIES, n), device=dev)
+
+    def run():
+        upper, lower = envelope_op(templates, w)
+        got = lb_improved_stream_qbatch_op(seg, templates, upper, lower, n, w, hop, 1)
+        torch.cuda.synchronize()
+        return got, upper, lower
+
+    got, upper, lower = counted(launches, "stream", run)
+    want = lb_improved_stream_plain(seg, templates, upper, lower, n, w, hop, 1)
+    check_close("lb_improved_stream", got, want, TOL["lb_improved_pass2"],
+                f"{windows} windows hop={hop}")
+    log(f"[stream] LB_Improved of {N_QUERIES} templates x {windows} windows "
+        f"(hop {hop}) matches the plain version; launches {launches['stream']}")
+    require_launched(launches, "stream", ("lb_keogh_stream", "lb_improved_pass2"),
+                     "stream ops")
+
+
+# ------------------------------------------------------------- phase 5
+
+
+def phase_tuned(dev, launches, main):
+    """The tuned session on phase 3's rows, against the untuned one."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Database
+    from repro_torch.kernels.tuning import TuneTable, active_table, install, use_table
+
+    x, queries, untuned, base = main["x"], main["queries"], main["db"], main["res"]
+
+    def same(a, b, what):
+        if not (np.array_equal(a.indices, b.indices)
+                and np.array_equal(a.distances, b.distances)):
+            fail(f"{what}: answers differ from the untuned session's")
+
+    def untuned_kim():
+        res = untuned.search(queries, method="kim_improved")
+        torch.cuda.synchronize()
+        return res
+
+    kim0 = counted(launches, "untuned_kim", untuned_kim)
+    require_launched(launches, "untuned_kim", ("lb_kim", "lb_fused", "dtw"),
+                     "untuned kim_improved search")
+    same(kim0, base, "untuned kim_improved")
+    log(f"[tuned] untuned kim_improved: pruned {kim0.stats.pruned_by}; launches "
+        f"{launches['untuned_kim']}")
+
+    with use_table(TuneTable.with_defaults()):
+        def tuned():
+            t0 = time.perf_counter()
+            db = Database.build(x, tune=dict(verbose=True))
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                path = db.save(f"{tmp}/tuned")
+                with np.load(path) as z:
+                    keys = sorted(k for k in z.files if k.startswith("tune_"))
+                install(TuneTable(), merge=False)  # load must install it again
+                loaded = Database.load(path)
+                io_s = time.perf_counter() - t0
+            if keys != ["tune_json", "tune_version"]:
+                fail(f"tuned bundle keys {keys}")
+            if loaded.tune_table.to_json() != db.tune_table.to_json():
+                fail("the tune table did not survive save/load")
+            for key, cfg in db.tune_table.entries.items():
+                if active_table().entries.get(key) != cfg:
+                    fail(f"load did not install the tuned entry {key}")
+            t0 = time.perf_counter()
+            auto = loaded.search(queries, method="auto")
+            torch.cuda.synchronize()
+            auto_s = time.perf_counter() - t0
+            kim = loaded.search(queries, method="kim_improved")
+            torch.cuda.synchronize()
+            return db, loaded, auto, kim, build_s, io_s, auto_s
+
+        db, loaded, auto, kim, build_s, io_s, auto_s = counted(launches, "tuned", tuned)
+        require_launched(launches, "tuned", ("envelope", "lb_kim", "lb_keogh",
+                                             "lb_improved_pass2", "lb_fused", "dtw"),
+                         "tuned session")
+        same(auto, base, "tuned method='auto'")
+        same(kim, kim0, "tuned kim_improved")
+        explain = loaded.plan(queries, method="auto").explain()
+        if "unit costs: measured by the kernel tune sweep" not in explain:
+            fail(f"plan().explain() shows no measured costs:\n{explain}")
+        log(f"[tuned] build with tune {build_s:.2f} s; save + load {io_s:.1f} s; "
+            f"tune table {db.tune_table.to_json()}")
+        log("[tuned] auto plan: " + " | ".join(explain.splitlines()))
+        log(f"[tuned] method=auto search {auto_s:.2f} s = {N_QUERIES / auto_s:.2f} qps; "
+            f"answers == untuned; kim_improved answers == untuned; launches "
+            f"{launches['tuned']}")
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.tune", "--length", str(LENGTH),
+             "--block", str(BLOCK)],
+            capture_output=True, text=True, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            timeout=300,
+        )
+        if cli.returncode != 0:
+            fail(f"python -m repro_torch.launch.tune failed:\n{cli.stdout}\n{cli.stderr}")
+        tail = [ln for ln in cli.stdout.splitlines() if ln.startswith(("#", "    ("))]
+        log("[tuned] launch.tune: " + " | ".join(tail[-12:]))
+    if active_table().entries != TuneTable.with_defaults().entries:
+        fail("the default tune table was not restored")
 
 
 def main() -> int:
@@ -445,16 +795,26 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_toolchain()
     rec = phase_kernels(dev)
-    launches, _ = phase_main_path(dev)
-    phase_scan_sessions(dev)
+    phase_kernels_lb(dev, rec)
+    launches: dict[str, dict[str, int]] = {}
+    main_out = phase_main_path(dev, launches)
+    phase_scan_sessions(dev, launches)
+    phase_stream(dev, launches)
+    phase_tuned(dev, launches, main_out)
     kernels = []
     for name, r in rec.items():
         source, replaces = SOURCES[name]
+        by_phase = {phase: counts[name] for phase, counts in launches.items()}
+        if sum(by_phase.values()) <= 0:
+            fail(f"kernel {name} was launched on no path")
+        extra = {k: v for k, v in r.items()
+                 if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=sum(by_phase.values()), max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"],
+            library_ms=r["library_ms"], launches_by_phase=by_phase, **extra,
         ))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,14 +2,17 @@
 the two-pass LB_Improved cascade, on one NVIDIA H100.
 
 The package mirrors ``repro``'s layout module for module.  Plain tensor
-code is PyTorch; the four kernels under the default session's path
-(envelope, LB_Keogh + projection, LB_Improved pass 2, banded DP) are
-hand-written CUDA C++ in ``csrc/``, built with ``nvcc`` at first use.
-Entry points run on the GPU unless the caller passes ``device="cpu"``;
-on the CPU every kernel wrapper runs its plain PyTorch version.
+code is PyTorch; every kernel the reference wrote in Pallas for the TPU
+is hand-written CUDA C++ in ``csrc/`` (envelope, LB_Keogh + projection
+and its stream form, LB_Improved pass 2, the fused two-pass LB stage,
+LB_Kim, banded DP), built with ``nvcc`` at first use.  Entry points run
+on the GPU unless the caller passes ``device="cpu"``; on the CPU every
+kernel wrapper runs its plain PyTorch version.  ``kernels/tuning`` holds
+the schedule table the wrappers resolve, and ``Database.build(tune=...)``
+sweeps it.
 
 This slice is univariate; the index, anytime, streaming, serving,
-multivariate, sharded and tuning tiers are queued in ROADMAP.md.
+multivariate and sharded tiers are queued in ROADMAP.md.
 """
 
 from repro_torch.api import Database, SearchConfig

@@ -5,6 +5,7 @@
     db.plan(queries).explain()                  # see the routing
     res = db.search(queries)                    # scan or host driver
     db.save("session.npz"); Database.load(...)  # the reference's bundle
+    Database.build(data, tune=True)             # + the kernel tune sweep
 
 ``build`` computes every database-side artifact once: the (z-normalized,
 precision-cast) rows on the device, their warping envelopes (envelope
@@ -42,6 +43,7 @@ from repro_torch.core.cascade import (
 from repro_torch.core.pipeline import not_ported
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.envelope.ops import envelope_op
+from repro_torch.kernels.tuning import TuneTable, autotune_session, install
 
 BUNDLE_FORMAT_VERSION = 1
 
@@ -52,7 +54,6 @@ STD_EPS = 1e-8
 _UNPORTED_BUNDLE_KEYS = {
     "idx_": "6 (stage-0 triangle index)",
     "any_": "10 (anytime tier)",
-    "tune_": "12 (kernel tuning)",
 }
 
 
@@ -85,7 +86,7 @@ class Database:
     def __init__(
         self, *, raw, data: torch.Tensor, config: SearchConfig, w: int,
         upper: torch.Tensor, lower: torch.Tensor, row_sums, row_sumsq,
-        calibration: Calibration | None = None,
+        calibration: Calibration | None = None, tune_table: TuneTable | None = None,
     ):
         self.raw = raw  # as given (precision-cast numpy), what save() persists
         self._data = data  # (N, n) rows on the device, znormed when configured
@@ -95,6 +96,12 @@ class Database:
         self._lower = lower
         self.row_sums = row_sums  # (N,) float64 sum x of the raw rows
         self.row_sumsq = row_sumsq  # (N,) float64 sum x^2
+        # measured schedules and stage costs of build(tune=...), persisted
+        # as tune_* bundle keys; installing makes them what every kernel
+        # wrapper resolves.  None on untuned sessions: the defaults hold.
+        self.tune_table = tune_table
+        if tune_table is not None:
+            install(tune_table, merge=True)
         self._calibration = calibration
         self._cascade_cache: dict[int, CascadePlan] = {}
         self._fingerprint: str | None = None
@@ -107,11 +114,19 @@ class Database:
         anytime=False, tune=False, device=None,
     ) -> "Database":
         """Precompute every database-side artifact for ``data`` (N, n) on
-        ``device``.  The reference's ``index``, ``anytime`` and ``tune``
-        tiers are not ported yet and raise ``NotImplementedError``."""
+        ``device``.
+
+        ``tune=True`` runs the deterministic kernel tune sweep
+        (``kernels.tuning.autotune_session``) on the session's device at
+        its (min(block, N), n) shape: the fastest bit-identical schedule
+        of every kernel family and the measured per-stage costs become
+        the session's ``tune_table``, installed process-wide, saved in the
+        bundle, and read by the planner for ``method="auto"``.  A dict
+        customizes the sweep, e.g. ``tune=dict(iters=1, families=("lb_kim",
+        "pipeline"))``.  The reference's ``index`` and ``anytime`` tiers
+        are not ported yet and raise ``NotImplementedError``."""
         _not_ported_option("index", index, _UNPORTED_BUNDLE_KEYS["idx_"])
         _not_ported_option("anytime", anytime, _UNPORTED_BUNDLE_KEYS["any_"])
-        _not_ported_option("tune", tune, _UNPORTED_BUNDLE_KEYS["tune_"])
         config = config if config is not None else SearchConfig()
         dev = resolve_device(device)
         raw = np.asarray(data, dtype=config.precision)
@@ -135,18 +150,27 @@ class Database:
         del raw64
         data_t = torch.as_tensor(rows, device=dev).contiguous()
         upper, lower = envelope_op(data_t, w)
+        table = None
+        if tune:
+            opts = dict(tune) if isinstance(tune, dict) else {}
+            table = autotune_session(
+                n=n, b=opts.pop("b", min(config.block, n_db)), w=w, p=config.p,
+                device=dev, **opts,
+            )
         cal = calibrate(data_t, w, config.p)
         return cls(
             raw=raw, data=data_t, config=config, w=w, upper=upper, lower=lower,
             row_sums=row_sums, row_sumsq=row_sumsq, calibration=cal,
+            tune_table=table,
         )
 
     @classmethod
     def from_arrays(cls, arrays: Mapping[str, np.ndarray], device=None) -> "Database":
         """A session from the reference's bundle arrays (``.npz`` keys:
         ``config_json``, ``resolved_w``, ``data``, ``upper``, ``lower``,
-        ``row_sums``, ``row_sumsq`` and the optional ``cal_*``).  Saved
-        artifacts are uploaded, not recomputed."""
+        ``row_sums``, ``row_sumsq`` and the optional ``cal_*`` and
+        ``tune_*``).  Saved artifacts are uploaded, not recomputed; a
+        tune table is installed."""
         for prefix, item in _UNPORTED_BUNDLE_KEYS.items():
             if any(k.startswith(prefix) for k in arrays):
                 raise not_ported(f"a bundle with {prefix}* keys", item)
@@ -167,6 +191,11 @@ class Database:
             cal = Calibration.from_arrays(
                 {k[len("cal_"):]: arrays[k] for k in arrays if k.startswith("cal_")}
             )
+        table = None
+        if "tune_json" in arrays:
+            table = TuneTable.from_arrays(
+                {k[len("tune_"):]: arrays[k] for k in arrays if k.startswith("tune_")}
+            )
         dt = _torch_dtype(config.precision)
         return cls(
             raw=raw,
@@ -178,6 +207,7 @@ class Database:
             row_sums=np.asarray(arrays["row_sums"]),
             row_sumsq=np.asarray(arrays["row_sumsq"]),
             calibration=cal,
+            tune_table=table,
         )
 
     # ------------------------------------------------------- persistence
@@ -199,6 +229,10 @@ class Database:
         if self._calibration is not None:
             arrays.update(
                 {f"cal_{k}": v for k, v in self._calibration.to_arrays().items()}
+            )
+        if self.tune_table is not None:
+            arrays.update(
+                {f"tune_{k}": v for k, v in self.tune_table.to_arrays().items()}
             )
         np.savez_compressed(path, **arrays)
         return path
@@ -328,7 +362,9 @@ class Database:
         kk = cfg.k if k is None else int(k)
         cascade = self._cascade_cache.get(kk)
         if cascade is None:
-            cascade = choose_cascade(self.calibration, k=kk)
+            # a tuned session plans with its measured stage costs
+            costs = self.tune_table.stage_costs if self.tune_table else None
+            cascade = choose_cascade(self.calibration, k=kk, unit_costs=costs)
             self._cascade_cache[kk] = cascade
         return dataclasses.replace(cfg, method=cascade.method), cascade
 

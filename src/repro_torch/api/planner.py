@@ -7,7 +7,8 @@ host driver otherwise.  ``calibrate`` measures every registered bound on a
 small probe sample at build time and ``choose_cascade`` picks the cheapest
 predicted pipeline for ``method="auto"``; every pipeline returns the same
 answers, only cost differs.  The indexed, sharded and anytime routes of
-the reference are queued in ROADMAP.md.
+the reference are queued in ROADMAP.md.  A tuned session
+(``Database.build(tune=...)``) plans with its measured stage costs.
 """
 
 from __future__ import annotations
@@ -108,6 +109,7 @@ def calibrate(rows, w: int, p, sample_q: int = 4, sample_c: int = 128, d: int = 
     from repro_torch.kernels.envelope.ops import envelope_op
     from repro_torch.kernels.lb_improved.ops import lb_improved_qbatch_op
     from repro_torch.kernels.lb_keogh.ops import lb_keogh_qbatch_op
+    from repro_torch.kernels.lb_kim.ops import lb_kim_qbatch_op
 
     require_univariate(d)
     dev = resolve_device(device, like=rows)
@@ -125,7 +127,7 @@ def calibrate(rows, w: int, p, sample_q: int = 4, sample_c: int = 128, d: int = 
         return t.double().cpu().numpy()
 
     bounds = np.stack([
-        host(lb_mod.lb_kim_powered_qbatch(cs, qs, p)),
+        host(lb_kim_qbatch_op(cs, qs, None, p)),
         host(lb_keogh_qbatch_op(cs, upper, lower, p)[0]),
         host(lb_improved_qbatch_op(cs, qs, upper, lower, w, p)),
         host(lb_mod.lb_webb_powered_qbatch(
@@ -143,10 +145,10 @@ class CascadePlan:
 
     ``enter_frac[j]`` is the predicted fraction of candidates that
     reach ``stages[j]`` (survivors of every earlier bound at the probe
-    sample's k-th best threshold); ``stage_cost[j]`` the analytic
-    per-candidate unit cost of running it; ``cost_per_candidate`` their
-    dot product — the objective ``choose_cascade`` minimized.
-    ``predicted`` maps every candidate pipeline to its predicted cost.
+    sample's k-th best threshold); ``stage_cost[j]`` the per-candidate
+    unit cost of running it; ``cost_per_candidate`` their dot product —
+    the objective ``choose_cascade`` minimized.  ``predicted`` maps
+    every candidate pipeline to its predicted cost.
     """
 
     method: str  # the chosen PIPELINES key
@@ -156,6 +158,9 @@ class CascadePlan:
     cost_per_candidate: float
     k: int
     predicted: tuple[tuple[str, float], ...]  # (method, cost), sorted
+    #: per-stage cost provenance, "measured" (tune sweep) or "analytic"
+    #: (STAGE_UNIT_COST / full_dp_cost); empty on pre-tuning plans
+    cost_source: tuple[str, ...] = ()
 
     def explain(self) -> str:
         lines = [
@@ -163,11 +168,20 @@ class CascadePlan:
             f"calibrated at k={self.k})",
             f"predicted cost/candidate: {self.cost_per_candidate:.2f} "
             f"O(n)-sweep units",
-            "unit costs: analytic",
         ]
-        for s, f, c in zip(self.stages, self.enter_frac, self.stage_cost):
+        src = self.cost_source or ("analytic",) * len(self.stages)
+        measured = sorted({s for s, o in zip(self.stages, src) if o == "measured"})
+        lines.append(
+            "unit costs: measured by the kernel tune sweep for "
+            + ", ".join(measured)
+            + ("; analytic elsewhere" if len(measured) < len(set(self.stages)) else "")
+            if measured
+            else "unit costs: analytic (no tune sweep measured)"
+        )
+        for s, f, c, o in zip(self.stages, self.enter_frac, self.stage_cost, src):
             lines.append(
-                f"  {s:<12} enter {100 * f:6.2f}%  unit cost {c:5.1f}  -> {f * c:6.2f}"
+                f"  {s:<12} enter {100 * f:6.2f}%  unit cost {c:5.1f} "
+                f"[{o}]  -> {f * c:6.2f}"
             )
         others = ", ".join(
             f"{m}={c:.2f}" for m, c in self.predicted if m != self.method
@@ -177,40 +191,58 @@ class CascadePlan:
         return "\n".join(lines)
 
 
-def choose_cascade(cal: Calibration, k: int = 1) -> CascadePlan:
+def choose_cascade(
+    cal: Calibration, k: int = 1, methods=None, unit_costs=None
+) -> CascadePlan:
     """Pick the cheapest predicted stage order from the calibration.
 
-    For each pipeline the probe sample is pushed through its stages: a
-    pair survives stage ``s`` iff ``bound_s < t_i`` where ``t_i`` is
-    probe query ``i``'s k-th smallest sampled powered DTW.  Predicted
-    cost per candidate is ``sum_j unit_cost_j * enter_frac_j``, the
-    banded DP included.  Deterministic: ties break on (cost, stage
-    count, name).  The reference's measured (tuned) unit costs come with
-    kernel tuning (ROADMAP.md queue 1, item 12).
+    For each candidate pipeline the probe sample is pushed through its
+    stages: a pair survives stage ``s`` iff ``bound_s < t_i`` where
+    ``t_i`` is probe query ``i``'s k-th smallest sampled powered DTW.
+    Predicted cost per candidate is ``sum_j unit_cost_j * enter_frac_j``,
+    the banded DP included.  Deterministic: ties break on (cost, stage
+    count, name).
+
+    ``unit_costs``, when given, maps stage names (and/or ``"full"``) to
+    *measured* per-candidate costs in the same O(n)-sweep units (a tune
+    sweep's ``measure_stage_costs``); they override the analytic table
+    stage by stage, and ``cost_source`` records which source each stage
+    used.
     """
-    methods = sorted(
-        m
-        for m, stages in PIPELINES.items()
-        if all(s in cal.stage_names or s == "full" for s in stages)
-    )
+    if methods is None:
+        methods = sorted(
+            m
+            for m, stages in PIPELINES.items()
+            if all(s in cal.stage_names or s == "full" for s in stages)
+        )
+    unit_costs = unit_costs or {}
     bound_of = {s: cal.bounds[i] for i, s in enumerate(cal.stage_names)}
     kk = min(int(k), cal.dtw.shape[1])
     thr = np.sort(cal.dtw, axis=1)[:, kk - 1][:, None]  # (q, 1)
+
+    def stage_cost(s):
+        if s in unit_costs:
+            return float(unit_costs[s]), "measured"
+        if s == "full":
+            return full_dp_cost(cal.w), "analytic"
+        return STAGE_UNIT_COST[s], "analytic"
 
     scored = []
     for m in methods:
         stages = PIPELINES[m]
         alive = np.ones_like(cal.dtw, dtype=bool)
-        fracs, costs = [], []
+        fracs, costs, srcs = [], [], []
         for s in stages:
             fracs.append(float(alive.mean()))
-            costs.append(full_dp_cost(cal.w) if s == "full" else STAGE_UNIT_COST[s])
+            c, src = stage_cost(s)
+            costs.append(c)
+            srcs.append(src)
             if s != "full":
                 alive = alive & (bound_of[s] < thr)
         total = float(np.dot(fracs, costs))
-        scored.append((total, len(stages), m, tuple(fracs), tuple(costs)))
+        scored.append((total, len(stages), m, tuple(fracs), tuple(costs), tuple(srcs)))
     scored.sort(key=lambda t: (t[0], t[1], t[2]))
-    total, _, method, fracs, costs = scored[0]
+    total, _, method, fracs, costs, srcs = scored[0]
     return CascadePlan(
         method=method,
         stages=PIPELINES[method],
@@ -218,7 +250,10 @@ def choose_cascade(cal: Calibration, k: int = 1) -> CascadePlan:
         stage_cost=costs,
         cost_per_candidate=total,
         k=kk,
-        predicted=tuple((m, t) for t, _, m, _, _ in scored),
+        predicted=tuple(
+            (m, t) for t, _, m, _, _, _ in sorted(scored, key=lambda t: t[0])
+        ),
+        cost_source=srcs,
     )
 
 

@@ -11,7 +11,8 @@ top-k and prunes against its own tightening bound.
   position as with the reference's ``lax.top_k``.
 * ``nn_search_host`` — every LB stage dense per block, the survivors of
   the whole query batch pooled into ``dtw_chunk``-sized DP launches, and
-  a stable host argsort merge.
+  a stable host argsort merge.  At p in {1, 2} an LB_Keogh stage
+  followed by LB_Improved runs as one fused launch (K4) per block.
 
 Both take numpy arrays or tensors.  They run on the tensors' device, or
 on ``device`` (default: the GPU; ``RuntimeError`` when there is none).
@@ -30,6 +31,7 @@ from repro_torch.core.dtw import BIG, PNorm, finish_cost
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.dtw.ops import dtw_pairs_op
 from repro_torch.kernels.envelope.ops import envelope_op
+from repro_torch.kernels.lb_fused.ops import lb_fused_qbatch_op
 
 __all__ = [
     "BatchSearchResult",
@@ -260,6 +262,20 @@ def _dtw_pairs_block(qs, db, qidx, cidx, w, p, bounds=None):
     return dtw_pairs_op(qs, db, qidx, cidx, w, p, bounds)
 
 
+def _host_steps(names: tuple[str, ...], p: PNorm) -> list[tuple[int, ...]]:
+    """The LB stages of a pipeline grouped into launches: ``lb_keogh``
+    immediately followed by ``lb_improved`` is one fused launch at p in
+    {1, 2} (the fused kernel's norms); every other stage is its own."""
+    steps, i = [], 0
+    while i < len(names):
+        if p in (1, 2) and names[i : i + 2] == ("lb_keogh", "lb_improved"):
+            steps.append((i, i + 1))
+        else:
+            steps.append((i,))
+        i += len(steps[-1])
+    return steps
+
+
 def nn_search_host(
     q, db, w: int, p: PNorm = 1, k: int = 1, block: int = 256,
     dtw_chunk: int = 16, method: str = "lb_improved",
@@ -271,8 +287,12 @@ def nn_search_host(
     query batch (later stages only while lanes survive); the surviving
     (query, candidate) pairs of the whole batch are pooled into
     ``dtw_chunk``-sized DP launches and merged into each query's top-k by
-    a stable host argsort.  ``early_abandon`` additionally stops each DP
-    once its band clears the running bound.
+    a stable host argsort.  At p in {1, 2} an LB_Keogh -> LB_Improved
+    pair is one ``lb_fused_qbatch_op`` per block against each query's
+    k-th best, copied to the host once: its masks are ``lb1 < bound``,
+    then ``lb < bound``, as the two stages would give.
+    ``early_abandon`` additionally stops each DP once its band clears
+    the running bound.
     """
     qs, db_t, single = _as_inputs(q, db, device, d)
     pipe.check_method(method)
@@ -286,6 +306,7 @@ def nn_search_host(
     top_v = np.full((nq, k), BIG)
     top_i = np.full((nq, k), -1, np.int64)
     lb_names = pipe.lb_stage_names(method)
+    steps = _host_steps(lb_names, p)
     lb_pruned = np.zeros((len(lb_names), nq), np.int64)
     c3 = np.zeros(nq, np.int64)
     blocks_lb2 = blocks_dtw = 0
@@ -298,6 +319,15 @@ def nn_search_host(
         order = np.argsort(av, kind="stable")[:k]
         top_v[qi], top_i[qi] = av[order], ai[order]
 
+    def step_values(step, blk, bound, real):
+        """(len(step), Q, real) stage values of one launch, on the host."""
+        if len(step) == 2:
+            bound_t = torch.as_tensor(bound, dtype=db_t.dtype, device=dev)
+            vals = torch.stack(lb_fused_qbatch_op(blk, qs, upper, lower, w, bound_t, p))
+        else:
+            vals = pipe.STAGES[lb_names[step[0]]].dense(ctx, blk)[None]
+        return vals[:, :, :real].cpu().numpy()
+
     for t in range(nb):
         lo, hi = t * block, min((t + 1) * block, n_db)
         blk = db_t[lo:hi]
@@ -306,16 +336,18 @@ def nn_search_host(
         bound = top_v[:, -1]
 
         alive = np.ones((nq, hi - lo), bool)
-        for si, name in enumerate(lb_names):
-            if si > 0:
-                if not alive.any():
-                    break
-                if si == 1:
-                    blocks_lb2 += 1
-            lb = pipe.STAGES[name].dense(ctx, blk)[:, : hi - lo].cpu().numpy()
-            alive_next = alive & (lb < bound[:, None])
-            lb_pruned[si] += (alive & ~alive_next).sum(axis=1)
-            alive = alive_next
+        for step in steps:
+            if step[0] > 0 and not alive.any():
+                break
+            for si, lb in zip(step, step_values(step, blk, bound, hi - lo)):
+                if si > 0:
+                    if not alive.any():
+                        break
+                    if si == 1:
+                        blocks_lb2 += 1
+                alive_next = alive & (lb < bound[:, None])
+                lb_pruned[si] += (alive & ~alive_next).sum(axis=1)
+                alive = alive_next
 
         # pooled survivor pairs, query-major
         pair_q, pair_c = np.nonzero(alive)

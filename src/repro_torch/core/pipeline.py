@@ -5,13 +5,13 @@ Port of ``repro.core.pipeline``.  Every bound is declared once as a
 form) and listed in :data:`PIPELINES` per cascade method; the scan and
 host drivers consume the registry.
 
-On CUDA tensors the stages launch the hand-written kernels: LB_Keogh and
-its projection (K2), LB_Improved pass 2 (K3), the banded DP (K5) and the
-envelopes the stages need (K1).  LB_Kim and LB_Webb have no kernel in
-this slice: like the reference, which runs them as jnp code outside any
-kernel, they run as ``core.lb`` tensor code on the device (their
-envelopes still come from K1).  On CPU tensors every stage runs the
-plain PyTorch versions.
+On CUDA tensors the stages launch the hand-written kernels: LB_Kim (K6),
+LB_Keogh and its projection (K2), LB_Improved pass 2 (K3), the banded DP
+(K5) and the envelopes the stages need (K1).  LB_Webb has no kernel: like
+the reference, which runs it as jnp code outside any kernel, it runs as
+``core.lb`` tensor code on the device (its envelopes come from K1), as
+does the per-pair LB_Kim form (LB_Kim is always a first, dense stage).
+On CPU tensors every stage runs the plain PyTorch versions.
 
 After each LB stage the alive ``(query, candidate)`` lane pairs are
 compacted with a stable alive-first sort and processed in
@@ -39,12 +39,10 @@ from repro_torch.kernels.lb_improved.ops import (
     lb_improved_qbatch_op,
 )
 from repro_torch.kernels.lb_keogh.ops import lb_keogh_pairs_op, lb_keogh_qbatch_op
+from repro_torch.kernels.lb_kim.ops import lb_kim_qbatch_op
+from repro_torch.kernels.tuning.table import resolve_config
 
 Method = Literal["full", "lb_keogh", "lb_improved", "lb_webb", "kim_improved", "kim_webb"]
-
-#: lanes per compacted gather; also the unit dp_lane_work is counted in
-#: (the value every backend resolves in the reference's tuning defaults).
-LANE_CHUNK = 32
 
 #: multivariate cascades of the reference, ported with the mv tier
 MV_METHODS = ("tc_box", "tc_tri")
@@ -105,7 +103,7 @@ def query_webb_envelopes(upper, lower, w: int):
 
 
 def _lb_kim_dense(ctx: PipeContext, blk):
-    return lb_mod.lb_kim_powered_qbatch(blk, ctx.qs, ctx.p)
+    return lb_kim_qbatch_op(blk, ctx.qs, None, ctx.p)
 
 
 def _lb_kim_pair(ctx, blk, qi, ci, bound, prev):
@@ -278,11 +276,18 @@ def run_block_stages(
     pruning bound, ``mask0`` a ``(Q, block)`` bool of lanes alive on entry.
     The first LB stage runs on the whole tile; every later stage runs
     survivor-compacted.  ``ctx`` may carry a prebuilt context (drivers
-    build it once per query batch).
+    build it once per query batch).  ``lane_chunk`` left ``None``
+    resolves from the active tune table (the "pipeline" family, keyed by
+    the block's device type); it changes no distance or mask, only the
+    chunk-padded ``dp_lane_work``.
     """
     require_univariate(d)
-    lane_chunk = LANE_CHUNK if lane_chunk is None else int(lane_chunk)
     nq, block = qs.shape[0], blk.shape[0]
+    if lane_chunk is None:
+        lane_chunk = resolve_config(
+            "pipeline", b=block, n=blk.shape[1], backend=blk.device.type
+        ).lane_chunk
+    lane_chunk = int(lane_chunk)
     check_method(method)
     names = PIPELINES[method]
     if ctx is None:

@@ -13,14 +13,14 @@
 // Bound on this card: bytes.  Each H row is read once and one value per
 // row is written; the envelope costs about log2(2w+1) comparisons per
 // value and side.
-// Design: one block per H row.  The row is staged in shared memory,
-// padded there with +-inf (no padded copy of H in device memory, unlike
-// the reference op's sentinel-padded inputs), enveloped by doubling
-// (common.cuh: sliding_extrema) and reduced across the block.  Rows are
-// the dense (Q, B) stack (qidx == nullptr: q = row / B) or an explicit
-// per-row query index, so one entry serves the dense stage and the
-// compacted per-pair stage.
-#include "common.cuh"
+// Design: one block per H row (lb_routines.cuh: improved_row).  The row
+// is staged in shared memory, padded there with +-inf (no padded copy of
+// H in device memory, unlike the reference op's sentinel-padded inputs),
+// enveloped by doubling (common.cuh: sliding_extrema) and reduced across
+// the block.  Rows are the dense (Q, B) stack (qidx == nullptr: q = row / B)
+// or an explicit per-row query index, so one entry serves the dense stage
+// and the compacted per-pair stage.
+#include "lb_routines.cuh"
 
 namespace repro {
 
@@ -35,15 +35,7 @@ __global__ void lb_improved_pass2_kernel(const T* __restrict__ h,
   __shared__ T scratch[32];
   const int64_t row = blockIdx.x;
   const int64_t q = qidx ? qidx[row] : row / bstride;
-  const T* qr = qs + q * n;
-  const SlidingExtrema<T> ext = sliding_extrema(h + row * n, n, w, buf);
-  T acc = T(0);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const T v = qr[i];
-    const T d = tmax(v - ext.upper(i), T(0)) + tmax(ext.lower(i) - v, T(0));
-    acc = combine<T, P>(acc, cost_of<T, P>(d));
-  }
-  acc = block_reduce<T, P>(acc, scratch);
+  const T acc = improved_row<T, P>(h + row * n, qs + q * n, n, w, buf, scratch);
   if (threadIdx.x == 0) lb2[row] = acc;
 }
 
@@ -61,7 +53,7 @@ extern "C" int repro_lb_improved_pass2(int dtype, int pcode, const void* h,
     const size_t smem = sizeof(T) * 4 * (size_t)(n + 2 * w);
     cudaError_t err = repro::allow_smem(repro::lb_improved_pass2_kernel<T, P>, smem);
     if (err != cudaSuccess) return (int)err;
-    repro::lb_improved_pass2_kernel<T, P><<<(unsigned)rows, 256, smem, s>>>(
+    repro::lb_improved_pass2_kernel<T, P><<<(unsigned)rows, repro::PASS2_THREADS, smem, s>>>(
         static_cast<const T*>(h), static_cast<const T*>(qs), qidx, bstride, n,
         w, static_cast<T*>(lb2)));
   return (int)cudaGetLastError();

@@ -1,8 +1,11 @@
-// K2: query-major LB_Keogh and the projection H (CUDA C++ for sm_90a).
+// K2: query-major LB_Keogh and the projection H, and K7, its stream form
+// (CUDA C++ for sm_90a).
 //
-// Replaces the TPU kernel repro/kernels/lb_keogh/kernel.py:
-// lb_keogh_qbatch_pallas (_lb_keogh_qbatch_kernel), and its single-query
-// form lb_keogh_pallas (_lb_keogh_kernel) as the Q = 1 case.
+// Replaces the TPU kernels repro/kernels/lb_keogh/kernel.py:
+// lb_keogh_qbatch_pallas (_lb_keogh_qbatch_kernel), its single-query form
+// lb_keogh_pallas (_lb_keogh_kernel) as the Q = 1 case, and
+// lb_keogh_stream_qbatch_pallas (_lb_keogh_stream_qbatch_kernel) as the
+// strided entry repro_lb_keogh_stream.
 //
 // For each (query q, candidate c) pair:
 //   lb[pair] = sum_i (max(c_i - U_q,i, 0) + max(L_q,i - c_i, 0))^p
@@ -13,17 +16,18 @@
 //
 // Bound on this card: bytes.  Writing H (one row of n values per pair)
 // dominates; each pair does a handful of operations per value.
-// Design: one warp per pair, eight pairs per block.  Pairs are numbered
-// query-major, so a block's warps mostly share one query and its U, L rows
-// come from L1.  Lanes stride the row (coalesced loads and H stores) and a
-// warp shuffle reduces lb.  Pairs are either the dense (Q, B) grid
+// Design: one warp per pair (lb_routines.cuh: keogh_pair), `warps` pairs
+// per block (the tune knob tile_b; it changes no reduction order).  Pairs
+// are numbered query-major, so a block's warps mostly share one query and
+// its U, L rows come from L1.  Pairs are either the dense (Q, B) grid
 // (qidx == nullptr: pair = q * B + c) or explicit (qidx, cidx) lists, so
 // one entry serves the dense stage and the compacted per-pair stage.
-#include "common.cuh"
+// Candidate row c starts at cands + c * cstride: cstride = n for a (B, n)
+// batch, and the hop for the windows of a flat stream segment (K7), which
+// are never copied out of it.
+#include "lb_routines.cuh"
 
 namespace repro {
-
-constexpr int KEOGH_WARPS = 8;
 
 template <typename T, int P>
 __global__ void lb_keogh_kernel(const T* __restrict__ cands,
@@ -31,26 +35,28 @@ __global__ void lb_keogh_kernel(const T* __restrict__ cands,
                                 const T* __restrict__ lower,
                                 const int64_t* __restrict__ qidx,
                                 const int64_t* __restrict__ cidx, int64_t npairs,
-                                int64_t bstride, int n, T* __restrict__ lb,
-                                T* __restrict__ h) {
+                                int64_t bstride, int64_t cstride, int n,
+                                T* __restrict__ lb, T* __restrict__ h) {
   const int lane = threadIdx.x & 31;
-  const int64_t pair = (int64_t)blockIdx.x * KEOGH_WARPS + (threadIdx.x >> 5);
+  const int64_t pair = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (pair >= npairs) return;
   const int64_t q = qidx ? qidx[pair] : pair / bstride;
   const int64_t c = cidx ? cidx[pair] : pair % bstride;
-  const T* cr = cands + c * n;
-  const T* ur = upper + q * n;
-  const T* lr = lower + q * n;
-  T* hr = h + pair * n;
-  T acc = T(0);
-  for (int i = lane; i < n; i += 32) {
-    const T v = cr[i], uu = ur[i], ll = lr[i];
-    const T d = tmax(v - uu, T(0)) + tmax(ll - v, T(0));
-    acc = combine<T, P>(acc, cost_of<T, P>(d));
-    hr[i] = tmin(tmax(v, ll), uu);
-  }
-  acc = warp_reduce<T, P>(acc);
+  const T acc = keogh_pair<T, P>(cands + c * cstride, upper + q * n,
+                                 lower + q * n, h + pair * n, n, lane);
   if (lane == 0) lb[pair] = acc;
+}
+
+template <typename T, int P>
+cudaError_t launch_lb_keogh(const T* cands, const T* upper, const T* lower,
+                            const int64_t* qidx, const int64_t* cidx,
+                            int64_t npairs, int64_t bstride, int64_t cstride,
+                            int n, int warps, T* lb, T* h, cudaStream_t s) {
+  if (warps < 1 || warps > 32) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((npairs + warps - 1) / warps);
+  lb_keogh_kernel<T, P><<<blocks, 32 * warps, 0, s>>>(
+      cands, upper, lower, qidx, cidx, npairs, bstride, cstride, n, lb, h);
+  return cudaGetLastError();
 }
 
 }  // namespace repro
@@ -60,16 +66,31 @@ __global__ void lb_keogh_kernel(const T* __restrict__ cands,
 extern "C" int repro_lb_keogh(int dtype, int pcode, const void* cands,
                               const void* upper, const void* lower,
                               const int64_t* qidx, const int64_t* cidx,
-                              int64_t npairs, int64_t bstride, int n, void* lb,
-                              void* h, void* stream) {
+                              int64_t npairs, int64_t bstride, int n, int warps,
+                              void* lb, void* h, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks =
-      (unsigned)((npairs + repro::KEOGH_WARPS - 1) / repro::KEOGH_WARPS);
   if (npairs == 0) return (int)cudaGetLastError();
   REPRO_DISPATCH(dtype, pcode,
-    repro::lb_keogh_kernel<T, P><<<blocks, 32 * repro::KEOGH_WARPS, 0, s>>>(
+    return (int)repro::launch_lb_keogh<T, P>(
         static_cast<const T*>(cands), static_cast<const T*>(upper),
-        static_cast<const T*>(lower), qidx, cidx, npairs, bstride, n,
-        static_cast<T*>(lb), static_cast<T*>(h)));
+        static_cast<const T*>(lower), qidx, cidx, npairs, bstride, n, n, warps,
+        static_cast<T*>(lb), static_cast<T*>(h), s));
+  return (int)cudaGetLastError();
+}
+
+// K7: segment (>= (nb - 1) * hop + n values); window b is
+// segment[b * hop : b * hop + n].  upper, lower (Q, n); lb (Q, nb);
+// h (Q, nb, n).
+extern "C" int repro_lb_keogh_stream(int dtype, int pcode, const void* segment,
+                                     const void* upper, const void* lower,
+                                     int64_t nq, int64_t nb, int64_t hop, int n,
+                                     int warps, void* lb, void* h, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nq * nb == 0) return (int)cudaGetLastError();
+  REPRO_DISPATCH(dtype, pcode,
+    return (int)repro::launch_lb_keogh<T, P>(
+        static_cast<const T*>(segment), static_cast<const T*>(upper),
+        static_cast<const T*>(lower), nullptr, nullptr, nq * nb, nb, hop, n,
+        warps, static_cast<T*>(lb), static_cast<T*>(h), s));
   return (int)cudaGetLastError();
 }

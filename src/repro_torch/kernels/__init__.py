@@ -1,18 +1,23 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
-Four kernels carry the default session: ``envelope`` (K1), ``lb_keogh``
-(K2, LB_Keogh + the projection H), ``lb_improved`` (K3, pass 2 over H)
-and ``dtw`` (K5, the banded DP with per-lane abandoning).  Each package
-holds ``ops.py`` — the wrappers, the plain PyTorch version and the
-kernel's launch function, which counts its launches — and ``ref.py``,
-the oracle.  A wrapper launches the kernel for CUDA tensors (or raises)
-and runs the plain version for CPU tensors.
+Seven entries: ``envelope`` (K1), ``lb_keogh`` (K2, LB_Keogh + the
+projection H) and its stream form ``lb_keogh_stream`` (K7),
+``lb_improved_pass2`` (K3, pass 2 over H), ``lb_fused`` (K4, both passes
+on one tile, pass 2 predicated on the bound), ``dtw`` (K5, the banded DP
+with per-lane abandoning) and ``lb_kim`` (K6).  Each package holds
+``ops.py`` — the wrappers, the plain PyTorch version and the kernel's
+launch function, which counts its launches — and ``ref.py``, the oracle.
+A wrapper launches the kernel for CUDA tensors (or raises) and runs the
+plain version for CPU tensors.  ``tuning`` holds the schedule table the
+wrappers resolve their launch shapes from.
 """
 
 from repro_torch.kernels.dtw.ops import dtw_launch
 from repro_torch.kernels.envelope.ops import envelope_launch
+from repro_torch.kernels.lb_fused.ops import lb_fused_launch
 from repro_torch.kernels.lb_improved.ops import lb_improved_pass2_launch
-from repro_torch.kernels.lb_keogh.ops import lb_keogh_launch
+from repro_torch.kernels.lb_keogh.ops import lb_keogh_launch, lb_keogh_stream_launch
+from repro_torch.kernels.lb_kim.ops import lb_kim_launch
 
 #: kernel name -> its launch function (which carries ``.launches``)
 LAUNCHERS = {
@@ -20,6 +25,9 @@ LAUNCHERS = {
     "lb_keogh": lb_keogh_launch,
     "lb_improved_pass2": lb_improved_pass2_launch,
     "dtw": dtw_launch,
+    "lb_fused": lb_fused_launch,
+    "lb_kim": lb_kim_launch,
+    "lb_keogh_stream": lb_keogh_stream_launch,
 }
 
 

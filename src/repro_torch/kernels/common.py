@@ -18,6 +18,15 @@ BIG = 1.0e30
 #: dtypes the CUDA kernels are instantiated for (code 0 and 1 in the C ABI)
 KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1}
 
+#: shared memory one block may use on sm_90 (227 KB), static included
+SMEM_LIMIT_BYTES = 232_448
+
+
+class NotRunnable(ValueError):
+    """A schedule that cannot launch at this shape (for example a tile
+    whose shared memory exceeds the card's limit).  ``autotune`` records
+    such a config as not runnable instead of raising."""
+
 
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -60,6 +69,14 @@ def check_cuda_tensor(name: str, t: torch.Tensor, device, dtype, shape=None):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def warps_per_block(tile_b: int) -> int:
+    """The ``tile_b`` of a one-warp-per-pair kernel: 1 to 32 warps."""
+    tile_b = int(tile_b)
+    if not 1 <= tile_b <= 32:
+        raise NotRunnable(f"tile_b={tile_b} warps per block is outside 1..32")
+    return tile_b
 
 
 def kernel_dtype(t: torch.Tensor) -> int:

@@ -37,10 +37,17 @@ _INT = ctypes.c_int
 SIGNATURES = {
     # dtype, x, u, l, rows, n, w, stream
     "repro_envelope": [_INT, _P, _P, _P, _I64, _INT, _INT, _P],
-    # dtype, p, cands, upper, lower, qidx, cidx, npairs, bstride, n, lb, h, stream
-    "repro_lb_keogh": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P, _P, _P],
+    # dtype, p, cands, upper, lower, qidx, cidx, npairs, bstride, n, warps, lb, h, stream
+    "repro_lb_keogh": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
+    # dtype, p, segment, upper, lower, nq, nb, hop, n, warps, lb, h, stream
+    "repro_lb_keogh_stream": [_INT, _INT, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P, _P, _P],
     # dtype, p, h, qs, qidx, rows, bstride, n, w, lb2, stream
     "repro_lb_improved_pass2": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
+    # dtype, p, cands, qs, upper, lower, bounds, nq, nb, n, w, tile_b, grid_bq, lb1, lb, stream
+    "repro_lb_fused": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT,
+                       _P, _P, _P],
+    # dtype, p, cands, qs, mask, nq, nb, n, warps, lb, stream
+    "repro_lb_kim": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
     # dtype, p, qs, cands, qidx, cidx, bounds, npairs, bstride, n, w, out, stream
     "repro_dtw": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
 }

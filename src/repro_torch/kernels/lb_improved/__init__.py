@@ -7,8 +7,14 @@ from repro_torch.kernels.lb_improved.ops import (
     lb_improved_pass2_plain,
     lb_improved_pass2_qbatch_op,
     lb_improved_qbatch_op,
+    lb_improved_stream_plain,
+    lb_improved_stream_qbatch_op,
 )
-from repro_torch.kernels.lb_improved.ref import lb_improved_qbatch_ref, lb_improved_ref
+from repro_torch.kernels.lb_improved.ref import (
+    lb_improved_qbatch_ref,
+    lb_improved_ref,
+    lb_improved_stream_qbatch_ref,
+)
 
 __all__ = [
     "combine_passes",
@@ -21,4 +27,7 @@ __all__ = [
     "lb_improved_qbatch_op",
     "lb_improved_qbatch_ref",
     "lb_improved_ref",
+    "lb_improved_stream_plain",
+    "lb_improved_stream_qbatch_op",
+    "lb_improved_stream_qbatch_ref",
 ]

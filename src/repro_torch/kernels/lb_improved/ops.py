@@ -23,7 +23,11 @@ from repro_torch.core import lb as lb_mod
 from repro_torch.core.envelope import envelope_batch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype, p_code
-from repro_torch.kernels.lb_keogh.ops import lb_keogh_qbatch_op
+from repro_torch.kernels.lb_keogh.ops import (
+    lb_keogh_qbatch_op,
+    lb_keogh_stream_plain,
+    lb_keogh_stream_qbatch_op,
+)
 
 
 def lb_improved_pass2_plain(h, qs, w: int, p=1, qidx=None):
@@ -94,10 +98,10 @@ def combine_passes(lb1, lb2, p):
     return torch.maximum(lb1, lb2) if p == math.inf else lb1 + lb2
 
 
-def lb_improved_qbatch_op(cands, qs, upper, lower, w: int, p=1):
+def lb_improved_qbatch_op(cands, qs, upper, lower, w: int, p=1, tile_b=None):
     """Full powered LB_Improved, candidates (B, n) vs queries (Q, n) ->
     (Q, B): K2 emits the projection stack that K3 consumes."""
-    lb1, h = lb_keogh_qbatch_op(cands, upper, lower, p)
+    lb1, h = lb_keogh_qbatch_op(cands, upper, lower, p, tile_b)
     return combine_passes(lb1, lb_improved_pass2_qbatch_op(h, qs, w, p), p)
 
 
@@ -106,3 +110,22 @@ def lb_improved_op(cands, q, upper, lower, w: int, p=1):
     return lb_improved_qbatch_op(
         cands, q[None, :], upper[None, :], lower[None, :], w, p
     )[0]
+
+
+def lb_improved_stream_plain(segment, qs, upper, lower, n: int, w: int, hop: int = 1,
+                             p=1):
+    """Plain PyTorch version of the stream form: K7's then K3's plain
+    versions -> (Q, B)."""
+    lb1, h = lb_keogh_stream_plain(segment, upper, lower, n, hop, p)
+    return combine_passes(lb1, lb_improved_pass2_plain(h, qs, w, p), p)
+
+
+def lb_improved_stream_qbatch_op(segment, qs, upper, lower, n: int, w: int,
+                                 hop: int = 1, p=1, tile_b=None):
+    """Full powered LB_Improved for the hop-strided windows of a flat
+    stream segment (L,) against a template batch (Q, n) -> (Q, B): K7
+    reads the windows in place and emits their projections, K3 adds
+    pass 2.  At p = inf the two passes join by max (the reference op adds
+    them there, with an inf pass 1)."""
+    lb1, h = lb_keogh_stream_qbatch_op(segment, upper, lower, n, hop, p, tile_b)
+    return combine_passes(lb1, lb_improved_pass2_qbatch_op(h, qs, w, p), p)

@@ -4,8 +4,16 @@ from repro_torch.kernels.lb_keogh.ops import (
     lb_keogh_pairs_op,
     lb_keogh_plain,
     lb_keogh_qbatch_op,
+    lb_keogh_stream_launch,
+    lb_keogh_stream_plain,
+    lb_keogh_stream_qbatch_op,
 )
-from repro_torch.kernels.lb_keogh.ref import lb_keogh_qbatch_ref, lb_keogh_ref
+from repro_torch.kernels.lb_keogh.ref import (
+    lb_keogh_qbatch_ref,
+    lb_keogh_ref,
+    lb_keogh_stream_qbatch_ref,
+    materialize_windows,
+)
 
 __all__ = [
     "lb_keogh_launch",
@@ -15,4 +23,9 @@ __all__ = [
     "lb_keogh_qbatch_op",
     "lb_keogh_qbatch_ref",
     "lb_keogh_ref",
+    "lb_keogh_stream_launch",
+    "lb_keogh_stream_plain",
+    "lb_keogh_stream_qbatch_op",
+    "lb_keogh_stream_qbatch_ref",
+    "materialize_windows",
 ]

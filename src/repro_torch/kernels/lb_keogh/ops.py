@@ -1,13 +1,20 @@
-"""LB_Keogh + projection H: the K2 CUDA kernel's wrappers and plain version.
+"""LB_Keogh + projection H: the K2 CUDA kernel and its stream entry K7,
+their wrappers and plain versions.
 
 The kernel (``csrc/lb_keogh.cu``) replaces the TPU kernels
 ``repro/kernels/lb_keogh/kernel.py::lb_keogh_qbatch_pallas`` and, as its
 Q = 1 case, ``lb_keogh_pallas``.  It takes either the dense (Q, B) grid
-of (query, candidate) pairs or explicit (qidx, cidx) pair lists.
+of (query, candidate) pairs or explicit (qidx, cidx) pair lists.  Its
+strided entry (K7) replaces ``lb_keogh_stream_qbatch_pallas``: the
+candidates are the hop-strided windows of one flat stream segment, read
+in place and never copied out.
 
 At p = inf the reference kernel computes ``d ** p`` and returns inf; the
-kernel and the plain version here use the max form of
+kernels and the plain versions here use the max form of
 ``repro.core.lb.lb_keogh_powered`` instead.
+
+``tile_b`` is the kernels' warps (pairs) per block; ``None`` resolves it
+from the active tune table (``kernels/tuning``).  It changes no output.
 """
 
 from __future__ import annotations
@@ -16,7 +23,19 @@ import torch
 
 from repro_torch.core import lb as lb_mod
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype, p_code
+from repro_torch.kernels.common import (
+    check_cuda_tensor,
+    kernel_dtype,
+    p_code,
+    warps_per_block,
+)
+from repro_torch.kernels.tuning.table import resolve_config
+
+
+def _warps(tile_b, b: int, n: int) -> int:
+    if tile_b is None:
+        tile_b = resolve_config("lb_keogh", b=b, n=n, backend="cuda").tile_b
+    return warps_per_block(tile_b)
 
 
 def lb_keogh_plain(cands, upper, lower, p=1, qidx=None, cidx=None):
@@ -29,7 +48,7 @@ def lb_keogh_plain(cands, upper, lower, p=1, qidx=None, cidx=None):
     return lb_mod.lb_keogh_powered(c, u, l, p), lb_mod.project(c, u, l)
 
 
-def lb_keogh_launch(cands, upper, lower, p=1, qidx=None, cidx=None):
+def lb_keogh_launch(cands, upper, lower, p=1, qidx=None, cidx=None, tile_b=None):
     """Launch K2 on CUDA tensors; the output shapes follow lb_keogh_plain."""
     dev, dt = cands.device, cands.dtype
     nc, n = cands.shape
@@ -43,12 +62,13 @@ def lb_keogh_launch(cands, upper, lower, p=1, qidx=None, cidx=None):
         npairs, lead = qidx.shape[0], (qidx.shape[0],)
         check_cuda_tensor("qidx", qidx, dev, torch.int64, (npairs,))
         check_cuda_tensor("cidx", cidx, dev, torch.int64, (npairs,))
+    warps = _warps(tile_b, nc, n)
     lb = torch.empty(lead, dtype=dt, device=dev)
     h = torch.empty(lead + (n,), dtype=dt, device=dev)
     code = cuda_lib.library().repro_lb_keogh(
         kernel_dtype(cands), p_code(p), cands.data_ptr(), upper.data_ptr(),
         lower.data_ptr(), cuda_lib.ptr(qidx), cuda_lib.ptr(cidx), npairs, nc,
-        n, lb.data_ptr(), h.data_ptr(), cuda_lib.stream_of(dev),
+        n, warps, lb.data_ptr(), h.data_ptr(), cuda_lib.stream_of(dev),
     )
     cuda_lib.check("lb_keogh", code)
     if npairs:
@@ -59,25 +79,85 @@ def lb_keogh_launch(cands, upper, lower, p=1, qidx=None, cidx=None):
 lb_keogh_launch.launches = 0
 
 
-def _dispatch(cands, upper, lower, p, qidx, cidx):
+def _dispatch(cands, upper, lower, p, qidx, cidx, tile_b):
     if cands.device.type == "cpu":
         return lb_keogh_plain(cands, upper, lower, p, qidx, cidx)
     if cands.device.type != "cuda":
         raise ValueError(f"lb_keogh runs on cuda or cpu, got {cands.device}")
-    return lb_keogh_launch(cands, upper, lower, p, qidx, cidx)
+    return lb_keogh_launch(cands, upper, lower, p, qidx, cidx, tile_b)
 
 
-def lb_keogh_qbatch_op(cands, upper, lower, p=1):
+def lb_keogh_qbatch_op(cands, upper, lower, p=1, tile_b=None):
     """Candidates (B, n) vs envelopes (Q, n) -> (lb (Q, B), H (Q, B, n))."""
-    return _dispatch(cands, upper, lower, p, None, None)
+    return _dispatch(cands, upper, lower, p, None, None, tile_b)
 
 
-def lb_keogh_pairs_op(cands, upper, lower, qidx, cidx, p=1):
+def lb_keogh_pairs_op(cands, upper, lower, qidx, cidx, p=1, tile_b=None):
     """Pairs (qidx[i], cidx[i]) -> (lb (P,), H (P, n)); the compacted form."""
-    return _dispatch(cands, upper, lower, p, qidx, cidx)
+    return _dispatch(cands, upper, lower, p, qidx, cidx, tile_b)
 
 
-def lb_keogh_op(cands, upper, lower, p=1):
+def lb_keogh_op(cands, upper, lower, p=1, tile_b=None):
     """One envelope (n,) against candidates (B, n) -> (lb (B,), H (B, n))."""
-    lb, h = lb_keogh_qbatch_op(cands, upper[None, :], lower[None, :], p)
+    lb, h = lb_keogh_qbatch_op(cands, upper[None, :], lower[None, :], p, tile_b)
     return lb[0], h[0]
+
+
+# ------------------------------------------------------------- stream (K7)
+
+
+def stream_windows(segment, n: int, hop: int = 1) -> int:
+    """The number of hop-strided n-windows in a flat segment (L,)."""
+    length = segment.shape[-1]
+    if length < n:
+        raise ValueError(f"segment of {length} samples holds no {n}-window")
+    if hop < 1:
+        raise ValueError(f"hop={hop} must be >= 1")
+    return (length - n) // hop + 1
+
+
+def lb_keogh_stream_plain(segment, upper, lower, n: int, hop: int = 1, p=1):
+    """Plain PyTorch version of K7: the windows as a strided view of the
+    segment, then the dense plain version -> (lb (Q, B), H (Q, B, n))."""
+    segment = segment.reshape(-1)
+    stream_windows(segment, n, hop)
+    return lb_keogh_plain(segment.unfold(0, n, hop), upper, lower, p)
+
+
+def lb_keogh_stream_launch(segment, upper, lower, n: int, hop: int = 1, p=1,
+                           tile_b=None):
+    """Launch K7 on CUDA tensors; shapes follow lb_keogh_stream_plain."""
+    segment = segment.reshape(-1)
+    dev, dt = segment.device, segment.dtype
+    nb = stream_windows(segment, n, hop)
+    nq = upper.shape[0]
+    check_cuda_tensor("segment", segment, dev, dt)
+    check_cuda_tensor("upper", upper, dev, dt, (nq, n))
+    check_cuda_tensor("lower", lower, dev, dt, (nq, n))
+    warps = _warps(tile_b, nb, n)
+    lb = torch.empty((nq, nb), dtype=dt, device=dev)
+    h = torch.empty((nq, nb, n), dtype=dt, device=dev)
+    code = cuda_lib.library().repro_lb_keogh_stream(
+        kernel_dtype(segment), p_code(p), segment.data_ptr(), upper.data_ptr(),
+        lower.data_ptr(), nq, nb, hop, n, warps, lb.data_ptr(), h.data_ptr(),
+        cuda_lib.stream_of(dev),
+    )
+    cuda_lib.check("lb_keogh_stream", code)
+    if nq * nb:
+        lb_keogh_stream_launch.launches += 1
+    return lb, h
+
+
+lb_keogh_stream_launch.launches = 0
+
+
+def lb_keogh_stream_qbatch_op(segment, upper, lower, n: int, hop: int = 1, p=1,
+                              tile_b=None):
+    """Stream-packed LB_Keogh: the ``B = (L - n) // hop + 1`` hop-strided
+    windows of a flat segment (L,) vs envelopes (Q, n) ->
+    (lb (Q, B), H (Q, B, n)), the windows read in place."""
+    if segment.device.type == "cpu":
+        return lb_keogh_stream_plain(segment, upper, lower, n, hop, p)
+    if segment.device.type != "cuda":
+        raise ValueError(f"lb_keogh_stream runs on cuda or cpu, got {segment.device}")
+    return lb_keogh_stream_launch(segment, upper, lower, n, hop, p, tile_b)

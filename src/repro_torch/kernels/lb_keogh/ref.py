@@ -17,3 +17,16 @@ def lb_keogh_qbatch_ref(cands, upper, lower, p=1):
     lb = lb_keogh_powered_qbatch(cands, upper, lower, p)
     h = project(cands[None, :, :], upper[:, None, :], lower[:, None, :])
     return lb, h
+
+
+def materialize_windows(segment, n: int, hop: int = 1):
+    """(L,) flat segment -> (B, n) hop-strided window rows, copied (the
+    materialization the stream kernel avoids)."""
+    segment = segment.reshape(-1)
+    return segment.unfold(0, n, hop).contiguous()
+
+
+def lb_keogh_stream_qbatch_ref(segment, upper, lower, n: int, hop: int = 1, p=1):
+    """Flat segment (L,) vs (Q, n) envelopes: materialize the window rows,
+    then run the query-major oracle."""
+    return lb_keogh_qbatch_ref(materialize_windows(segment, n, hop), upper, lower, p)

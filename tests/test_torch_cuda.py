@@ -5,6 +5,11 @@ every test here is marked ``cuda`` and skips with a reason elsewhere.
 Run them on the card with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py`` (the file imports no JAX).  Tolerances:
 envelope and H bit-equal, LB_Keogh rtol 1e-4, LB_Improved 2e-4, DP 3e-4.
+LB_Kim (K6) is bit-equal by design (exact max/min, no fused multiply-add);
+the fused kernel (K4) is bit-equal to LB_Keogh (K2) plus pass 2 (K3), and
+the stream entry (K7) to K2 on the copied windows, because they share one
+device routine per pass; every schedule in a family's tune space gives
+the same bits.
 """
 
 import math
@@ -18,8 +23,17 @@ from repro_torch.api import Database, SearchConfig  # noqa: E402
 from repro_torch.kernels import dtw as kd  # noqa: E402
 from repro_torch.kernels import envelope as ke  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels import lb_fused as kf  # noqa: E402
 from repro_torch.kernels import lb_improved as ki  # noqa: E402
 from repro_torch.kernels import lb_keogh as kk  # noqa: E402
+from repro_torch.kernels import lb_kim as km  # noqa: E402
+from repro_torch.kernels.common import NotRunnable  # noqa: E402
+from repro_torch.kernels.tuning import (  # noqa: E402
+    KernelConfig,
+    TuneTable,
+    search_space,
+    use_table,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -104,9 +118,139 @@ def test_default_session_launches_every_kernel(dev):
     q = rng.normal(size=(4, 96)).cumsum(axis=1).astype(np.float32)
     reset_launch_counts()
     db = Database.build(x, SearchConfig(k=3))
+    built = launch_counts()
+    reset_launch_counts()
     res = db.search(q)
-    counts = launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    searched = launch_counts()
+    # the build's envelopes and calibration probe, then the host driver:
+    # envelopes, one fused LB launch per block and the DP chunks
+    for name in ("envelope", "lb_kim", "lb_keogh", "lb_improved_pass2", "dtw"):
+        assert built[name] > 0, built
+    for name in ("envelope", "lb_fused", "dtw"):
+        assert searched[name] > 0, searched
+    assert searched["lb_keogh"] == searched["lb_improved_pass2"] == 0, searched
     ref = Database.build(x, SearchConfig(k=3), device="cpu").search(q)
     np.testing.assert_array_equal(res.indices, ref.indices)
     np.testing.assert_allclose(res.distances, ref.distances, rtol=2e-4)
+
+
+def envelopes(qs, w):
+    u, l = ke.envelope_plain(qs, w)
+    return u.contiguous(), l.contiguous()
+
+
+@pytest.mark.parametrize("p", PS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lb_kim_kernel_bit_equal(dev, p, dtype):
+    cands, qs = walks(dev, 30, 37, 300, dtype), walks(dev, 31, 6, 300, dtype)
+    assert torch.equal(km.lb_kim_launch(cands, qs, None, p), km.lb_kim_plain(cands, qs, None, p))
+    mask = torch.as_tensor(np.random.default_rng(32).random((6, 37)) < 0.6, device=dev)
+    got = km.lb_kim_launch(cands, qs, mask, p)
+    assert torch.equal(got, km.lb_kim_plain(cands, qs, mask, p))
+    assert bool((got[~mask] == 1e30).all())
+    fmask = mask.to(dtype)
+    assert torch.equal(km.lb_kim_launch(cands, qs, fmask, p), got)
+    for cfg in search_space("lb_kim"):
+        assert torch.equal(km.lb_kim_launch(cands, qs, mask, p, cfg.tile_b), got)
+
+
+@pytest.mark.parametrize("p", PS)
+@pytest.mark.parametrize("hop", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lb_keogh_stream_kernel(dev, p, hop, dtype):
+    n, w = 120, 12
+    seg = walks(dev, 33, 1, 40 * hop + n + 2, dtype)[0]
+    qs = walks(dev, 34, 4, n, dtype)
+    u, l = envelopes(qs, w)
+    lb, h = kk.lb_keogh_stream_launch(seg, u, l, n, hop, p)
+    plb, ph = kk.lb_keogh_stream_plain(seg, u, l, n, hop, p)
+    torch.testing.assert_close(lb, plb, rtol=1e-4, atol=0)
+    assert torch.equal(h, ph)
+    # the strided entry runs K2's routine on the windows in place
+    wins = kk.materialize_windows(seg, n, hop)
+    klb, kh = kk.lb_keogh_launch(wins, u, l, p)
+    assert torch.equal(lb, klb) and torch.equal(h, kh)
+    for cfg in search_space("lb_keogh"):
+        got = kk.lb_keogh_stream_launch(seg, u, l, n, hop, p, cfg.tile_b)
+        assert torch.equal(got[0], lb) and torch.equal(got[1], h)
+        got = kk.lb_keogh_launch(wins, u, l, p, tile_b=cfg.tile_b)
+        assert torch.equal(got[0], klb) and torch.equal(got[1], kh)
+    full = ki.lb_improved_stream_qbatch_op(seg, qs, u, l, n, w, hop, p)
+    torch.testing.assert_close(
+        full, ki.lb_improved_stream_plain(seg, qs, u, l, n, w, hop, p), rtol=2e-4, atol=0
+    )
+
+
+def fused_inputs(dev, dtype, p, nq=5, nb=37, n=200, w=20):
+    cands, qs = walks(dev, 35, nb, n, dtype), walks(dev, 36, nq, n, dtype)
+    u, l = envelopes(qs, w)
+    lb1 = kk.lb_keogh_plain(cands, u, l, p)[0]
+    bounds = lb1.median(dim=1).values.contiguous()  # about half the lanes live
+    bounds[0] = 0.0  # query 0: no live lane, every tile skips pass 2
+    return cands, qs, u, l, w, bounds
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lb_fused_kernel(dev, p, dtype):
+    cands, qs, u, l, w, bounds = fused_inputs(dev, dtype, p)
+    lb1, lb = kf.lb_fused_launch(cands, qs, u, l, w, bounds, p)
+    # the plain version with no bound gives pass 2 on every lane; the
+    # kernel's own lb1 decides which lanes are live (a lane at the median
+    # bound can fall either side of it within rounding)
+    plb1, plb = kf.lb_fused_plain(cands, qs, u, l, w, torch.full_like(bounds, math.inf), p)
+    torch.testing.assert_close(lb1, plb1, rtol=1e-4, atol=0)
+    dead = lb1 >= bounds[:, None]
+    assert bool(dead[0].all()) and not bool(dead.all())
+    assert torch.equal(lb[dead], lb1[dead])
+    torch.testing.assert_close(lb[~dead], plb[~dead], rtol=2e-4, atol=0)
+    # bit-equal to K2, then K3 and combine_passes
+    klb1, h = kk.lb_keogh_launch(cands, u, l, p)
+    lb2 = ki.lb_improved_pass2_launch(h, qs, w, p)
+    assert torch.equal(lb1, klb1)
+    assert torch.equal(lb, torch.where(dead, klb1, ki.combine_passes(klb1, lb2, p)))
+    for cfg in search_space("lb_fused"):
+        got = kf.lb_fused_launch(cands, qs, u, l, w, bounds, p, cfg.tile_b, cfg.depth, cfg.grid)
+        assert torch.equal(got[0], lb1) and torch.equal(got[1], lb), cfg
+
+
+def test_lb_fused_refuses_what_cannot_launch(dev):
+    cands, qs, u, l, w, bounds = fused_inputs(dev, torch.float32, 1)
+    with pytest.raises(ValueError):
+        kf.lb_fused_qbatch_op(cands, qs, u, l, w, bounds, math.inf)
+    with pytest.raises(NotRunnable):
+        kf.lb_fused_launch(cands, qs, u, l, w, bounds, 1, 8, 2, "qb")
+    # 32 rows of H at n = 4000 exceed shared memory: an explicit tile
+    # raises, a resolved one is halved until it fits
+    c, q = walks(dev, 37, 9, 4000), walks(dev, 38, 2, 4000)
+    cu, cl = envelopes(q, 400)
+    b2 = torch.full((2,), 1e30, device=dev)
+    with pytest.raises(NotRunnable):
+        kf.lb_fused_launch(c, q, cu, cl, 400, b2, 1, 32, 1, "qb")
+    table = TuneTable(entries={("lb_fused", "cuda", "*"): KernelConfig(tile_b=32)})
+    with use_table(table):
+        got = kf.lb_fused_launch(c, q, cu, cl, 400, b2, 1)
+    want = kf.lb_fused_launch(c, q, cu, cl, 400, b2, 1, 1, 1, "qb")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("method", ["lb_improved", "kim_improved"])
+def test_host_driver_fused_route(dev, method):
+    """The host driver runs LB_Keogh -> LB_Improved as one K4 launch per
+    block: no K2 or K3 launch, and the CPU route's answers and counters."""
+    from repro_torch.core.cascade import nn_search_host
+
+    rng = np.random.default_rng(39)
+    x = rng.normal(size=(300, 96)).cumsum(axis=1).astype(np.float32)
+    q = rng.normal(size=(6, 96)).cumsum(axis=1).astype(np.float32)
+    reset_launch_counts()
+    got = nn_search_host(q, x, 9, 1, 3, 32, method=method, device=dev)
+    counts = launch_counts()
+    want = nn_search_host(q, x, 9, 1, 3, 32, method=method, device="cpu")
+    s = got.stats
+    assert counts["lb_fused"] == (s.blocks_total if method == "lb_improved" else s.blocks_lb2)
+    assert counts["lb_keogh"] == 0 and counts["lb_improved_pass2"] == 0
+    assert counts["lb_kim"] == (s.blocks_total if method == "kim_improved" else 0)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_allclose(got.distances, want.distances, rtol=2e-4)
+    assert got.stats == want.stats

@@ -118,8 +118,6 @@ def test_bundles_of_unported_tiers_raise(tmp_path):
         Database.build(x, index=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         Database.build(x, anytime=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Database.build(x, tune=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         Database.build(np.stack([x, x], axis=-1), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -207,14 +207,21 @@ def test_dtw_pairs_and_dense_forms(p):
 
 
 def test_cpu_wrappers_never_launch():
+    from repro_torch.kernels.lb_fused import lb_fused_qbatch_op as t_fused
+    from repro_torch.kernels.lb_kim import lb_kim_qbatch_op as t_kim
+
     reset_launch_counts()
     xs = t(walks(21, 4, 20))
     tenv.envelope_op(xs, 3)
     tlk.lb_keogh_qbatch_op(xs, xs[:2], xs[:2], 1)
+    tlk.lb_keogh_stream_qbatch_op(xs.reshape(-1), xs[:2], xs[:2], 20, 3, 1)
     tli.lb_improved_pass2_qbatch_op(xs[None], xs[:1], 3, 1)
     tdtw.dtw_qbatch_op(xs[:2], xs, 3, 1)
+    t_fused(xs, xs[:2], xs[:2], xs[:2], 3, xs[:2, 0], 1)
+    t_kim(xs, xs[:2], None, 1)
     assert launch_counts() == {
-        "envelope": 0, "lb_keogh": 0, "lb_improved_pass2": 0, "dtw": 0
+        "envelope": 0, "lb_keogh": 0, "lb_improved_pass2": 0, "dtw": 0,
+        "lb_fused": 0, "lb_kim": 0, "lb_keogh_stream": 0,
     }
 
 

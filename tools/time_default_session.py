@@ -1,0 +1,95 @@
+"""Time repro_torch's default session on one GPU: build, searches, idle share.
+
+Builds the session ``chip_smoke.py`` phase 3 drives (100,000 random walks
+of length 1,000 from seed 0, ``SearchConfig()``, host driver), runs
+``--searches`` timed searches of the same 16 queries, one more under
+``torch.profiler`` for the device's busy time, and prints one JSON line:
+the label, build and search seconds, qps, idle share, pruning counts,
+kernel launches of the first search, and the card's name and power limit.
+
+``--src`` points at the ``src`` directory of the checkout to time, so two
+commits can be compared on one card in one process tree, in turns:
+
+    python tools/time_default_session.py --label change
+    python tools/time_default_session.py --src build/parent/src --label parent
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory holding the repro_torch to time")
+    ap.add_argument("--label", default="", help="name printed with the result")
+    ap.add_argument("--searches", type=int, default=2)
+    ap.add_argument("--rows", type=int, default=100_000)
+    ap.add_argument("--length", type=int, default=1000)
+    ap.add_argument("--queries", type=int, default=16)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("time_default_session: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.api import Database
+    from repro_torch.data.synthetic import random_walks
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(0)
+    x = random_walks(rng, args.rows, args.length)
+    queries = random_walks(rng, args.queries, args.length)
+    t0 = time.perf_counter()
+    db = Database.build(x)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    db.search(queries[:1])  # first use: kernel build and load
+    torch.cuda.synchronize()
+
+    searches, launches, res = [], None, None
+    for _ in range(args.searches):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = db.search(queries)
+        torch.cuda.synchronize()
+        searches.append(time.perf_counter() - t0)
+        launches = launches or launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        db.search(queries)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(
+        getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        for e in prof.key_averages()
+    ) / 1e3
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    best = min(searches)
+    print(json.dumps({
+        "label": args.label, "card": card, "build_s": build_s, "search_s": searches,
+        "qps": args.queries / best, "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
+        "pruned": res.stats.pruned_by, "full_dtw": res.stats.full_dtw,
+        "launches": launches,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
