@@ -12,7 +12,10 @@ Phases (any failure raises, exits non-zero and prints no result line):
 2. Each CUDA kernel against its plain PyTorch version on the card, at
    the main path's shapes and at edge shapes, with its time (CUDA
    events), the plain version's time, its lower bound and, where one
-   PyTorch call computes the same function, that call's time.  The fused
+   PyTorch call computes the same function, that call's time.  The DP
+   kernel (K5) must be bit-equal to ``dtw_wavefront_plain`` on every
+   lane, finished or abandoned, and is also timed at 5 pairs, at the
+   brute force's dense shape and against its dependency-chain bound.  The fused
    LB kernel (K4) must be bit-equal to LB_Keogh (K2) plus pass 2 (K3),
    the stream entry (K7) to K2 on the copied windows, and every schedule
    of a family's tune space to its fallback.
@@ -191,9 +194,18 @@ def phase_toolchain():
     cuda_lib.library()
     log(f"[build] {lib_path.relative_to(ROOT)} in {build_s:.1f} s from "
         f"{len(list(cuda_lib.CSRC.glob('*.cu')))} sources")
+    # one line per kernel: its name, registers and spills (ptxas -v)
+    entry = spills = ""
     for line in build_log.splitlines():
-        if "Used" in line or "spill" in line or line.startswith("=="):
+        if line.startswith("=="):
             log(f"[build]   {line.strip()}")
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            log(f"[build]   {entry}: {regs}; {spills}")
     return smi
 
 
@@ -206,7 +218,8 @@ def phase_kernels(dev):
     import torch
 
     from repro_torch.data.synthetic import random_walks
-    from repro_torch.kernels.dtw.ops import dtw_launch, dtw_plain
+    from repro_torch.kernels.common import BIG
+    from repro_torch.kernels.dtw.ops import dtw_launch, dtw_plain, dtw_wavefront_plain
     from repro_torch.kernels.envelope.ops import envelope_launch, envelope_plain
     from repro_torch.kernels.lb_improved.ops import (
         lb_improved_pass2_launch,
@@ -315,48 +328,94 @@ def phase_kernels(dev):
     log(f"[kernel] lb_improved_pass2 ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
         f"bound {bnd:.5f} ms ({by})")
 
-    # K5 banded DP: rtol 3e-4; abandoned lanes only >= bound
+    # K5 banded DP: bit-equal to its wavefront plain version on every lane,
+    # finished or abandoned; finished lanes within rtol 3e-4 of dtw_plain
+    # (the reference's row DP); abandoned lanes >= their bound
     db = walks(4096, LENGTH)
     qi = torch.as_tensor(rng.integers(0, N_QUERIES, DTW_CHUNK), device=dev)
     ci = torch.as_tensor(rng.integers(0, db.shape[0], DTW_CHUNK), device=dev)
     err = 0.0
-    for p in (1, 2, math.inf):
-        got = dtw_launch(qs, db, w, p, qi, ci)
-        want = dtw_plain(qs, db, w, p, qi, ci)
-        e = check_close("dtw", got, want, TOL["dtw"], f"chunk p={p}")
-        err = e if p == 1 else err
-        # half the lanes get a bound below their distance
-        bounds = torch.where(torch.arange(DTW_CHUNK, device=dev) % 2 == 0,
-                             want * 0.5, want * 2.0).contiguous()
-        got = dtw_launch(qs, db, w, p, qi, ci, bounds)
-        below = want < bounds
-        check_close("dtw", got[below], want[below], TOL["dtw"], f"bounded p={p}")
-        over = got[~below] >= bounds[~below] * (1 - TOL["dtw"])
-        if not bool(over.all()):
-            fail(f"dtw p={p}: abandoned lanes returned less than their bound")
-        if p != math.inf:
-            plain_b = dtw_plain(qs, db, w, p, qi, ci, bounds)
-            if not bool((plain_b[~below] >= bounds[~below]).all()):
-                fail(f"dtw plain p={p}: abandoned lanes below their bound")
-    for nq2, nb, n, ww, dt in [(2, 37, 64, 0, torch.float32),
-                               (3, 5, 64, 200, torch.float32),
-                               (2, 9, 120, 12, torch.float64)]:
-        q2 = walks(nq2, n, dt)
-        c2 = walks(nb, n, dt)
+    one = torch.zeros(1, dtype=torch.int64, device=dev)
+    cases = []  # (label, queries, candidates, w, qidx, cidx)
+    for dt in (torch.float32, torch.float64):
+        q2, d2 = qs.to(dt), db.to(dt)
+        cases += [(f"chunk {dt}", q2, d2, w, qi, ci),
+                  (f"one pair {dt}", q2, d2, w, one, ci[:1].contiguous())]
+        small_q, small_c = walks(2, 64, dt), walks(37, 64, dt)
+        cases += [(f"2x37 n=64 w={ww} {dt}", small_q, small_c, ww, None, None)
+                  for ww in (0, 5, 63, 200)]
+        # past the register cap (w + 1 > 512): the shared-memory path
+        cases.append((f"2x5 n=1200 w=600 {dt}", walks(2, 1200, dt), walks(5, 1200, dt),
+                      600, None, None))
+    for label, q2, c2, ww, i2, j2 in cases:
         for p in (1, 2, math.inf):
-            got = dtw_launch(q2, c2, ww, p)
-            want = dtw_plain(q2, c2, ww, p)
-            check_close("dtw", got, want, TOL["dtw"], f"{nq2}x{nb} n={n} w={ww} {dt} p={p}")
+            what = f"{label} p={p}"
+            got = dtw_launch(q2, c2, ww, p, i2, j2)
+            want = dtw_wavefront_plain(q2, c2, ww, p, i2, j2)
+            check_equal("dtw", got, want, f"{what} vs wavefront plain")
+            e = check_close("dtw", got, dtw_plain(q2, c2, ww, p, i2, j2), TOL["dtw"],
+                            f"{what} vs dtw_plain")
+            err = e if (label == "chunk torch.float32" and p == 1) else err
+            lanes = torch.arange(want.numel(), device=dev).reshape(want.shape)
+            for bname, bounds in (
+                ("BIG", torch.full_like(want, BIG)),
+                ("0", torch.zeros_like(want)),
+                ("-1", torch.full_like(want, -1.0)),
+                # half the lanes get a bound below their distance
+                ("half", torch.where(lanes % 2 == 0, want * 0.5, want * 2.0).contiguous()),
+            ):
+                got = dtw_launch(q2, c2, ww, p, i2, j2, bounds)
+                check_equal("dtw", got, dtw_wavefront_plain(q2, c2, ww, p, i2, j2, bounds),
+                            f"{what} bounds={bname} vs wavefront plain")
+                below = want < bounds
+                if bname == "BIG" and not torch.equal(got, want):
+                    fail(f"dtw {what}: a bound of BIG changed a lane")
+                check_close("dtw", got[below], want[below], 0.0, f"{what} finished lanes")
+                if not bool((got[~below] >= bounds[~below]).all()):
+                    fail(f"dtw {what} bounds={bname}: abandoned lanes below their bound")
+                if bname == "half" and p != math.inf:
+                    plain_b = dtw_plain(q2, c2, ww, p, i2, j2, bounds)
+                    if not bool((plain_b[~below] >= bounds[~below]).all()):
+                        fail(f"dtw plain {what}: abandoned lanes below their bound")
+    log(f"[kernel] dtw: {len(cases) * 3} cases x 5 bounds bit-equal to "
+        "dtw_wavefront_plain, finished lanes within 3e-4 of dtw_plain")
     ms = time_ms(lambda: dtw_launch(qs, db, w, 1, qi, ci))
+    ms5 = time_ms(lambda: dtw_launch(qs, db, w, 1, qi[:5].contiguous(), ci[:5].contiguous()))
     plain = time_ms(lambda: dtw_plain(qs, db, w, 1, qi, ci), iters=1, repeats=3, warmup=1)
+    wave_plain = time_ms(lambda: dtw_wavefront_plain(qs, db, w, 1, qi, ci),
+                         iters=1, repeats=3, warmup=1)
     cells = DTW_CHUNK * (LENGTH * (2 * w + 1) - w * (w + 1))
     bnd, by = bound_ms(4 * DTW_CHUNK * (2 * LENGTH + 1), 5 * cells)
+    # the dependency chain: one step's latency from the slope of a one-pair,
+    # w = 0 launch (one live cell per warp) between n and 2n
+    long_q, long_c = walks(1, 2 * LENGTH), walks(1, 2 * LENGTH)
+    t1 = time_ms(lambda: dtw_launch(long_q[:, :LENGTH].contiguous(),
+                                    long_c[:, :LENGTH].contiguous(), 0, 1))
+    t2 = time_ms(lambda: dtw_launch(long_q, long_c, 0, 1))
+    t_step_ms = (t2 - t1) / (2 * LENGTH)
+    chain_ms = (2 * LENGTH - 1) * t_step_ms
+    del db
+    # dense: phase 3's brute force shape, 2 queries x 100,000 rows
+    rows = walks(N_ROWS, LENGTH)
+    dense_ms = time_ms(lambda: dtw_launch(qs[:2].contiguous(), rows, w, 1),
+                       iters=3, repeats=3, warmup=1)
+    dense_cells = 2 * N_ROWS * (LENGTH * (2 * w + 1) - w * (w + 1))
+    dense_bnd, dense_by = bound_ms(4 * (2 * LENGTH + N_ROWS * LENGTH + 2 * N_ROWS),
+                                   5 * dense_cells)
+    del rows
     rec["dtw"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                       bound_by=by, library_ms=None,
-                      shape=f"pairs={DTW_CHUNK} n={LENGTH} w={w} p=1 full DP")
-    log(f"[kernel] dtw ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
-        f"bound {bnd:.5f} ms ({by})")
-    del db
+                      shape=f"pairs={DTW_CHUNK} n={LENGTH} w={w} p=1 full DP",
+                      ms_5_pairs=ms5, wavefront_plain_ms=wave_plain,
+                      chain_bound_ms=chain_ms, t_step_ns=t_step_ms * 1e6,
+                      t_step_source=f"slope of a one-pair w=0 launch, n={LENGTH} to {2 * LENGTH}",
+                      dense_ms=dense_ms, dense_bound_ms=dense_bnd, dense_bound_by=dense_by,
+                      dense_shape=f"2 x {N_ROWS} n={LENGTH} w={w} p=1")
+    log(f"[kernel] dtw ok: {ms:.4f} ms at {DTW_CHUNK} pairs, {ms5:.4f} ms at 5 pairs "
+        f"vs plain {plain:.3f} ms (wavefront plain {wave_plain:.3f} ms); bound "
+        f"{bnd:.5f} ms ({by}); chain bound {chain_ms:.4f} ms = {2 * LENGTH - 1} steps "
+        f"x {t_step_ms * 1e6:.2f} ns; dense 2 x {N_ROWS} {dense_ms:.3f} ms, bound "
+        f"{dense_bnd:.3f} ms ({dense_by})")
     torch.cuda.synchronize()
     return rec
 

@@ -14,8 +14,8 @@ coordinates: for row i, band index k in [0, 2w] is column j = i + k - w.
 
 The torch functions take 1-D series or row batches ``(P, n)`` that
 broadcast pairwise; the batch is the vmap of the JAX version written out.
-These are the plain versions the CUDA DP kernel (``kernels/dtw``) is
-held against.
+The CUDA DP kernel (``kernels/dtw``) walks the anti-diagonals like
+``dtw_banded_diag`` and returns its bits on every lane that finishes.
 """
 
 from __future__ import annotations

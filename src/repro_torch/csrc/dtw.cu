@@ -3,153 +3,374 @@
 // Replaces the TPU kernel repro/kernels/dtw/kernel.py: dtw_banded_pallas
 // (_dtw_lane, _dtw_kernel, _dtw_db_kernel).
 //
-// For each (query, candidate) pair the band DP of half-width w runs row
-// by row; row i holds the 2w+1 cells of columns j = i + k - w.  Cells are
-//   D[i,j] = cost(q_i - c_j) + min(D[i-1,j], D[i,j-1], D[i-1,j-1])   (p = 1, 2)
-//   D[i,j] = max(|q_i - c_j|, min(...))                             (p = inf)
-// with powered costs.  Abandon rule, as in the reference: before each row
-// the lane stops if min(previous row) >= bound; a lane that ran all n rows
-// returns D[n-1, n-1], an abandoned one returns that row minimum
-// (>= bound).  A bound of BIG gives the full DP.  Cells outside 0 <= j < n
-// are skipped (held at BIG), not padded with PAD_VALUE.
+// For each (query, candidate) pair the band DP of half-width w runs over
+// the anti-diagonals s = i + j, s = 0 .. 2n-2.  Cell (i, j) with offset
+// e = i - j in [-w, w] needs diagonal s-1 at offsets e-1 (up, (i-1, j))
+// and e+1 (left, (i, j-1)) and diagonal s-2 at offset e (diag), so the
+// cells of one diagonal are independent of each other.  Cells are
+//   D[i,j] = min(cost(q_i - c_j) + min(up, left, diag), BIG)   (p = 1, 2)
+//   D[i,j] = min(max(|q_i - c_j|, min(up, left, diag)), BIG)   (p = inf)
+// with powered costs; cells outside the band or the grid hold BIG.  The
+// sums and products are rounded one by one (__fadd_rn, __fmul_rn), so no
+// fused multiply-add changes a bit: a lane that runs to the end returns
+// the value of repro_torch.core.dtw.dtw_banded_diag(..., powered=True)
+// bit for bit, at p in {1, 2, inf} in float and double.
 //
-// Bound on this card: operations, and in practice the latency of the
-// row-to-row dependency; the inputs are two rows of n values per pair.
-// Design: one warp per pair.  The query row, the candidate row and two
-// band rows live in shared memory.  Within a row the left-to-right
-// recurrence x_k = f_k(x_{k-1}) is a composition of functions
-// f(x) = min(a, b + x) (finite p) or f(x) = min(hi, max(lo, x)) (p = inf),
-// both closed under composition; each lane composes its contiguous
-// segment, a 5-step shuffle scan composes across lanes, and each lane then
-// replays its segment from the incoming value.  Replay uses the textbook
-// cell arithmetic; at p = inf all of it is exact (max/min only).
+// Abandon rule.  With bounds, before step 0 and every ABANDON_EVERY steps
+// the lane takes the minimum over the cells of the two latest diagonals
+// and stops if it is >= its bound, returning that minimum.  Every warping
+// path crosses one of two consecutive anti-diagonals and accumulated
+// costs never fall along a path, so the stopped lane's distance is >= the
+// returned value >= the bound.  This minimum is not the row minimum the
+// reference's row DP returns; callers are promised only "abandoned =>
+// value >= bound" (kernels/dtw/ops.py::dtw_wavefront_plain repeats the
+// rule).  Without bounds no test runs.  A bound of BIG never stops a lane.
+//
+// Bound on this card: at the host driver's chunks (at most 16 pairs, one
+// warp each, on 132 SMs) nothing hides latency, so the time is the
+// (2n-1)-step dependency chain of one pair; dense launches (the brute
+// force over 100,000 rows) are bound by operations.  Design: one warp per
+// pair, and only the w+1 (or w) cells of a diagonal's parity are kept:
+// slot t holds offset e = -w + par + 2t, par = (s + w) & 1.  A diagonal
+// of parity 0 reads slots t-1 (up) and t (left) of the one before it, a
+// diagonal of parity 1 slots t and t+1.  Each lane holds S contiguous
+// slots of the two latest diagonals in registers and updates the older
+// one in place, so a step's chain is one shuffle of an edge value (up on
+// parity 0, down on parity 1), two mins, an add and the clamp.  S is a
+// template value, the smallest power of two with 32 S >= w + 1, up to 16
+// (w <= 511); wider bands run the same wavefront with the two diagonals
+// in shared memory (S = 0).  The query and candidate rows are staged
+// once in shared memory with 16-byte loads and padded with +-ROW_PAD,
+// whose cost exceeds BIG, so a cell off the grid needs no test.  In the
+// register path the q and c values of a lane's cells are sliding windows
+// in registers: from one diagonal to the next only one of them moves by
+// one element, so a step loads one value, a step ahead.  Steps run in
+// unrolled blocks of 2S, after which the windows are back in place.
 #include "common.cuh"
 
 namespace repro {
 
-// x -> min(a, b + x) for finite p; x -> min(b, max(a, x)) for p = inf.
-template <typename T, int P> __device__ __forceinline__ T fn_apply(T a, T b, T x) {
-  return P == 0 ? tmin(b, tmax(a, x)) : tmin(a, b + x);
+// Steps between two abandon tests: a multiple of every block of 2S steps.
+constexpr int ABANDON_EVERY = 32;
+// Largest register slot count per lane; wider bands use shared memory.
+constexpr int MAX_SLOTS = 16;
+
+// Row padding: |ROW_PAD - x| and |x + ROW_PAD| exceed BIG for any row
+// value |x| < 1e34, so a cell with i or j outside 0..n-1 costs >= BIG and
+// its value is BIG at every p (the square may overflow to +inf, which the
+// clamp turns into BIG).
+template <typename T> __device__ __forceinline__ T row_pad() { return T(1.0e35); }
+
+template <typename T> __device__ __forceinline__ T add_rn(T a, T b);
+template <> __device__ __forceinline__ float add_rn<float>(float a, float b) {
+  return __fadd_rn(a, b);
+}
+template <> __device__ __forceinline__ double add_rn<double>(double a, double b) {
+  return __dadd_rn(a, b);
+}
+template <typename T> __device__ __forceinline__ T mul_rn(T a, T b);
+template <> __device__ __forceinline__ float mul_rn<float>(float a, float b) {
+  return __fmul_rn(a, b);
+}
+template <> __device__ __forceinline__ double mul_rn<double>(double a, double b) {
+  return __dmul_rn(a, b);
 }
 
-// (a, b) <- later o earlier.
-template <typename T, int P>
-__device__ __forceinline__ void fn_compose(T a2, T b2, T a1, T b1, T& a, T& b) {
-  if (P == 0) {
-    a = tmin(b2, tmax(a2, a1));
-    b = tmin(b2, tmax(a2, b1));
-  } else {
-    a = tmin(a2, b2 + a1);
-    b = b2 + b1;
+// min and max as one FMNMX / DMNMX each.  They differ from tmin / tmax
+// only on NaN and on the sign of zero, and neither occurs in the DP: every
+// value is +0 or positive (costs are |q - c| or its square, BIG is
+// finite, a square may overflow to +inf but nothing subtracts it).
+template <typename T> __device__ __forceinline__ T dmin(T a, T b) { return fmin(a, b); }
+template <typename T> __device__ __forceinline__ T dmax(T a, T b) { return fmax(a, b); }
+
+template <typename T, int P> __device__ __forceinline__ T pair_cost(T q, T c) {
+  const T d = fabs(q - c);
+  return P == 2 ? mul_rn(d, d) : d;
+}
+
+// One cell from its cost and the minimum of its three predecessors.
+template <typename T, int P> __device__ __forceinline__ T dp_cell(T cost, T best) {
+  return dmin(P == 0 ? dmax(cost, best) : add_rn(cost, best), big<T>());
+}
+
+// Padding on each side of a staged row: covers every index a lane reads,
+// (w + 1) / 2 + S past the ends, rounded to whole 16-byte vectors.
+__host__ __device__ inline int row_margin(int w, int s, int vec) {
+  const int m = (w + 1) / 2 + s + 1;
+  return (m + vec - 1) / vec * vec;
+}
+
+// Values per staged row, margins included, a whole number of vectors;
+// at least 32 s, so the query row's buffer can take a whole diagonal.
+__host__ __device__ inline int row_len(int n, int w, int s, int vec) {
+  const int len = (n + 2 * row_margin(w, s, vec) + vec - 1) / vec * vec;
+  return len > 32 * s ? len : 32 * s;
+}
+
+// dst[0 .. margin) and dst[margin + n .. len) = fill, dst[margin + k] =
+// src[k]; 16-byte loads and stores where src is aligned (dst always is).
+template <typename T>
+__device__ void stage_row(T* dst, const T* __restrict__ src, int n, int margin,
+                          int len, T fill, int lane) {
+  constexpr int V = 16 / sizeof(T);
+  for (int k = lane; k < margin; k += 32) dst[k] = fill;
+  for (int k = margin + n + lane; k < len; k += 32) dst[k] = fill;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int nv = n / V;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst + margin);
+    for (int k = lane; k < nv; k += 32) d4[k] = __ldg(s4 + k);
+    done = nv * V;
   }
+  for (int k = done + lane; k < n; k += 32) dst[margin + k] = src[k];
 }
 
-template <typename T, int P> __device__ __forceinline__ T fn_id_a() {
-  return P == 0 ? -big<T>() : big<T>();
-}
-template <typename T, int P> __device__ __forceinline__ T fn_id_b() {
-  return P == 0 ? big<T>() : T(0);
+// Steps M = B .. E-1 of a block, unrolled at compile time; with a
+// `left` count only the first `left` of them run (the last block).
+template <int B, int E> struct Unroll {
+  template <typename W> __device__ __forceinline__ static void run(W& wave) {
+    wave.template step<B>();
+    Unroll<B + 1, E>::run(wave);
+  }
+  template <typename W> __device__ __forceinline__ static void run(W& wave, int left) {
+    if (B < left) wave.template step<B>();
+    Unroll<B + 1, E>::run(wave, left);
+  }
+};
+template <int E> struct Unroll<E, E> {
+  template <typename W> __device__ __forceinline__ static void run(W&) {}
+  template <typename W> __device__ __forceinline__ static void run(W&, int) {}
+};
+
+// The register wavefront of one lane.  Steps with even s update `a`, odd
+// s update `b`; WODD = w & 1 fixes the parity of the even steps.  The q
+// values of the lane's cells are the window q[I + lo + u] and the c
+// values c[J - lo - u], u = 0 .. S-1: a parity-0 step is followed by
+// I += 1, a parity-1 step by J += 1.  Within a block of 2S steps, at step
+// M, logical u of the q window sits in qw[(u + KQ) % S] and of the c
+// window in cw[(u - KC) mod S]; after a block both are back at 0.
+template <typename T, int P, int S, int WODD> struct RegWave {
+  T a[S], b[S], qw[S], cw[S];
+  const T* qnext;  // the value entering the q window after a parity-0 step
+  const T* cnext;  // the value entering the c window after a parity-1 step
+  T dead[2][S];    // 0 for a live slot on a diagonal of parity par, else BIG
+  int from_left, from_right;  // lanes lane-1 and lane+1, mod 32
+
+  __device__ __forceinline__ RegWave(const T* qb, const T* cb, int w, int lane) {
+    const int lim = w - lane * S;            // slot lane*S + u is live iff u <= lim - par
+    const int lo = lim >= 0 ? lane * S : 0;  // lanes past the band read lane 0's rows
+    const int i0 = -(w >> 1), j0 = w >> 1;   // I and J of step 0
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+      a[u] = lane * S + u == (w >> 1) ? T(0) : big<T>();  // diag of cell (0, 0)
+      b[u] = big<T>();
+      qw[u] = qb[i0 + lo + u];
+      cw[u] = cb[j0 - lo - u];
+      dead[0][u] = u > lim ? big<T>() : T(0);
+      dead[1][u] = u > lim - 1 ? big<T>() : T(0);
+    }
+    qnext = qb + i0 + 1 + lo + S - 1;
+    cnext = cb + j0 + 1 - lo;
+    from_left = (lane + 31) & 31;
+    from_right = (lane + 1) & 31;
+  }
+
+  template <int M> __device__ __forceinline__ void step() {
+    if constexpr (M & 1) update<M>(b, a);
+    else update<M>(a, b);
+  }
+
+  // dst: diagonal s-2, overwritten with s; src: diagonal s-1.  The edge
+  // value comes from the next lane around the ring: lane 0's up is lane
+  // 31's last slot, on a parity-1 diagonal always a dead slot (BIG), and
+  // lane 31's last slot on a parity-1 step is dead, so its cell is BIG
+  // whatever its left is.
+  template <int M> __device__ __forceinline__ void update(T (&dst)[S], const T (&src)[S]) {
+    constexpr int PAR = (M & 1) ^ WODD;
+    constexpr int KQ = (WODD ? M / 2 : (M + 1) / 2) % S;
+    constexpr int KC = (WODD ? (M + 1) / 2 : M / 2) % S;
+    const T nb = PAR == 0 ? __shfl_sync(0xffffffffu, src[S - 1], from_left)
+                          : __shfl_sync(0xffffffffu, src[0], from_right);
+    const T pend = PAR == 0 ? *qnext : *cnext;
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+      // a dead slot costs BIG, so its cell is BIG whatever its predecessors
+      const T cost = dmax(pair_cost<T, P>(qw[(u + KQ) % S], cw[(u - KC + S) % S]),
+                          dead[PAR][u]);
+      // min is exact and order-free: join the lane's own values first, so
+      // the shuffled edge value meets one min before the add
+      const T own = dmin(dst[u], src[u]);
+      const T edge = PAR == 0 ? (u == 0 ? nb : src[u == 0 ? 0 : u - 1])
+                              : (u == S - 1 ? nb : src[u == S - 1 ? 0 : u + 1]);
+      dst[u] = dp_cell<T, P>(cost, dmin(own, edge));
+    }
+    if (PAR == 0) {
+      qw[KQ] = pend;  // the slot of the leaving logical 0
+      ++qnext;
+    } else {
+      cw[(2 * S - 1 - KC) % S] = pend;  // the slot of the leaving logical S-1
+      ++cnext;
+    }
+  }
+
+  __device__ __forceinline__ T lane_min() const {
+    T m = big<T>();
+#pragma unroll
+    for (int u = 0; u < S; ++u) m = tmin(m, tmin(a[u], b[u]));
+    return m;
+  }
+};
+
+// The register path: qb[i] and cb[j] are the staged rows, valid for
+// -margin <= i < n + margin; `scratch` holds 32 S values.
+template <typename T, int P, int S, int WODD>
+__device__ __forceinline__ T wavefront_regs(const T* qb, const T* cb, int n, int w,
+                                            bool check, T bound, T* scratch) {
+  const int lane = threadIdx.x & 31;
+  RegWave<T, P, S, WODD> wave(qb, cb, w, lane);
+  const int nsteps = 2 * n - 1;
+  int s0 = 0;
+  for (; s0 < nsteps; s0 += 2 * S) {
+    if (check && s0 % ABANDON_EVERY == 0) {
+      const T m = warp_min(wave.lane_min());
+      if (m >= bound) return m;
+    }
+    if (s0 + 2 * S > nsteps) {
+      Unroll<0, 2 * S>::run(wave, nsteps - s0);  // the last, partial block
+      break;
+    }
+    Unroll<0, 2 * S>::run(wave);
+  }
+  // diagonal 2n-2 (an even step, in a) holds cell (n-1, n-1) at slot
+  // w/2.  It goes through shared memory: picking a[w/2 % S] in registers
+  // compiles to an indexed load, which would move `a` to local memory.
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < S; ++u) scratch[lane * S + u] = wave.a[u];
+  __syncwarp();
+  return scratch[w >> 1];
 }
 
+// The shared-memory wavefront for bands past the register cap: the same
+// slots, diagonals da and db in shared memory (index -1 and w + 1 hold
+// BIG), lane-strided slots, one __syncwarp per step.
 template <typename T, int P>
-__global__ void dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
-                           const int64_t* __restrict__ qidx,
-                           const int64_t* __restrict__ cidx,
-                           const T* __restrict__ bounds, int64_t bstride, int n,
-                           int w, T* __restrict__ out) {
+__device__ T wavefront_smem(const T* qb, const T* cb, int n, int w, T* da, T* db,
+                            bool check, T bound) {
+  const int lane = threadIdx.x & 31;
+  for (int t = lane - 1; t <= w + 1; t += 32) {
+    da[t] = t == (w >> 1) ? T(0) : big<T>();
+    db[t] = big<T>();
+  }
+  __syncwarp();
+  const int nsteps = 2 * n - 1;
+  for (int s = 0; s < nsteps; ++s) {
+    if (check && s % ABANDON_EVERY == 0) {
+      T lm = big<T>();
+      for (int t = lane; t <= w; t += 32) lm = tmin(lm, tmin(da[t], db[t]));
+      const T m = warp_min(lm);
+      if (m >= bound) return m;
+    }
+    const int par = (s + w) & 1;
+    T* dst = (s & 1) ? db : da;
+    const T* src = (s & 1) ? da : db;
+    const int I = (s - w + par) >> 1, J = (s + w - par) >> 1;
+    for (int t = lane; t <= w; t += 32) {
+      T cost = pair_cost<T, P>(qb[I + t], cb[J - t]);
+      if (t > w - par) cost = big<T>();
+      const T up = par ? src[t] : src[t - 1];
+      const T left = par ? src[t + 1] : src[t];
+      dst[t] = dp_cell<T, P>(cost, dmin(dmin(up, left), dst[t]));
+    }
+    __syncwarp();
+  }
+  return da[w >> 1];
+}
+
+// One warp per pair.  S > 0: the band in registers, S slots per lane;
+// S = 0: in shared memory.
+template <typename T, int P, int S>
+__global__ void __launch_bounds__(32)
+dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
+           const int64_t* __restrict__ qidx, const int64_t* __restrict__ cidx,
+           const T* __restrict__ bounds, int64_t bstride, int n, int w,
+           T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int width = 2 * w + 1;
-  T* prev = reinterpret_cast<T*>(smem_raw);  // width + 1 (last = BIG)
-  T* cur = prev + (width + 1);
-  T* qrow = cur + (width + 1);
-  T* crow = qrow + n;
+  constexpr int V = 16 / sizeof(T);
+  const int margin = row_margin(w, S > 0 ? S : 1, V);
+  const int len = row_len(n, w, S > 0 ? S : 1, V);
+  T* qrow = reinterpret_cast<T*>(smem_raw);
+  T* crow = qrow + len;
   const int lane = threadIdx.x;
   const int64_t pair = blockIdx.x;
   const int64_t q = qidx ? qidx[pair] : pair / bstride;
   const int64_t c = cidx ? cidx[pair] : pair % bstride;
-  const T bound = bounds ? bounds[pair] : big<T>();
-  for (int k = lane; k < n; k += 32) {
-    qrow[k] = qs[q * n + k];
-    crow[k] = cands[c * n + k];
-  }
-  for (int k = lane; k <= width; k += 32) {
-    prev[k] = k == w ? T(0) : big<T>();
-    cur[k] = big<T>();
-  }
+  const bool check = bounds != nullptr;
+  const T bound = check ? bounds[pair] : big<T>();
+  stage_row(qrow, qs + q * n, n, margin, len, row_pad<T>(), lane);
+  stage_row(crow, cands + c * n, n, margin, len, -row_pad<T>(), lane);
   __syncwarp();
-  const int seg = (width + 31) / 32;
-  const int k0 = min(lane * seg, width), k1 = min(k0 + seg, width);
-  int i = 0;
-  T m = T(0);  // min of the previous row; the origin row's is 0
-  while (i < n && m < bound) {
-    const T qi = qrow[i];
-    // pass 1: compose this lane's segment of cell functions
-    T a = fn_id_a<T, P>(), b = fn_id_b<T, P>();
-    for (int k = k0; k < k1; ++k) {
-      const int j = i + k - w;
-      T ca = big<T>(), cb = big<T>();
-      if (j >= 0 && j < n) {
-        const T d = cost_of<T, P>(qi > crow[j] ? qi - crow[j] : crow[j] - qi);
-        const T bk = tmin(prev[k], prev[k + 1]);
-        ca = P == 0 ? d : d + bk;
-        cb = P == 0 ? tmax(bk, d) : d;
-      }
-      fn_compose<T, P>(ca, cb, a, b, a, b);
-    }
-    // inclusive scan across lanes, then shift to exclusive
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const T ua = __shfl_up_sync(0xffffffffu, a, off);
-      const T ub = __shfl_up_sync(0xffffffffu, b, off);
-      if (lane >= off) fn_compose<T, P>(a, b, ua, ub, a, b);
-    }
-    T ea = __shfl_up_sync(0xffffffffu, a, 1);
-    T eb = __shfl_up_sync(0xffffffffu, b, 1);
-    if (lane == 0) {
-      ea = fn_id_a<T, P>();
-      eb = fn_id_b<T, P>();
-    }
-    // pass 2: replay the segment from the value left of it
-    T x = tmin(fn_apply<T, P>(ea, eb, big<T>()), big<T>());
-    T lmin = big<T>();
-    for (int k = k0; k < k1; ++k) {
-      const int j = i + k - w;
-      if (j >= 0 && j < n) {
-        const T d = cost_of<T, P>(qi > crow[j] ? qi - crow[j] : crow[j] - qi);
-        const T bk = tmin(prev[k], prev[k + 1]);
-        x = P == 0 ? tmax(d, tmin(bk, x)) : d + tmin(bk, x);
-        x = tmin(x, big<T>());
-      } else {
-        x = big<T>();
-      }
-      cur[k] = x;
-      lmin = tmin(lmin, x);
-    }
-    m = warp_min(lmin);
-    __syncwarp();
-    T* t = prev; prev = cur; cur = t;
-    ++i;
+  const T* qb = qrow + margin;
+  const T* cb = crow + margin;
+  T v;
+  if constexpr (S == 0) {
+    T* da = crow + len + 1;
+    v = wavefront_smem<T, P>(qb, cb, n, w, da, da + (w + 3), check, bound);
+  } else if (w & 1) {
+    v = wavefront_regs<T, P, S, 1>(qb, cb, n, w, check, bound, qrow);
+  } else {
+    v = wavefront_regs<T, P, S, 0>(qb, cb, n, w, check, bound, qrow);
   }
-  if (lane == 0) out[pair] = i == n ? prev[w] : m;
+  if (lane == 0) out[pair] = v;
+}
+
+template <typename T, int P, int S>
+cudaError_t launch_dtw(const T* qs, const T* cands, const int64_t* qidx,
+                       const int64_t* cidx, const T* bounds, int64_t npairs,
+                       int64_t bstride, int n, int w, T* out, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const size_t len = row_len(n, w, S > 0 ? S : 1, V);
+  const size_t smem = sizeof(T) * (2 * len + (S == 0 ? 2 * (size_t)(w + 3) : 0));
+  cudaError_t err = allow_smem(dtw_kernel<T, P, S>, smem);
+  if (err != cudaSuccess) return err;
+  dtw_kernel<T, P, S><<<(unsigned)npairs, 32, smem, s>>>(
+      qs, cands, qidx, cidx, bounds, bstride, n, w, out);
+  return cudaGetLastError();
 }
 
 }  // namespace repro
 
-// qs (Q, n); cands (Nc, n); bounds (npairs,) powered, or nullptr for BIG;
-// out (npairs,) powered.  Dense mode: qidx = cidx = nullptr and
-// npairs = Q * bstride.  0 <= w <= n - 1.
+// qs (Q, n); cands (Nc, n); bounds (npairs,) powered, or nullptr for no
+// abandon test; out (npairs,) powered.  Dense mode: qidx = cidx = nullptr
+// and npairs = Q * bstride.  0 <= w <= n - 1.  The register path takes
+// S = the smallest power of two with 32 S >= w + 1 while S <= 16; wider
+// bands take the shared-memory path.  A launch that cannot run (shared
+// memory past the card's limit) returns its error.
 extern "C" int repro_dtw(int dtype, int pcode, const void* qs, const void* cands,
                          const int64_t* qidx, const int64_t* cidx,
                          const void* bounds, int64_t npairs, int64_t bstride,
                          int n, int w, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npairs == 0) return (int)cudaGetLastError();
+  const int per_lane = (w + 1 + 31) / 32;
+  int slots = 1;
+  while (slots < per_lane) slots *= 2;
+  if (slots > repro::MAX_SLOTS) slots = 0;
   REPRO_DISPATCH(dtype, pcode,
-    const size_t smem = sizeof(T) * (2 * (size_t)(2 * w + 2) + 2 * (size_t)n);
-    cudaError_t err = repro::allow_smem(repro::dtw_kernel<T, P>, smem);
-    if (err != cudaSuccess) return (int)err;
-    repro::dtw_kernel<T, P><<<(unsigned)npairs, 32, smem, s>>>(
-        static_cast<const T*>(qs), static_cast<const T*>(cands), qidx, cidx,
-        static_cast<const T*>(bounds), bstride, n, w, static_cast<T*>(out)));
+    const T* q = static_cast<const T*>(qs);
+    const T* c = static_cast<const T*>(cands);
+    const T* bd = static_cast<const T*>(bounds);
+    T* o = static_cast<T*>(out);
+    cudaError_t err;
+    switch (slots) {
+      case 1: err = repro::launch_dtw<T, P, 1>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
+      case 2: err = repro::launch_dtw<T, P, 2>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
+      case 4: err = repro::launch_dtw<T, P, 4>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
+      case 8: err = repro::launch_dtw<T, P, 8>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
+      case 16: err = repro::launch_dtw<T, P, 16>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
+      default: err = repro::launch_dtw<T, P, 0>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
+    }
+    if (err != cudaSuccess) return (int)err;)
   return (int)cudaGetLastError();
 }

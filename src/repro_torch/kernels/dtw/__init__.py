@@ -4,6 +4,7 @@ from repro_torch.kernels.dtw.ops import (
     dtw_pairs_op,
     dtw_plain,
     dtw_qbatch_op,
+    dtw_wavefront_plain,
 )
 from repro_torch.kernels.dtw.ref import dtw_early_ref, dtw_ref
 
@@ -15,4 +16,5 @@ __all__ = [
     "dtw_plain",
     "dtw_qbatch_op",
     "dtw_ref",
+    "dtw_wavefront_plain",
 ]

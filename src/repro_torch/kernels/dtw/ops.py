@@ -8,6 +8,12 @@ itself, so the drivers build no (chunk, n) copies.  Per-lane powered
 ``bounds`` (the cascade's running k-th best) let a lane abandon: it then
 returns a value >= its bound instead of the exact distance.  Omitted,
 every lane runs the full DP.  p in {1, 2, inf}, float32 and float64.
+
+Two plain versions sit beside it.  ``dtw_plain`` is the reference's
+semantics (row DP, an abandoned lane returns its row minimum); the CPU
+route takes it.  ``dtw_wavefront_plain`` repeats the kernel's own
+anti-diagonal DP and abandon rule, so the kernel is bit-equal to it on
+every lane, finished or abandoned.
 """
 
 from __future__ import annotations
@@ -16,7 +22,13 @@ import math
 
 import torch
 
-from repro_torch.core.dtw import BIG, _dtw_rows_early, dtw_banded_diag, finish_cost
+from repro_torch.core.dtw import (
+    BIG,
+    _dtw_rows_early,
+    dtw_banded_diag,
+    elem_cost,
+    finish_cost,
+)
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype, p_code
 
@@ -28,13 +40,7 @@ def dtw_plain(qs, cands, w: int, p=1, qidx=None, cidx=None, bounds=None):
     meets the abandon contract)."""
     n = qs.shape[1]
     w = int(min(w, n - 1))
-    if qidx is None:
-        nq, b = qs.shape[0], cands.shape[0]
-        qrows = qs[:, None, :].expand(nq, b, n).reshape(nq * b, n)
-        crows = cands[None, :, :].expand(nq, b, n).reshape(nq * b, n)
-        lead = (nq, b)
-    else:
-        qrows, crows, lead = qs[qidx], cands[cidx], (qidx.shape[0],)
+    qrows, crows, lead = _pair_rows(qs, cands, qidx, cidx)
     if p == math.inf:
         out = dtw_banded_diag(qrows, crows, w, p, powered=True)
     else:
@@ -43,6 +49,64 @@ def dtw_plain(qs, cands, w: int, p=1, qidx=None, cidx=None, bounds=None):
         else:
             bound = bounds.reshape(-1)
         out = _dtw_rows_early(qrows, crows, w, bound, p)
+    return out.reshape(lead)
+
+
+#: steps between two abandon tests of the kernel (csrc/dtw.cu ABANDON_EVERY)
+ABANDON_EVERY = 32
+
+
+def _pair_rows(qs, cands, qidx, cidx):
+    """(P, n) query and candidate rows of the pairs, and the output shape."""
+    n = qs.shape[1]
+    if qidx is None:
+        nq, b = qs.shape[0], cands.shape[0]
+        qrows = qs[:, None, :].expand(nq, b, n).reshape(nq * b, n)
+        crows = cands[None, :, :].expand(nq, b, n).reshape(nq * b, n)
+        return qrows, crows, (nq, b)
+    return qs[qidx], cands[cidx], (qidx.shape[0],)
+
+
+def dtw_wavefront_plain(qs, cands, w: int, p=1, qidx=None, cidx=None, bounds=None):
+    """Plain PyTorch version of the kernel's DP, bit for bit: the
+    anti-diagonal wavefront over the w+1 slots of a diagonal's parity
+    (slot t is offset i - j = -w + par + 2t, par = (s + w) % 2), with the
+    kernel's cell arithmetic.  With ``bounds``, before step 0 and every
+    ``ABANDON_EVERY`` steps a lane whose minimum over its two latest
+    diagonals is >= its bound stops and returns that minimum.  Without
+    bounds it equals ``core.dtw.dtw_banded_diag(..., powered=True)``."""
+    n = qs.shape[1]
+    w = int(min(w, n - 1))
+    qrows, crows, lead = _pair_rows(qs, cands, qidx, cidx)
+    npair, dt, dev = qrows.shape[0], qs.dtype, qs.device
+    slots = torch.arange(w + 1, device=dev)
+    big_col = torch.full((npair, 1), BIG, dtype=dt, device=dev)
+    older = torch.full((npair, w + 1), BIG, dtype=dt, device=dev)  # diagonal s-2
+    older[:, w // 2] = 0.0  # the diag predecessor of cell (0, 0)
+    newer = torch.full_like(older, BIG)  # diagonal s-1
+    bound = None if bounds is None else bounds.reshape(-1)
+    live = torch.ones(npair, dtype=torch.bool, device=dev)
+    stopped_at = torch.zeros(npair, dtype=dt, device=dev)
+    for s in range(2 * n - 1):
+        if bound is not None and s % ABANDON_EVERY == 0:
+            m = torch.minimum(older.min(dim=1).values, newer.min(dim=1).values)
+            stop = live & (m >= bound)
+            stopped_at = torch.where(stop, m, stopped_at)
+            live = live & ~stop
+        par = (s + w) % 2
+        i = (s - w + par) // 2 + slots
+        j = (s + w - par) // 2 - slots
+        ok = (i >= 0) & (i < n) & (j >= 0) & (j < n) & (slots <= w - par)
+        cost = elem_cost(qrows[:, i.clamp(0, n - 1)] - crows[:, j.clamp(0, n - 1)], p)
+        if par == 0:
+            up, left = torch.cat([big_col, newer[:, :-1]], dim=1), newer
+        else:
+            up, left = newer, torch.cat([newer[:, 1:], big_col], dim=1)
+        best = torch.minimum(torch.minimum(up, left), older)
+        val = torch.maximum(cost, best) if p == math.inf else cost + best
+        val = torch.where(ok, val.clamp(max=BIG), torch.full_like(val, BIG))
+        older, newer = newer, val
+    out = torch.where(live, newer[:, w // 2], stopped_at)
     return out.reshape(lead)
 
 

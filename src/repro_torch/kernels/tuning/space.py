@@ -20,9 +20,11 @@ space.  The field names and their validation are the reference's, so a
 A family's space lists only the knobs its CUDA kernel honours and that
 leave every per-pair reduction order unchanged: no config may change an
 output bit, and ``autotune`` discards any that does.  K1 ``envelope`` and
-K3 ``lb_improved`` run one 256-thread block per row, and K5 ``dtw`` one
-warp per pair; those thread counts set their reduction order, so their
-space is the fallback alone.
+K3 ``lb_improved`` run one 256-thread block per row; those thread counts
+set their reduction order, so their space is the fallback alone.  K5
+``dtw`` runs one warp per pair with the band's slots per lane set by w
+(a register or a shared-memory wavefront, the same bits either way), so
+it has no schedule to sweep and its space is the fallback alone too.
 
 Shape buckets are the reference's: the next powers of two of the
 candidate-batch and series-length axes.

@@ -4,7 +4,10 @@ These need an NVIDIA GPU and nvcc: a CUDA kernel has no CPU build, so
 every test here is marked ``cuda`` and skips with a reason elsewhere.
 Run them on the card with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py`` (the file imports no JAX).  Tolerances:
-envelope and H bit-equal, LB_Keogh rtol 1e-4, LB_Improved 2e-4, DP 3e-4.
+envelope and H bit-equal, LB_Keogh rtol 1e-4, LB_Improved 2e-4, DP 3e-4
+against the reference's row DP.  The DP kernel (K5) is bit-equal to its
+wavefront plain version on every lane, finished or abandoned, and to
+``core.dtw.dtw_banded_diag`` on finished ones.
 LB_Kim (K6) is bit-equal by design (exact max/min, no fused multiply-add);
 the fused kernel (K4) is bit-equal to LB_Keogh (K2) plus pass 2 (K3), and
 the stream entry (K7) to K2 on the copied windows, because they share one
@@ -20,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.api import Database, SearchConfig  # noqa: E402
+from repro_torch.core.dtw import dtw_banded_diag  # noqa: E402
 from repro_torch.kernels import dtw as kd  # noqa: E402
 from repro_torch.kernels import envelope as ke  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
@@ -110,6 +114,55 @@ def test_dtw_kernel(dev, p, dtype, n, w):
     below = full < bounds
     torch.testing.assert_close(got[below], full[below], rtol=3e-4, atol=0)
     assert bool((got[~below] >= bounds[~below]).all())
+
+
+def _pair_rows(qs, cands, qi, ci):
+    if qi is None:
+        nq, nb, n = qs.shape[0], cands.shape[0], qs.shape[1]
+        return (qs[:, None, :].expand(nq, nb, n).reshape(-1, n),
+                cands[None].expand(nq, nb, n).reshape(-1, n))
+    return qs[qi], cands[ci]
+
+
+@pytest.mark.parametrize("p", PS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,w,pairs", [
+    (1000, 100, 16),   # the host driver's chunk
+    (1000, 100, 1),    # a chunk of one pair
+    (64, 0, 0), (64, 63, 0), (97, 31, 0), (97, 32, 0),  # dense 2 x 37 grids
+    (1200, 600, 0),    # past the register cap: the shared-memory path
+])
+def test_dtw_kernel_bit_equal_wavefront(dev, p, dtype, n, w, pairs):
+    qs, cands = walks(dev, 8, 2 if not pairs else 16, n, dtype), walks(dev, 9, 37, n, dtype)
+    qi = ci = None
+    if pairs:
+        rng = np.random.default_rng(10)
+        qi = torch.as_tensor(rng.integers(0, qs.shape[0], pairs), device=dev)
+        ci = torch.as_tensor(rng.integers(0, 37, pairs), device=dev)
+    got = kd.dtw_launch(qs, cands, w, p, qi, ci)
+    want = kd.dtw_wavefront_plain(qs, cands, w, p, qi, ci)
+    assert torch.equal(got, want)
+    rows_q, rows_c = _pair_rows(qs, cands, qi, ci)
+    diag = dtw_banded_diag(rows_q, rows_c, w, p, powered=True).reshape(got.shape)
+    assert torch.equal(got, diag)
+    torch.testing.assert_close(got, kd.dtw_plain(qs, cands, w, p, qi, ci), rtol=3e-4, atol=0)
+
+
+@pytest.mark.parametrize("p", PS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,w", [(300, 20), (700, 600)])
+def test_dtw_kernel_abandoned_lanes(dev, p, dtype, n, w):
+    qs, cands = walks(dev, 11, 3, n, dtype), walks(dev, 12, 6, n, dtype)
+    full = kd.dtw_wavefront_plain(qs, cands, w, p)
+    scale = torch.tensor([0.2, 0.7, 0.95, 1.5, 2.0, 0.5], device=dev, dtype=dtype)
+    for bounds in (full * scale, torch.zeros_like(full), torch.full_like(full, -1.0),
+                   torch.full_like(full, kd.ops.BIG)):
+        bounds = bounds.contiguous()
+        got = kd.dtw_launch(qs, cands, w, p, bounds=bounds)
+        assert torch.equal(got, kd.dtw_wavefront_plain(qs, cands, w, p, bounds=bounds))
+        below = full < bounds
+        assert torch.equal(got[below], full[below])
+        assert bool((got[~below] >= bounds[~below]).all())
 
 
 def test_default_session_launches_every_kernel(dev):

@@ -10,8 +10,13 @@ kernel launches of the first search, and the card's name and power limit.
 ``--src`` points at the ``src`` directory of the checkout to time, so two
 commits can be compared on one card in one process tree, in turns:
 
-    python tools/time_default_session.py --label change
-    python tools/time_default_session.py --src build/parent/src --label parent
+    python tools/time_default_session.py --label change --dump build/change.npz
+    python tools/time_default_session.py --src build/parent/src --label parent \
+        --against build/change.npz
+
+``--dump`` saves the search's indices and distances; ``--against`` reads
+such a file and adds to the JSON line whether this run's indices are the
+same and its distances the same bits.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=100_000)
     ap.add_argument("--length", type=int, default=1000)
     ap.add_argument("--queries", type=int, default=16)
+    ap.add_argument("--dump", help="save the indices and distances (.npz)")
+    ap.add_argument("--against", help="an .npz from --dump to compare the answers with")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
 
@@ -81,12 +88,24 @@ def main(argv=None) -> int:
         capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
     best = min(searches)
+    answers = {}
+    if args.dump:
+        np.savez(args.dump, indices=res.indices, distances=res.distances)
+    if args.against:
+        with np.load(args.against) as other:
+            answers = {
+                "same_indices": bool(np.array_equal(res.indices, other["indices"])),
+                "same_distance_bits": res.distances.dtype == other["distances"].dtype
+                and res.distances.tobytes() == other["distances"].tobytes(),
+                "max_abs_distance_diff": float(np.abs(
+                    res.distances.astype(np.float64) - other["distances"]).max()),
+            }
     print(json.dumps({
         "label": args.label, "card": card, "build_s": build_s, "search_s": searches,
         "qps": args.queries / best, "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
         "pruned": res.stats.pruned_by, "full_dtw": res.stats.full_dtw,
-        "launches": launches,
+        "launches": launches, **answers,
     }), flush=True)
     return 0
 
