@@ -10,21 +10,30 @@ Phases (any failure raises, exits non-zero and prints no result line):
 1. Toolchain and build: the card, CUDA, nvcc, and the kernels compiled
    from ``src/repro_torch/csrc``.
 2. Each CUDA kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at edge shapes, with its time (CUDA
-   events), the plain version's time, its lower bound and, where one
-   PyTorch call computes the same function, that call's time.  The DP
-   kernel (K5) must be bit-equal to ``dtw_wavefront_plain`` on every
+   the main path's shapes and at edge shapes, with its time per call
+   (CUDA events around back-to-back calls, the host's launch path
+   included), its device time (the kernel's own time under
+   torch.profiler), the plain version's time, its lower bound and, where
+   one PyTorch call computes the same function, that call's time.  The
+   DP kernel (K5) must be bit-equal to ``dtw_wavefront_plain`` on every
    lane, finished or abandoned, and is also timed at 5 pairs, at the
-   brute force's dense shape and against its dependency-chain bound.  The fused
-   LB kernel (K4) must be bit-equal to LB_Keogh (K2) plus pass 2 (K3),
-   the stream entry (K7) to K2 on the copied windows, and every schedule
-   of a family's tune space to its fallback.
+   brute force's dense shape and against its dependency-chain bound; its
+   masked-dense entry must be bit-equal to the pair-list entry on live
+   slots and write no other slot.  The fused LB kernel (K4, one warp per
+   pair) must be bit-equal to LB_Keogh (K2) plus pass 2 (K3) under every
+   schedule, at edge shapes and at long rows, with its stage output; the
+   stream entry (K7) to K2 on the copied windows; every schedule of a
+   family's tune space to its fallback; the merge kernel (block_merge)
+   to its plain version, ties included.
 3. The main path: a default ``Database`` session (100,000 random walks
    of length 1,000, ``SearchConfig()``) built and searched with 16 new
-   queries through the host driver, one fused LB launch (K4) per block
-   and no K2/K3 launch; the pruning counts must be the recorded ones,
-   two queries' top-1 must equal a brute force over all rows, and every
-   distance must match the float64 oracle.
+   queries through the host driver's device-resident loop: exactly one
+   K4, one K5 and one merge launch per block, no K2/K3 launch, and the
+   loop run again under ``torch.cuda.set_sync_debug_mode("error")`` (no
+   synchronisation inside it) with the same answers; the pruning counts
+   must be the recorded ones, two queries' top-1 must equal a brute
+   force over all rows, and every distance must match the float64
+   oracle.
 4. A small session (768 rows of 128) on the scan driver for every
    univariate method, on the GPU and on the CPU: same indices.  Then the
    stream form of LB_Improved (K7, then K3) over a flat segment against
@@ -72,7 +81,7 @@ MAIN_FULL_DTW = 16_171
 MAIN_TOP1 = [43381, 21115]
 
 TOL = {"envelope": 0.0, "lb_keogh": 1e-4, "lb_improved_pass2": 2e-4, "dtw": 3e-4,
-       "lb_kim": 0.0, "lb_keogh_stream": 1e-4, "lb_fused": 2e-4}
+       "lb_kim": 0.0, "lb_keogh_stream": 1e-4, "lb_fused": 2e-4, "block_merge": 0.0}
 SOURCES = {
     "envelope": ("src/repro_torch/csrc/envelope.cu",
                  "src/repro/kernels/envelope/kernel.py:52"),
@@ -86,6 +95,8 @@ SOURCES = {
     "lb_kim": ("src/repro_torch/csrc/lb_kim.cu", "src/repro/kernels/lb_kim/kernel.py:65"),
     "lb_keogh_stream": ("src/repro_torch/csrc/lb_keogh.cu",
                         "src/repro/kernels/lb_keogh/kernel.py:127"),
+    # no TPU kernel: it stands for the reference's host merge
+    "block_merge": ("src/repro_torch/csrc/block_merge.cu", "src/repro/core/cascade.py:555"),
 }
 
 
@@ -117,6 +128,40 @@ def time_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 2) -> float:
         end.synchronize()
         runs.append(start.elapsed_time(end) / iters)
     return statistics.median(runs)
+
+
+def kernel_self_us(prof) -> dict[str, tuple[float, int]]:
+    """Device self time (us) and count of each CUDA kernel or copy in a
+    torch.profiler run, by name."""
+    import torch
+
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        out[e.key] = (us, e.count)
+    return out
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Device time of one call: the self time of the kernels that
+    ``iters`` calls ran under torch.profiler, over ``iters``; the host's
+    launch path is not in it.  Fails if the profiler saw no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(us for us, _ in kernel_self_us(prof).values())
+    if total <= 0:
+        fail("torch.profiler saw no device time")
+    return total / 1e3 / iters
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -250,12 +295,13 @@ def phase_kernels(dev):
         check_close("envelope", a, c, 0.0, f"U {rows}x{n} w={ww} {dt}")
         check_close("envelope", b, d, 0.0, f"L {rows}x{n} w={ww} {dt}")
     ms = time_ms(lambda: envelope_launch(xs, w))
+    dms = device_ms(lambda: envelope_launch(xs, w), iters=5)
     plain = time_ms(lambda: envelope_plain(xs, w), iters=2, repeats=3)
     lib = time_ms(lambda: torch.nn.functional.max_pool1d(
         xs[:, None, :], 2 * w + 1, stride=1, padding=w), iters=3, repeats=3)
     bnd, by = bound_ms(3 * xs.numel() * 4, 6 * xs.numel())
     rec["envelope"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
-                           bound_by=by, library_ms=lib,
+                           bound_by=by, library_ms=lib, device_ms=dms,
                            shape=f"rows={N_ROWS} n={LENGTH} w={w}")
     del xs, u, l, up, lp
     log(f"[kernel] envelope ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
@@ -286,11 +332,12 @@ def phase_kernels(dev):
     check_close("lb_keogh", lb, lbp, TOL["lb_keogh"], "float64 ragged")
     check_close("lb_keogh", h, hp, 0.0, "float64 ragged H")
     ms = time_ms(lambda: lb_keogh_launch(cands, upper, lower, 1))
+    dms = device_ms(lambda: lb_keogh_launch(cands, upper, lower, 1))
     plain = time_ms(lambda: lb_keogh_plain(cands, upper, lower, 1), iters=10)
     nq, b, n = N_QUERIES, BLOCK, LENGTH
     bnd, by = bound_ms(4 * (b * n + 2 * nq * n + nq * b + nq * b * n), 8 * nq * b * n)
     rec["lb_keogh"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                           bound_by=by, library_ms=None,
+                           bound_by=by, library_ms=None, device_ms=dms,
                            shape=f"Q={nq} B={b} n={n} p=1")
     log(f"[kernel] lb_keogh ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
         f"bound {bnd:.5f} ms ({by})")
@@ -320,11 +367,12 @@ def phase_kernels(dev):
     check_close("lb_improved_pass2", got, want, TOL["lb_improved_pass2"], "float64")
     _, h = lb_keogh_launch(cands, upper, lower, 1)
     ms = time_ms(lambda: lb_improved_pass2_launch(h, qs, w, 1))
+    dms = device_ms(lambda: lb_improved_pass2_launch(h, qs, w, 1))
     plain = time_ms(lambda: lb_improved_pass2_plain(h, qs, w, 1), iters=10)
     bnd, by = bound_ms(4 * (nq * b * n + nq * n + nq * b), 11 * nq * b * n)
     rec["lb_improved_pass2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                     bound_ms=bnd, bound_by=by, library_ms=None,
-                                    shape=f"Q={nq} B={b} n={n} w={w} p=1")
+                                    device_ms=dms, shape=f"Q={nq} B={b} n={n} w={w} p=1")
     log(f"[kernel] lb_improved_pass2 ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
         f"bound {bnd:.5f} ms ({by})")
 
@@ -380,6 +428,7 @@ def phase_kernels(dev):
     log(f"[kernel] dtw: {len(cases) * 3} cases x 5 bounds bit-equal to "
         "dtw_wavefront_plain, finished lanes within 3e-4 of dtw_plain")
     ms = time_ms(lambda: dtw_launch(qs, db, w, 1, qi, ci))
+    dms = device_ms(lambda: dtw_launch(qs, db, w, 1, qi, ci))
     ms5 = time_ms(lambda: dtw_launch(qs, db, w, 1, qi[:5].contiguous(), ci[:5].contiguous()))
     plain = time_ms(lambda: dtw_plain(qs, db, w, 1, qi, ci), iters=1, repeats=3, warmup=1)
     wave_plain = time_ms(lambda: dtw_wavefront_plain(qs, db, w, 1, qi, ci),
@@ -404,7 +453,7 @@ def phase_kernels(dev):
                                    5 * dense_cells)
     del rows
     rec["dtw"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                      bound_by=by, library_ms=None,
+                      bound_by=by, library_ms=None, device_ms=dms,
                       shape=f"pairs={DTW_CHUNK} n={LENGTH} w={w} p=1 full DP",
                       ms_5_pairs=ms5, wavefront_plain_ms=wave_plain,
                       chain_bound_ms=chain_ms, t_step_ns=t_step_ms * 1e6,
@@ -421,13 +470,22 @@ def phase_kernels(dev):
 
 
 def phase_kernels_lb(dev, rec):
-    """K6, K7 and K4 against their plain versions; adds to ``rec``."""
+    """K6, K7, K4, K5's masked entry and the merge kernel against their
+    plain versions; adds to ``rec``."""
     import numpy as np
     import torch
 
     from repro_torch.data.synthetic import random_walks
+    from repro_torch.kernels.block_merge.ops import block_merge_launch, block_merge_plain
+    from repro_torch.kernels.common import BIG
+    from repro_torch.kernels.dtw.ops import dtw_launch, dtw_masked_launch
     from repro_torch.kernels.envelope.ops import envelope_launch
-    from repro_torch.kernels.lb_fused.ops import fused_smem_bytes, lb_fused_launch, lb_fused_plain
+    from repro_torch.kernels.lb_fused.ops import (
+        fused_smem_bytes,
+        lb_fused_launch,
+        lb_fused_plain,
+        lb_fused_stage_plain,
+    )
     from repro_torch.kernels.lb_improved.ops import combine_passes, lb_improved_pass2_launch
     from repro_torch.kernels.lb_keogh import (
         lb_keogh_launch,
@@ -436,7 +494,7 @@ def phase_kernels_lb(dev, rec):
         materialize_windows,
     )
     from repro_torch.kernels.lb_kim.ops import lb_kim_launch, lb_kim_plain
-    from repro_torch.kernels.tuning import search_space
+    from repro_torch.kernels.tuning import KernelConfig, search_space
 
     rng = np.random.default_rng(SEED + 3)
     w = LENGTH // 10
@@ -464,10 +522,11 @@ def phase_kernels_lb(dev, rec):
         check_equal("lb_kim", lb_kim_launch(c37, q5, m37, p), lb_kim_plain(c37, q5, m37, p),
                     f"float64 ragged p={p}")
     ms = time_ms(lambda: lb_kim_launch(cands, qs, None, 1))
+    dms = device_ms(lambda: lb_kim_launch(cands, qs, None, 1))
     plain = time_ms(lambda: lb_kim_plain(cands, qs, None, 1), iters=10)
     bnd, by = bound_ms(4 * (b * n + nq * n + nq * b), 2 * (b + nq) * n + 10 * nq * b)
     rec["lb_kim"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                         library_ms=None, shape=f"Q={nq} B={b} n={n} p=1")
+                         library_ms=None, device_ms=dms, shape=f"Q={nq} B={b} n={n} p=1")
     log(f"[kernel] lb_kim ok (bit-equal, every tile_b): {ms:.4f} ms vs plain "
         f"{plain:.3f} ms, bound {bnd:.5f} ms ({by})")
 
@@ -501,40 +560,52 @@ def phase_kernels_lb(dev, rec):
     check_equal("lb_keogh_stream", h, ph, "float64 H")
     seg = walks(1, (b - 1) + n)[0]
     ms = time_ms(lambda: lb_keogh_stream_launch(seg, upper, lower, n, 1, 1))
+    dms = device_ms(lambda: lb_keogh_stream_launch(seg, upper, lower, n, 1, 1))
     plain = time_ms(lambda: lb_keogh_stream_plain(seg, upper, lower, n, 1, 1), iters=10)
     bnd, by = bound_ms(4 * (seg.numel() + 2 * nq * n + nq * b + nq * b * n), 8 * nq * b * n)
     rec["lb_keogh_stream"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                                  bound_by=by, library_ms=None,
+                                  bound_by=by, library_ms=None, device_ms=dms,
                                   shape=f"Q={nq} B={b} n={n} hop=1 p=1")
     log(f"[kernel] lb_keogh_stream ok (bit-equal to K2 on the windows, every tile_b): "
         f"{ms:.4f} ms vs plain {plain:.3f} ms, bound {bnd:.5f} ms ({by})")
 
-    # K4 fused LB: bounds at each query's median lb1 (about half the lanes
-    # reach pass 2), query 0 with no live lane; bit-equal to K2 + K3
-    def fused_case(c, q, u, l, ww, p, what, skip_query0=True):
+    # K4 fused LB, one warp per pair: bounds at each query's median lb1
+    # (about half the lanes reach pass 2), query 0 with no live lane, read
+    # through a stride as the host loop reads a top-k column; bit-equal to
+    # K2 + K3 under every schedule that fits, with the stage output
+    def fused_case(c, q, u, l, ww, p, what, skip_query0=True, schedules=None):
         lb1_k2, h = lb_keogh_launch(c, u, l, p)
-        bounds = lb1_k2.median(dim=1).values.contiguous()
+        top = torch.stack([lb1_k2.median(dim=1).values] * 2, dim=1).contiguous()
         if skip_query0:
-            bounds[0] = 0.0
-        lb1, lb = lb_fused_launch(c, q, u, l, ww, bounds, p)
+            top[0] = 0.0
+        bounds = top[:, -1]
+        real = max(c.shape[0] - 3, 1)
+        lb1, lb, stage = lb_fused_launch(c, q, u, l, ww, bounds, p, stage=True, real=real)
         live = lb1 < bounds[:, None]
         if skip_query0 and bool(live[0].any()):
             fail(f"lb_fused {what}: query 0 has a live lane")
+        ww = min(ww, c.shape[1] - 1)
         want = combine_passes(lb1_k2, lb_improved_pass2_launch(h, q, ww, p), p)
-        check_equal("lb_fused", (lb1, lb), (lb1_k2, torch.where(live, want, lb1_k2)),
-                    f"vs K2 + K3 {what}")
+        want = (lb1_k2, torch.where(live, want, lb1_k2))
+        check_equal("lb_fused", (lb1, lb), want, f"vs K2 + K3 {what}")
+        check_equal("lb_fused", stage, lb_fused_stage_plain(*want, bounds, real),
+                    f"stage {what}")
         plb1, plb = lb_fused_plain(c, q, u, l, ww, torch.full_like(bounds, math.inf), p)
         check_close("lb_fused", lb1, plb1, TOL["lb_keogh"], f"lb1 {what}")
         e = check_close("lb_fused", lb[live], plb[live], TOL["lb_fused"], f"lb {what}")
         check_equal("lb_fused", lb[~live], lb1[~live], f"dead lanes {what}")
-        for cfg in search_space("lb_fused"):
-            need = fused_smem_bytes(c.shape[1], min(ww, c.shape[1] - 1), cfg.tile_b,
-                                    cfg.grid, c.element_size())
+        ran = 0
+        for cfg in schedules or search_space("lb_fused"):
+            need = fused_smem_bytes(c.shape[1], ww, cfg.tile_b, cfg.grid, c.element_size())
             if need > 232_448:
                 continue  # the sweep records it as not runnable
             check_equal("lb_fused", lb_fused_launch(c, q, u, l, ww, bounds, p, cfg.tile_b,
-                                                    cfg.depth, cfg.grid),
-                        (lb1, lb), f"{cfg} {what}")
+                                                    cfg.depth, cfg.grid, stage=True,
+                                                    real=real),
+                        (lb1, lb, stage), f"{cfg} {what}")
+            ran += 1
+        if not ran:
+            fail(f"lb_fused {what}: no schedule fits")
         return bounds, int(live.sum()), e
 
     err = 0.0
@@ -544,36 +615,179 @@ def phase_kernels_lb(dev, rec):
     c37 = walks(37, 200, torch.float64)
     q5 = walks(5, 200, torch.float64)
     u5, l5 = envelope_launch(q5, 20)
+    cases = 2
     for p in (1, 2):
         fused_case(c37, q5, u5, l5, 20, p, f"float64 ragged p={p}")
+        for cc, qq, ww in ((walks(3, 2), walks(1, 2), 1), (walks(33, 64), walks(3, 64), 0),
+                           (walks(5, 300, torch.float64), walks(2, 300, torch.float64), 299),
+                           # narrow windows (2w + 1 <= the chunk, scanned directly)
+                           # and the first band that is built by chunks
+                           (walks(9, 1000), walks(2, 1000), 16),
+                           (walks(9, 1000), walks(2, 1000), 17)):
+            uu, ll = envelope_launch(qq, ww)
+            fused_case(cc, qq, uu, ll, ww, p, f"{tuple(cc.shape)} w={ww} p={p}",
+                       skip_query0=qq.shape[0] > 1)
+            cases += 1
+        # long rows: one warp's buffers take most of shared memory
+        cl, ql = walks(3, 8000), walks(2, 8000)
+        ul, ll = envelope_launch(ql, 800)
+        fused_case(cl, ql, ul, ll, 800, p, f"n=8000 w=800 p={p}",
+                   schedules=[KernelConfig(tile_b=1, grid=g) for g in ("qb", "bq")])
+        cases += 2
+    log(f"[kernel] lb_fused: {cases + 1} shapes bit-equal to K2 + K3 with the stage, "
+        "every schedule that fits")
     bounds, live, _ = fused_case(cands, qs, upper, lower, w, 1, "timed", skip_query0=False)
-    ms = time_ms(lambda: lb_fused_launch(cands, qs, upper, lower, w, bounds, 1))
+    ms = time_ms(lambda: lb_fused_launch(cands, qs, upper, lower, w, bounds, 1, stage=True))
+    dms = device_ms(lambda: lb_fused_launch(cands, qs, upper, lower, w, bounds, 1,
+                                            stage=True))
     plain = time_ms(lambda: lb_fused_plain(cands, qs, upper, lower, w, bounds, 1), iters=10)
-    # what the host driver launched per block before: K2 then K3
+    # the two kernels K4 stands for: K2 then K3
     pair = time_ms(lambda: lb_improved_pass2_launch(
         lb_keogh_launch(cands, upper, lower, 1)[1], qs, w, 1))
     # main-path-like: bounds at each query's 2.5% quantile of lb1
-    sparse = torch.quantile(lb_keogh_launch(cands, upper, lower, 1)[0], 0.025, dim=1)
-    ms_sparse = time_ms(lambda: lb_fused_launch(cands, qs, upper, lower, w,
-                                                sparse.contiguous(), 1))
-    bnd, by = bound_ms(4 * (b * n + 3 * nq * n + nq + 2 * nq * b),
+    sparse = torch.quantile(lb_keogh_launch(cands, upper, lower, 1)[0], 0.025,
+                            dim=1).contiguous()
+    sparse_live = int((lb_keogh_launch(cands, upper, lower, 1)[0] < sparse[:, None]).sum())
+    ms_sparse = time_ms(lambda: lb_fused_launch(cands, qs, upper, lower, w, sparse, 1,
+                                                stage=True))
+    dms_sparse = device_ms(lambda: lb_fused_launch(cands, qs, upper, lower, w, sparse, 1,
+                                                   stage=True))
+    # pass 1 alone: bounds of 0 leave no lane live
+    zero = torch.zeros_like(sparse)
+    dms_dead = device_ms(lambda: lb_fused_launch(cands, qs, upper, lower, w, zero, 1,
+                                                 stage=True))
+    by_schedule = {}
+    for cfg in search_space("lb_fused"):
+        if fused_smem_bytes(n, w, cfg.tile_b, cfg.grid, 4) <= 232_448:
+            by_schedule[f"{cfg.tile_b}/{cfg.grid}"] = device_ms(
+                lambda cfg=cfg: lb_fused_launch(cands, qs, upper, lower, w, sparse, 1,
+                                                cfg.tile_b, 1, cfg.grid, stage=True))
+    bnd, by = bound_ms(4 * (b * n + 3 * nq * n + nq + 2 * nq * b) + nq * b,
                        8 * nq * b * n + 12 * live * n)
     rec["lb_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                           library_ms=None, k2_k3_ms=pair, ms_sparse=ms_sparse,
+                           library_ms=None, device_ms=dms, k2_k3_ms=pair,
+                           ms_sparse=ms_sparse, device_ms_sparse=dms_sparse,
+                           device_ms_no_live_lane=dms_dead,
+                           device_ms_by_schedule_sparse=by_schedule,
                            shape=f"Q={nq} B={b} n={n} w={w} p=1, {live} of {nq * b} "
-                                 f"lanes live")
-    log(f"[kernel] lb_fused ok (bit-equal to K2 + K3, every schedule): {ms:.4f} ms "
-        f"({live} live lanes; {ms_sparse:.4f} ms at the 2.5% quantile) vs K2 + K3 "
-        f"{pair:.4f} ms, plain {plain:.3f} ms, bound {bnd:.5f} ms ({by})")
+                                 f"lanes live (sparse: {sparse_live})")
+    log(f"[kernel] lb_fused ok (bit-equal to K2 + K3, every schedule): {ms:.4f} ms per "
+        f"call, {dms:.4f} ms on the device ({live} live lanes; {ms_sparse:.4f} / "
+        f"{dms_sparse:.4f} ms at the 2.5% quantile, {sparse_live} live; {dms_dead:.4f} ms "
+        f"on the device with no live lane) vs K2 + K3 "
+        f"{pair:.4f} ms, plain {plain:.3f} ms, bound {bnd:.5f} ms ({by}); device ms "
+        f"by schedule {by_schedule}")
+
+    # K5 masked-dense entry: the survivors of a K4 launch at each query's
+    # 25% quantile, bit-equal to the pair-list entry; dead slots keep their
+    # NaN.  Timed on the survivors at the 2.5% quantile (main-path-like).
+    db = cands
+    quart = torch.quantile(lb_keogh_launch(db, upper, lower, 1)[0], 0.25, dim=1).contiguous()
+    _, _, stage = lb_fused_launch(db, qs, upper, lower, w, quart, 1, stage=True)
+    qi, ci = (t.contiguous() for t in (stage == 2).nonzero(as_tuple=True))
+    if qi.numel() == 0:
+        fail("dtw masked: the check has no live slot")
+    top = torch.stack([quart, quart], dim=1).contiguous()
+    for p in (1, 2, math.inf):
+        for bname, bnds in (("none", None), ("top-k column", top[:, -1])):
+            out = torch.full((nq, b), math.nan, device=dev)
+            got = dtw_masked_launch(qs, db, stage, w, p, bnds, out)
+            pb = None if bnds is None else bnds[qi].contiguous()
+            check_equal("dtw", got[qi, ci], dtw_launch(qs, db, w, p, qi, ci, pb),
+                        f"masked p={p} bounds={bname} vs pair list")
+            if not bool(got[stage != 2].isnan().all()):
+                fail(f"dtw masked p={p}: a dead slot was written")
+    _, _, stage = lb_fused_launch(db, qs, upper, lower, w, sparse, 1, stage=True)
+    qi = (stage == 2).nonzero()
+    out = torch.empty((nq, b), device=dev)
+    m_ms = time_ms(lambda: dtw_masked_launch(qs, db, stage, w, 1, None, out))
+    m_dms = device_ms(lambda: dtw_masked_launch(qs, db, stage, w, 1, None, out))
+    rec["dtw"].update(masked_ms=m_ms, masked_device_ms=m_dms,
+                      masked_shape=f"Q={nq} x B={b} slots, {qi.numel()} live, n={n} w={w} p=1")
+    log(f"[kernel] dtw masked ok (bit-equal to the pair list on {qi.numel()} live slots, "
+        f"dead slots untouched): {m_ms:.4f} ms per call, {m_dms:.4f} ms on the device")
+
+    # block_merge: bit-equal to its plain version, ties included, over
+    # three blocks; 40 queries loop over 32 warps
+    def merge_inputs(q_count, k, nb, dtype):
+        top_v = torch.as_tensor(np.sort(rng.integers(0, 4, (q_count, k)) * 0.5, axis=1),
+                                dtype=dtype, device=dev)
+        top_v[0] = BIG
+        top_i = torch.as_tensor(rng.integers(0, 1000, (q_count, k)), device=dev)
+        st = torch.as_tensor(rng.choice(np.array([0, 1, 2, 2, 255], np.uint8),
+                                        size=(q_count, nb)), device=dev)
+        dv = torch.as_tensor(rng.integers(0, 5, (q_count, nb)) * 0.5, dtype=dtype,
+                             device=dev)
+        dv[st != 2] = math.nan
+        counts = torch.zeros((3, q_count), dtype=torch.int64, device=dev)
+        totals = torch.zeros(4, dtype=torch.int64, device=dev)
+        return top_v, top_i, counts, totals, st, dv
+
+    for q_count, k, dtype in ((16, 1, torch.float32), (16, 5, torch.float32),
+                              (40, 5, torch.float64), (1, 3, torch.float32)):
+        got = merge_inputs(q_count, k, 37, dtype)
+        want = tuple(t.clone() for t in got)
+        for lo in (0, 37, 74):
+            block_merge_launch(*got, lo, DTW_CHUNK)
+            block_merge_plain(*want, lo, DTW_CHUNK)
+        check_equal("block_merge", got[:4], want[:4], f"Q={q_count} k={k} {dtype}")
+    # timed at the main path's shape: the survivors of the K4 launch above
+    dv = dtw_masked_launch(qs, db, stage, w, 1)
+    state = (torch.full((nq, 1), BIG, device=dev),
+             torch.full((nq, 1), -1, dtype=torch.int64, device=dev),
+             torch.zeros((3, nq), dtype=torch.int64, device=dev),
+             torch.zeros(4, dtype=torch.int64, device=dev))
+    ms = time_ms(lambda: block_merge_launch(*state, stage, dv, 0, DTW_CHUNK))
+    dms = device_ms(lambda: block_merge_launch(*state, stage, dv, 0, DTW_CHUNK))
+    plain = time_ms(lambda: block_merge_plain(*state, stage, dv, 0, DTW_CHUNK), iters=10)
+    nlive = int(qi.numel())
+    bnd, by = bound_ms(nq * b + 4 * nlive + 2 * nq * (4 + 8) + 2 * 8 * (3 * nq + 4),
+                       nq * b + nlive)
+    rec["block_merge"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
+                              bound_by=by, library_ms=None, device_ms=dms,
+                              shape=f"Q={nq} k=1 B={b}, {nlive} live slots")
+    log(f"[kernel] block_merge ok (bit-equal, ties included): {ms:.4f} ms per call, "
+        f"{dms:.4f} ms on the device vs plain {plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+
+    # the loop's order on the same inputs: K4, K5 masked, merge, 20 times;
+    # each kernel's device ms there against its time alone above
+    from torch.profiler import ProfilerActivity, profile
+
+    def block():
+        lb_fused_launch(cands, qs, upper, lower, w, sparse, 1, stage=True)
+        dtw_masked_launch(qs, db, stage, w, 1, None, out)
+        block_merge_launch(*state, stage, dv, 0, DTW_CHUNK)
+
+    block()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            block()
+        torch.cuda.synchronize()
+    seq = {k.split("<")[0].split("::")[-1]: us / 1e3 / c
+           for k, (us, c) in kernel_self_us(prof).items()}
+    # K5 alternating with a one-value PyTorch fill instead
+    one = torch.empty(1, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            one.zero_()
+            dtw_masked_launch(qs, db, stage, w, 1, None, out)
+        torch.cuda.synchronize()
+    seq["dtw_kernel after a fill"] = next(
+        us / 1e3 / c for k, (us, c) in kernel_self_us(prof).items() if "dtw_kernel" in k)
+    rec["block_merge"]["sequence_device_ms"] = seq
+    log(f"[kernel] in the loop's order K4 -> K5 -> merge on the same inputs, device ms "
+        f"per launch: {seq}")
     torch.cuda.synchronize()
 
 
 # ------------------------------------------------------------- phase 3
 
 
-def device_busy(fn) -> tuple[float, float]:
-    """(device kernel ms, host wall ms) of one call under torch.profiler:
-    the sum of CUDA kernel self times and the wall clock around the call."""
+def device_busy(fn) -> tuple[float, float, dict]:
+    """(device ms, host wall ms, {kernel: (ms, count)}) of one call under
+    torch.profiler: the self times of the device's kernels and copies,
+    and the wall clock around the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -582,11 +796,49 @@ def device_busy(fn) -> tuple[float, float]:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us = sum(
-        getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-        for e in prof.key_averages()
-    )
-    return busy_us / 1e3, wall_ms
+    by_kernel = {k: (us / 1e3, c) for k, (us, c) in kernel_self_us(prof).items()}
+    return sum(ms for ms, _ in by_kernel.values()), wall_ms, by_kernel
+
+
+def loop_without_sync(dev, db, queries, res) -> tuple[float, float]:
+    """The session's search loop (``fused_block_loop``) on the prepared
+    queries under ``torch.cuda.set_sync_debug_mode("error")``, which
+    raises at any synchronising call; its answers and counters must be
+    the search's.  Returns the host's seconds to enqueue the loop and
+    the loop's wall seconds (enqueue, then one synchronise)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cascade import fused_block_loop
+    from repro_torch.core.dtw import finish_cost
+    from repro_torch.kernels.envelope.ops import envelope_op
+
+    cfg = db.config
+    qs = torch.as_tensor(db.prepare_queries(queries), device=dev)
+    qs = qs.to(db.rows_tensor.dtype).contiguous()
+    upper, lower = envelope_op(qs, db.w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        top_v, top_i, counts, totals = fused_block_loop(
+            qs, db.rows_tensor, upper, lower, db.w, cfg.p, cfg.k, cfg.block, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    s = res.stats
+    dist = finish_cost(top_v.cpu(), cfg.p).numpy()
+    if not (np.array_equal(top_i.cpu().numpy(), res.indices)
+            and np.array_equal(dist, res.distances)):
+        fail("the loop under sync debug mode answered otherwise than the search")
+    want = [*s.stage_pruned, s.full_dtw]
+    if counts.sum(dim=1).tolist() != want or totals.tolist() != [
+            s.blocks_lb2, s.blocks_dtw, s.dp_lane_work, s.dp_lane_useful]:
+        fail(f"the loop's counters {counts.sum(dim=1).tolist()} {totals.tolist()} "
+             f"differ from the search's {s}")
+    return enqueue_s, loop_s
 
 
 def phase_main_path(dev, launches):
@@ -621,7 +873,7 @@ def phase_main_path(dev, launches):
         return res, time.perf_counter() - t0
 
     res, search_s = counted(launches, "search", search)
-    busy_ms, wall_ms = device_busy(lambda: db.search(queries))
+    busy_ms, wall_ms, by_kernel = device_busy(lambda: db.search(queries))
     log(f"[main] {db!r}; build {build_s:.2f} s, search of {N_QUERIES} queries "
         f"{search_s:.2f} s = {N_QUERIES / search_s:.2f} qps")
     log("[main] plan: " + " | ".join(plan.splitlines()[:3]))
@@ -633,16 +885,27 @@ def phase_main_path(dev, launches):
     if busy_ms > 0:
         log(f"[main] profiled second search: device busy {busy_ms:.1f} ms of "
             f"{wall_ms:.1f} ms wall = idle share {1 - busy_ms / wall_ms:.3f}")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+        log("[main] device ms by kernel: " + "; ".join(
+            f"{k[:48]} {ms:.1f} ms / {c}" for k, (ms, c) in top))
     else:
         log("[main] profiled second search: the profiler saw no device time; "
             "idle share not measured")
     require_launched(launches, "build", ("envelope", "lb_kim", "lb_keogh",
                                          "lb_improved_pass2", "dtw"), "build")
-    require_launched(launches, "search", ("envelope", "lb_fused", "dtw"), "search")
+    require_launched(launches, "search", ("envelope", "lb_fused", "dtw", "block_merge"),
+                     "search")
     got = launches["search"]
-    if got["lb_fused"] != s.blocks_total or got["lb_keogh"] or got["lb_improved_pass2"]:
-        fail(f"search: expected one lb_fused launch per block ({s.blocks_total}) and "
-             f"no lb_keogh / lb_improved_pass2 launch, got {got}")
+    per_block = (got["lb_fused"], got["dtw"], got["block_merge"])
+    if per_block != (s.blocks_total,) * 3 or got["lb_keogh"] or got["lb_improved_pass2"]:
+        fail(f"search: expected one lb_fused, one dtw and one block_merge launch per "
+             f"block ({s.blocks_total}) and no lb_keogh / lb_improved_pass2 launch, "
+             f"got {got}")
+    enqueue_s, loop_s = loop_without_sync(dev, db, queries, res)
+    log(f"[main] the block loop ran again under set_sync_debug_mode('error') in "
+        f"{loop_s:.3f} s ({enqueue_s:.3f} s of host time to enqueue its "
+        f"{3 * s.blocks_total} launches): no synchronisation, same indices, distances "
+        f"and counters")
     if s.pruned_by != MAIN_PRUNED or s.full_dtw != MAIN_FULL_DTW:
         fail(f"pruning {s.pruned_by}, full_dtw {s.full_dtw} != recorded "
              f"{MAIN_PRUNED}, {MAIN_FULL_DTW}")

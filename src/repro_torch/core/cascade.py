@@ -12,7 +12,12 @@ top-k and prunes against its own tightening bound.
 * ``nn_search_host`` — every LB stage dense per block, the survivors of
   the whole query batch pooled into ``dtw_chunk``-sized DP launches, and
   a stable host argsort merge.  At p in {1, 2} an LB_Keogh stage
-  followed by LB_Improved runs as one fused launch (K4) per block.
+  followed by LB_Improved runs as one fused launch (K4) per block.  A
+  pipeline that is that fused step alone (``lb_improved``, the default)
+  runs its whole block loop on the tensors' device
+  (``fused_block_loop``): per block K4 writes each pair's stage, K5 runs
+  the survivors in place, and a merge kernel updates the top-k and the
+  counters, with no copy back until the loop ends.
 
 Both take numpy arrays or tensors.  They run on the tensors' device, or
 on ``device`` (default: the GPU; ``RuntimeError`` when there is none).
@@ -28,15 +33,17 @@ import torch
 
 from repro_torch.core import pipeline as pipe
 from repro_torch.core.dtw import BIG, PNorm, finish_cost
+from repro_torch.kernels.block_merge.ops import block_merge_prepare
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.dtw.ops import dtw_pairs_op
+from repro_torch.kernels.dtw.ops import dtw_masked_prepare, dtw_pairs_op
 from repro_torch.kernels.envelope.ops import envelope_op
-from repro_torch.kernels.lb_fused.ops import lb_fused_qbatch_op
+from repro_torch.kernels.lb_fused.ops import lb_fused_prepare, lb_fused_qbatch_op
 
 __all__ = [
     "BatchSearchResult",
     "SearchResult",
     "SearchStats",
+    "fused_block_loop",
     "nn_search_host",
     "nn_search_scan",
 ]
@@ -276,6 +283,66 @@ def _host_steps(names: tuple[str, ...], p: PNorm) -> list[tuple[int, ...]]:
     return steps
 
 
+def fused_block_loop(qs, db, upper, lower, w: int, p: PNorm, k: int, block: int,
+                     dtw_chunk: int, early_abandon: bool = False):
+    """The host driver's block loop for the fused LB_Keogh -> LB_Improved
+    pipeline, resident on the tensors' device.  Per block of ``block``
+    rows, in stream order and with no synchronisation:
+
+    1. K4 against each query's k-th best (a view of ``top_v``) writes
+       each pair's stage (0 pruned by LB_Keogh, 1 by LB_Improved, 2
+       survivor, 255 a pad row of the tail block);
+    2. K5's masked-dense entry runs the DP on the survivors, abandoning
+       against the same k-th best when ``early_abandon`` (an abandoned
+       value is >= that bound, so it never enters the top-k);
+    3. the merge kernel takes the survivors into each query's top-k
+       (a stable merge: an equal value never displaces an entry, a lower
+       row wins a tie) and adds the counters of the host loop that pooled
+       them into ``dtw_chunk``-sized launches.
+
+    Returns device tensors: top_v (Q, k) powered, top_i (Q, k), counts
+    (3, Q) (pruned by LB_Keogh, by LB_Improved, survivors) and totals
+    (blocks_lb2, blocks_dtw, dp_lane_work, dp_lane_useful).  On CPU
+    tensors every step is its kernel's plain version.
+    """
+    dev, dt = db.device, db.dtype
+    nq, n = qs.shape
+    n_db = db.shape[0]
+    top_v = torch.full((nq, k), BIG, dtype=dt, device=dev)
+    top_i = torch.full((nq, k), -1, dtype=torch.int64, device=dev)
+    counts = torch.zeros((3, nq), dtype=torch.int64, device=dev)
+    totals = torch.zeros(4, dtype=torch.int64, device=dev)
+    stage = torch.empty((nq, block), dtype=torch.uint8, device=dev)
+    dvals = torch.empty((nq, block), dtype=dt, device=dev)
+    bound = top_v[:, -1]  # read by each launch: the k-th best so far
+    lbs = lb_fused_prepare(qs, upper, lower, w, bound, p, block, stage)
+    dp = dtw_masked_prepare(qs, w, p, stage, bound if early_abandon else None, dvals)
+    merge = block_merge_prepare(top_v, top_i, counts, totals, stage, dvals, dtw_chunk)
+    for lo in range(0, n_db, block):
+        real = min(block, n_db - lo)
+        cands = db[lo : lo + block]
+        if real < block:  # pad the tail block with its last row
+            cands = torch.cat([cands, cands[-1:].expand(block - real, n)], dim=0)
+        lbs(cands, real)
+        dp(cands)
+        merge(lo)
+    return top_v, top_i, counts, totals
+
+
+def _to_host(*tensors) -> list[np.ndarray]:
+    """Numpy copies of several device tensors through one transfer: their
+    bytes are packed on the device, copied back once and split."""
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
+    raw = flat.cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        size = t.numel() * t.element_size()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(raw[at : at + size].view(dtype).reshape(t.shape).copy())
+        at += size
+    return out
+
+
 def nn_search_host(
     q, db, w: int, p: PNorm = 1, k: int = 1, block: int = 256,
     dtw_chunk: int = 16, method: str = "lb_improved",
@@ -290,7 +357,9 @@ def nn_search_host(
     a stable host argsort.  At p in {1, 2} an LB_Keogh -> LB_Improved
     pair is one ``lb_fused_qbatch_op`` per block against each query's
     k-th best, copied to the host once: its masks are ``lb1 < bound``,
-    then ``lb < bound``, as the two stages would give.
+    then ``lb < bound``, as the two stages would give.  When that fused
+    pair is the whole pipeline, the loop runs on the device instead
+    (``fused_block_loop``) with the same answers and counters.
     ``early_abandon`` additionally stops each DP once its band clears
     the running bound.
     """
@@ -300,18 +369,28 @@ def nn_search_host(
     n_db = db_t.shape[0]
     w = int(min(w, n - 1))
     upper, lower = envelope_op(qs, w)
+    lb_names = pipe.lb_stage_names(method)
+    steps = _host_steps(lb_names, p)
+    nb = -(-n_db // block)
+    if steps == [(0, 1)]:
+        top_v, top_i, counts, totals = _to_host(*fused_block_loop(
+            qs, db_t, upper, lower, w, p, k, block, dtw_chunk, early_abandon
+        ))
+        agg, per_query = _batch_stats(
+            n_db, lb_names, counts[:2], counts[2], totals[0], totals[1],
+            blocks_total=nb, dp_lane_work=totals[2], dp_lane_useful=totals[3],
+        )
+        distances = finish_cost(torch.as_tensor(top_v), p).numpy()
+        return _result(distances, top_i, single, agg, per_query)
     ctx = pipe.make_context(qs, upper, lower, w, p, method)
     dev = db_t.device
 
     top_v = np.full((nq, k), BIG)
     top_i = np.full((nq, k), -1, np.int64)
-    lb_names = pipe.lb_stage_names(method)
-    steps = _host_steps(lb_names, p)
     lb_pruned = np.zeros((len(lb_names), nq), np.int64)
     c3 = np.zeros(nq, np.int64)
     blocks_lb2 = blocks_dtw = 0
     dp_lane_work = dp_lane_useful = 0
-    nb = -(-n_db // block)
 
     def merge(qi: int, vals: np.ndarray, idxs: np.ndarray):
         av = np.concatenate([top_v[qi], vals])

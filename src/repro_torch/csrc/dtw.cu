@@ -289,25 +289,29 @@ __device__ T wavefront_smem(const T* qb, const T* cb, int n, int w, T* da, T* db
 }
 
 // One warp per pair.  S > 0: the band in registers, S slots per lane;
-// S = 0: in shared memory.
+// S = 0: in shared memory.  With `stage` (the masked-dense entry) a slot
+// whose stage is not 2 exits before it reads a row.  The bound of a pair
+// is bounds[pair], or bounds[q * bound_qstride] when that stride is > 0.
 template <typename T, int P, int S>
 __global__ void __launch_bounds__(32)
 dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
            const int64_t* __restrict__ qidx, const int64_t* __restrict__ cidx,
-           const T* __restrict__ bounds, int64_t bstride, int n, int w,
+           const uint8_t* __restrict__ stage, const T* __restrict__ bounds,
+           int64_t bound_qstride, int64_t bstride, int n, int w,
            T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int V = 16 / sizeof(T);
+  const int64_t pair = blockIdx.x;
+  if (stage && stage[pair] != 2) return;
   const int margin = row_margin(w, S > 0 ? S : 1, V);
   const int len = row_len(n, w, S > 0 ? S : 1, V);
   T* qrow = reinterpret_cast<T*>(smem_raw);
   T* crow = qrow + len;
   const int lane = threadIdx.x;
-  const int64_t pair = blockIdx.x;
   const int64_t q = qidx ? qidx[pair] : pair / bstride;
   const int64_t c = cidx ? cidx[pair] : pair % bstride;
   const bool check = bounds != nullptr;
-  const T bound = check ? bounds[pair] : big<T>();
+  const T bound = !check ? big<T>() : bounds[bound_qstride > 0 ? q * bound_qstride : pair];
   stage_row(qrow, qs + q * n, n, margin, len, row_pad<T>(), lane);
   stage_row(crow, cands + c * n, n, margin, len, -row_pad<T>(), lane);
   __syncwarp();
@@ -327,19 +331,45 @@ dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
 
 template <typename T, int P, int S>
 cudaError_t launch_dtw(const T* qs, const T* cands, const int64_t* qidx,
-                       const int64_t* cidx, const T* bounds, int64_t npairs,
-                       int64_t bstride, int n, int w, T* out, cudaStream_t s) {
+                       const int64_t* cidx, const uint8_t* stage, const T* bounds,
+                       int64_t bound_qstride, int64_t npairs, int64_t bstride,
+                       int n, int w, T* out, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   const size_t len = row_len(n, w, S > 0 ? S : 1, V);
   const size_t smem = sizeof(T) * (2 * len + (S == 0 ? 2 * (size_t)(w + 3) : 0));
   cudaError_t err = allow_smem(dtw_kernel<T, P, S>, smem);
   if (err != cudaSuccess) return err;
   dtw_kernel<T, P, S><<<(unsigned)npairs, 32, smem, s>>>(
-      qs, cands, qidx, cidx, bounds, bstride, n, w, out);
+      qs, cands, qidx, cidx, stage, bounds, bound_qstride, bstride, n, w, out);
   return cudaGetLastError();
 }
 
 }  // namespace repro
+
+// The slot count per lane of the register path, or 0 for the
+// shared-memory path (bands wider than 32 * MAX_SLOTS cells).
+static int dtw_slots(int w) {
+  const int per_lane = (w + 1 + 31) / 32;
+  int slots = 1;
+  while (slots < per_lane) slots *= 2;
+  return slots > repro::MAX_SLOTS ? 0 : slots;
+}
+
+template <typename T, int P>
+static cudaError_t dtw_dispatch(const T* q, const T* c, const int64_t* qidx,
+                                const int64_t* cidx, const uint8_t* stage,
+                                const T* bd, int64_t bound_qstride, int64_t npairs,
+                                int64_t bstride, int n, int w, T* o,
+                                cudaStream_t s) {
+  switch (dtw_slots(w)) {
+    case 1: return repro::launch_dtw<T, P, 1>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
+    case 2: return repro::launch_dtw<T, P, 2>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
+    case 4: return repro::launch_dtw<T, P, 4>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
+    case 8: return repro::launch_dtw<T, P, 8>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
+    case 16: return repro::launch_dtw<T, P, 16>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
+    default: return repro::launch_dtw<T, P, 0>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
+  }
+}
 
 // qs (Q, n); cands (Nc, n); bounds (npairs,) powered, or nullptr for no
 // abandon test; out (npairs,) powered.  Dense mode: qidx = cidx = nullptr
@@ -353,24 +383,35 @@ extern "C" int repro_dtw(int dtype, int pcode, const void* qs, const void* cands
                          int n, int w, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npairs == 0) return (int)cudaGetLastError();
-  const int per_lane = (w + 1 + 31) / 32;
-  int slots = 1;
-  while (slots < per_lane) slots *= 2;
-  if (slots > repro::MAX_SLOTS) slots = 0;
   REPRO_DISPATCH(dtype, pcode,
-    const T* q = static_cast<const T*>(qs);
-    const T* c = static_cast<const T*>(cands);
-    const T* bd = static_cast<const T*>(bounds);
-    T* o = static_cast<T*>(out);
-    cudaError_t err;
-    switch (slots) {
-      case 1: err = repro::launch_dtw<T, P, 1>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
-      case 2: err = repro::launch_dtw<T, P, 2>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
-      case 4: err = repro::launch_dtw<T, P, 4>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
-      case 8: err = repro::launch_dtw<T, P, 8>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
-      case 16: err = repro::launch_dtw<T, P, 16>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
-      default: err = repro::launch_dtw<T, P, 0>(q, c, qidx, cidx, bd, npairs, bstride, n, w, o, s); break;
-    }
+    cudaError_t err = dtw_dispatch<T, P>(
+        static_cast<const T*>(qs), static_cast<const T*>(cands), qidx, cidx,
+        nullptr, static_cast<const T*>(bounds), 0, npairs, bstride, n, w,
+        static_cast<T*>(out), s);
+    if (err != cudaSuccess) return (int)err;)
+  return (int)cudaGetLastError();
+}
+
+// The masked-dense entry of the host driver's device-resident loop: slot
+// s = q * nb + b runs query q against candidate row b of `cands` (nb rows)
+// when stage[s] == 2 (a survivor of K4) and writes out[s]; every other
+// slot's warp exits before it reads a row, and its out[s] is left as it
+// was.  bounds[q * bound_stride] is query q's powered abandon bound, or
+// bounds is nullptr for no abandon test.
+extern "C" int repro_dtw_masked(int dtype, int pcode, const void* qs,
+                                const void* cands, const uint8_t* stage,
+                                const void* bounds, int64_t bound_stride,
+                                int64_t nq, int64_t nb, int n, int w, void* out,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nq * nb == 0) return (int)cudaGetLastError();
+  if (stage == nullptr || (bounds != nullptr && bound_stride < 1))
+    return (int)cudaErrorInvalidValue;
+  REPRO_DISPATCH(dtype, pcode,
+    cudaError_t err = dtw_dispatch<T, P>(
+        static_cast<const T*>(qs), static_cast<const T*>(cands), nullptr, nullptr,
+        stage, static_cast<const T*>(bounds), bound_stride, nq * nb, nb, n, w,
+        static_cast<T*>(out), s);
     if (err != cudaSuccess) return (int)err;)
   return (int)cudaGetLastError();
 }

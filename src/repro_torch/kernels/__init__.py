@@ -1,17 +1,21 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
-Seven entries: ``envelope`` (K1), ``lb_keogh`` (K2, LB_Keogh + the
+Eight entries: ``envelope`` (K1), ``lb_keogh`` (K2, LB_Keogh + the
 projection H) and its stream form ``lb_keogh_stream`` (K7),
 ``lb_improved_pass2`` (K3, pass 2 over H), ``lb_fused`` (K4, both passes
-on one tile, pass 2 predicated on the bound), ``dtw`` (K5, the banded DP
-with per-lane abandoning) and ``lb_kim`` (K6).  Each package holds
+one warp per pair, pass 2 predicated on the bound), ``dtw`` (K5, the
+banded DP with per-lane abandoning, also in a masked-dense form),
+``lb_kim`` (K6) and ``block_merge`` (the host driver's top-k merge and
+counters on the device, no TPU counterpart).  Each package holds
 ``ops.py`` — the wrappers, the plain PyTorch version and the kernel's
-launch function, which counts its launches — and ``ref.py``, the oracle.
+launch function, which counts its launches — and, for a TPU kernel,
+``ref.py``, the oracle.
 A wrapper launches the kernel for CUDA tensors (or raises) and runs the
 plain version for CPU tensors.  ``tuning`` holds the schedule table the
 wrappers resolve their launch shapes from.
 """
 
+from repro_torch.kernels.block_merge.ops import block_merge_launch
 from repro_torch.kernels.dtw.ops import dtw_launch
 from repro_torch.kernels.envelope.ops import envelope_launch
 from repro_torch.kernels.lb_fused.ops import lb_fused_launch
@@ -28,6 +32,7 @@ LAUNCHERS = {
     "lb_fused": lb_fused_launch,
     "lb_kim": lb_kim_launch,
     "lb_keogh_stream": lb_keogh_stream_launch,
+    "block_merge": block_merge_launch,
 }
 
 

@@ -1,0 +1,102 @@
+"""The host driver's per-block top-k merge and counters: the block_merge
+CUDA kernel's wrappers and plain version.
+
+The kernel (``csrc/block_merge.cu``) replaces no TPU kernel: it stands
+for the reference's host merge, ``repro/core/cascade.py::nn_search_host``
+(``merge``, a stable numpy argsort of a query's top-k followed by the DP
+values of its survivors).  It keeps the device-resident block loop of
+``repro_torch.core.cascade`` on the card.  For one block of B candidate
+rows starting at database row ``lo``, given K4's ``stage`` (Q, B) and
+K5's DP values ``dvals`` (Q, B), read only where the stage is 2, it
+updates in place:
+
+* ``top_v``/``top_i`` (Q, k): the stable top-k of [top-k, survivors in
+  row order], so an equal value never displaces an entry and a lower row
+  wins a tie;
+* ``counts`` (3, Q) int64: pairs pruned by LB_Keogh, by LB_Improved, and
+  survivors, per query;
+* ``totals`` (4,) int64: blocks_lb2 (1 if any real pair survived
+  LB_Keogh), blocks_dtw (ceil(S / dtw_chunk) for S survivors),
+  dp_lane_work (dtw_chunk times that) and dp_lane_useful (S).
+
+The plain version is a torch stable sort; the kernel is bit-equal to it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype
+
+
+def block_merge_plain(top_v, top_i, counts, totals, stage, dvals, lo: int,
+                      dtw_chunk: int):
+    """Plain PyTorch version: a stable argsort merge and tensor counters,
+    in place (no host synchronisation)."""
+    nq, k = top_v.shape
+    nb = stage.shape[1]
+    live = stage == 2
+    cand = torch.where(live, dvals.reshape(nq, nb), math.inf)
+    rows = torch.arange(lo, lo + nb, dtype=torch.int64, device=top_i.device)
+    all_v = torch.cat([top_v, cand.to(top_v.dtype)], dim=1)
+    all_i = torch.cat([top_i, rows.expand(nq, nb)], dim=1)
+    sel = torch.argsort(all_v, dim=1, stable=True)[:, :k]
+    top_v.copy_(torch.gather(all_v, 1, sel))
+    top_i.copy_(torch.gather(all_i, 1, sel))
+    per_query = torch.stack([(stage == 0).sum(dim=1), (stage == 1).sum(dim=1),
+                             live.sum(dim=1)])
+    counts += per_query
+    s = per_query[2].sum()
+    chunks = (s + dtw_chunk - 1) // dtw_chunk
+    any_lb2 = (per_query[1] + per_query[2]).sum().gt(0).to(torch.int64)
+    totals += torch.stack([any_lb2, chunks, chunks * dtw_chunk, s])
+
+
+def block_merge_prepare(top_v, top_i, counts, totals, stage, dvals,
+                        dtw_chunk: int):
+    """The merge for launches on blocks: checks every buffer once and
+    returns ``run(lo)``, the merge of the block starting at database row
+    ``lo``.  On CPU tensors ``run`` is the plain version."""
+    dev, dt = top_v.device, top_v.dtype
+    if dev.type == "cpu":
+        return lambda lo: block_merge_plain(top_v, top_i, counts, totals, stage,
+                                            dvals, lo, dtw_chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"block_merge runs on cuda or cpu, got {dev}")
+    nq, k = top_v.shape
+    nb = stage.shape[1]
+    check_cuda_tensor("top_v", top_v, dev, dt)
+    check_cuda_tensor("top_i", top_i, dev, torch.int64, (nq, k))
+    check_cuda_tensor("counts", counts, dev, torch.int64, (3, nq))
+    check_cuda_tensor("totals", totals, dev, torch.int64, (4,))
+    check_cuda_tensor("stage", stage, dev, torch.uint8, (nq, nb))
+    check_cuda_tensor("dvals", dvals, dev, dt, (nq, nb))
+    if k < 1 or int(dtw_chunk) < 1:
+        raise ValueError(f"k={k} and dtw_chunk={dtw_chunk} must be >= 1")
+    fn = cuda_lib.library().repro_block_merge
+    head = (kernel_dtype(top_v), top_v.data_ptr(), top_i.data_ptr(), k,
+            stage.data_ptr(), dvals.data_ptr(), nq, nb)
+    tail = (int(dtw_chunk), counts.data_ptr(), totals.data_ptr(),
+            cuda_lib.stream_of(dev))
+
+    def run(lo):
+        cuda_lib.check("block_merge", fn(*head, int(lo), *tail))
+        if nq:
+            block_merge_launch.launches += 1
+
+    run.tensors = (top_v, top_i, counts, totals, stage, dvals)  # the pointers it holds
+    return run
+
+
+def block_merge_launch(top_v, top_i, counts, totals, stage, dvals, lo: int,
+                       dtw_chunk: int):
+    """Launch the merge kernel once on CUDA tensors, through
+    ``block_merge_prepare``; arguments follow block_merge_plain."""
+    check_cuda_tensor("top_v", top_v, top_v.device, top_v.dtype)
+    block_merge_prepare(top_v, top_i, counts, totals, stage, dvals, dtw_chunk)(lo)
+
+
+block_merge_launch.launches = 0

@@ -1,5 +1,8 @@
 from repro_torch.kernels.dtw.ops import (
     dtw_launch,
+    dtw_masked_launch,
+    dtw_masked_plain,
+    dtw_masked_prepare,
     dtw_op,
     dtw_pairs_op,
     dtw_plain,
@@ -11,6 +14,9 @@ from repro_torch.kernels.dtw.ref import dtw_early_ref, dtw_ref
 __all__ = [
     "dtw_early_ref",
     "dtw_launch",
+    "dtw_masked_launch",
+    "dtw_masked_plain",
+    "dtw_masked_prepare",
     "dtw_op",
     "dtw_pairs_op",
     "dtw_plain",

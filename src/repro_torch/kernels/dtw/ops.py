@@ -9,6 +9,14 @@ itself, so the drivers build no (chunk, n) copies.  Per-lane powered
 returns a value >= its bound instead of the exact distance.  Omitted,
 every lane runs the full DP.  p in {1, 2, inf}, float32 and float64.
 
+A masked-dense entry serves the host driver's device-resident block
+loop: slot (q, b) of a (Q, B) grid runs query q against candidate row b
+only where K4's stage is 2, with query q's bound read from a strided
+column (the running k-th best); the other slots are neither read nor
+written.  ``dtw_masked_prepare``, its one host path, checks the buffers
+once and returns a launcher that the loop calls once per block;
+``dtw_masked_launch`` is one call of it.
+
 Two plain versions sit beside it.  ``dtw_plain`` is the reference's
 semantics (row DP, an abandoned lane returns its row minimum); the CPU
 route takes it.  ``dtw_wavefront_plain`` repeats the kernel's own
@@ -138,6 +146,70 @@ def dtw_launch(qs, cands, w: int, p=1, qidx=None, cidx=None, bounds=None):
 
 
 dtw_launch.launches = 0
+
+
+def dtw_masked_plain(qs, cands, stage, w: int, p=1, bounds=None, out=None,
+                     dp=dtw_plain):
+    """Plain version of the masked-dense entry: out[q, b] = ``dp`` of
+    query q against cands[b] where stage[q, b] == 2, with bound
+    bounds[q] (a (Q,) tensor, any stride); other slots of ``out`` (Q, B)
+    keep their values.  ``dp`` is ``dtw_plain`` (the CPU route) or
+    ``dtw_wavefront_plain`` (the kernel's own arithmetic)."""
+    nq, nb = stage.shape
+    if out is None:
+        out = torch.empty((nq, nb), dtype=qs.dtype, device=qs.device)
+    qi, ci = (stage == 2).nonzero(as_tuple=True)
+    if qi.numel():
+        b = None if bounds is None else bounds.reshape(-1)[qi]
+        out[qi, ci] = dp(qs, cands, w, p, qi, ci, b)
+    return out
+
+
+def dtw_masked_prepare(qs, w: int, p, stage, bounds, out):
+    """K5's masked-dense entry for launches on blocks of candidate rows:
+    checks the queries, the ``stage`` and ``out`` buffers (Q, B) and
+    ``bounds`` (a (Q,) tensor of any stride read at each launch, or None)
+    once and returns ``run(cands)`` -> ``out``.  On CPU tensors ``run``
+    is ``dtw_masked_plain``."""
+    nq, n = qs.shape
+    w = int(min(w, n - 1))
+    dev, dt = qs.device, qs.dtype
+    if dev.type == "cpu":
+        return lambda cands: dtw_masked_plain(qs, cands, stage, w, p, bounds, out)
+    if dev.type != "cuda":
+        raise ValueError(f"dtw runs on cuda or cpu, got {dev}")
+    nb = stage.shape[1]
+    check_cuda_tensor("qs", qs, dev, dt)
+    check_cuda_tensor("stage", stage, dev, torch.uint8, (nq, nb))
+    check_cuda_tensor("out", out, dev, dt, (nq, nb))
+    bstride = 0
+    if bounds is not None:
+        if bounds.device != dev or bounds.dtype != dt or tuple(bounds.shape) != (nq,):
+            raise ValueError(f"bounds must be ({nq},) {dt} on {dev}")
+        bstride = max(int(bounds.stride(0)), 1)
+    fn = cuda_lib.library().repro_dtw_masked
+    head = (kernel_dtype(qs), p_code(p), qs.data_ptr())
+    tail = (stage.data_ptr(), cuda_lib.ptr(bounds), bstride, nq, nb, n, w,
+            out.data_ptr(), cuda_lib.stream_of(dev))
+
+    def run(cands):
+        check_cuda_tensor("cands", cands, dev, dt, (nb, n))
+        cuda_lib.check("dtw", fn(*head, cands.data_ptr(), *tail))
+        if nq * nb:
+            dtw_launch.launches += 1
+        return out
+
+    run.tensors = (qs, stage, bounds, out)  # the pointers it holds
+    return run
+
+
+def dtw_masked_launch(qs, cands, stage, w: int, p=1, bounds=None, out=None):
+    """Launch K5's masked-dense entry once on CUDA tensors, through
+    ``dtw_masked_prepare``; shapes follow dtw_masked_plain."""
+    check_cuda_tensor("qs", qs, qs.device, qs.dtype)
+    if out is None:
+        out = torch.empty(tuple(stage.shape), dtype=qs.dtype, device=qs.device)
+    return dtw_masked_prepare(qs, w, p, stage, bounds, out)(cands)
 
 
 def _dispatch(qs, cands, w, p, qidx, cidx, bounds):

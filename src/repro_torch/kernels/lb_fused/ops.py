@@ -1,28 +1,37 @@
-"""Fused LB_Keogh -> LB_Improved: the K4 CUDA kernel's wrapper and plain
-version.
+"""Fused LB_Keogh -> LB_Improved: the K4 CUDA kernel's wrappers and plain
+versions.
 
 The kernel (``csrc/lb_fused.cu``) replaces the TPU kernel
 ``repro/kernels/lb_fused/kernel.py::lb_fused_qbatch_pallas``.  For
 candidates (B, n) against queries (Q, n) with their envelopes and a
 powered pruning bound per query, it returns (lb1, lb) of shape (Q, B):
 LB_Keogh for every lane, and the full LB_Improved where lb1 < bound
-(lb == lb1 elsewhere).  The projections H stay in shared memory, and a
-tile with no live lane skips pass 2.  lb1 is bit-equal to K2's LB_Keogh
-and lb to K2's plus K3's pass 2, the two kernels the host driver would
-otherwise launch (``csrc/lb_routines.cuh``).
+(lb == lb1 elsewhere), and optionally each pair's cascade ``stage``
+(``lb_fused_stage_plain``).  It runs one warp per (query, candidate)
+pair: pass 2 of every live pair runs at once, and a dead pair skips it.
+The projections H stay in shared memory.  lb1 is bit-equal to K2's
+LB_Keogh and lb to K2's plus K3's pass 2, the two kernels the host
+driver would otherwise launch (``csrc/lb_routines.cuh``).
 
 The reference op serves p in {1, 2} only and raises otherwise; so does
 this one.  A ragged B needs no padding: the kernel masks the last tile,
 so no pad lane can keep pass 2 alive (the reason the reference pads with
 ``PAD_VALUE`` rather than zeros).
 
-``tile_b`` (candidate rows per block), ``grid`` (``"qb"``: a block per
-(query, tile); ``"bq"``: a block per tile, looping over the queries) and
+``tile_b`` (pairs, that is warps, per block), ``grid`` (``"qb"``: a block
+per (query, tile of candidates); ``"bq"``: a block per tile, each warp
+staging its candidate row once and looping over the queries) and
 ``depth`` left ``None`` resolve from the active tune table; none changes
-an output bit.  The kernel has no ``cp.async`` double buffering yet, so
+an output bit.  The kernel has no ``cp.async`` double buffering, so
 ``depth=2`` cannot launch.  A resolved tile too large for shared memory
 at this length is halved until it fits; an explicit one raises
 :class:`~repro_torch.kernels.common.NotRunnable`.
+
+``lb_fused_prepare`` is the one host path to the kernel: it checks and
+resolves everything once and returns a launcher that only passes a
+block's rows to the kernel.  The host driver's device-resident block
+loop calls that launcher once per block; ``lb_fused_launch`` is one
+call of it.
 """
 
 from __future__ import annotations
@@ -42,6 +51,9 @@ from repro_torch.kernels.lb_keogh.ops import lb_keogh_plain
 from repro_torch.kernels.tuning.space import GRID_LAYOUTS
 from repro_torch.kernels.tuning.table import resolve_config
 
+#: ``stage`` value of a candidate row at or past ``real`` (a pad row)
+PAD_STAGE = 255
+
 
 def _check_p(p):
     if p not in (1, 2):
@@ -59,26 +71,27 @@ def lb_fused_plain(cands, qs, upper, lower, w: int, bounds, p=1):
     return lb1, torch.where(alive, combine_passes(lb1, lb2, p), lb1)
 
 
+def lb_fused_stage_plain(lb1, lb, bounds, real: int | None = None):
+    """Each pair's cascade stage (Q, B) uint8 from K4's outputs: 0 pruned
+    by LB_Keogh (lb1 >= bound), 1 pruned by LB_Improved (lb >= bound), 2
+    a survivor; candidates at or past ``real`` get ``PAD_STAGE``."""
+    b = bounds.reshape(-1, 1)
+    stage = torch.where(lb1 < b, torch.where(lb < b, 2, 1), 0).to(torch.uint8)
+    if real is not None and real < stage.shape[1]:
+        stage[:, real:] = PAD_STAGE
+    return stage
+
+
 def fused_smem_bytes(n: int, w: int, tile_b: int, grid: str, itemsize: int) -> int:
-    """Shared memory of one K4 block: tile_b rows of H (and of the staged
-    tile for ``"bq"``), the pass-2 envelope buffer, the tile's lb1 values
-    and the 32-value reduction scratch."""
-    rows = tile_b * n * (2 if grid == "bq" else 1)
-    return itemsize * (rows + 4 * (n + 2 * w) + tile_b + 32)
+    """Shared memory of one K4 block: per warp its H row (and its staged
+    candidate row for ``"bq"``) and the pass-2 envelope buffer."""
+    row = n * (2 if grid == "bq" else 1)
+    return itemsize * tile_b * (row + 4 * (n + 2 * w))
 
 
-def lb_fused_launch(cands, qs, upper, lower, w: int, bounds, p=1, tile_b=None,
-                    depth=None, grid=None):
-    """Launch K4 on CUDA tensors; shapes follow lb_fused_plain."""
-    _check_p(p)
-    dev, dt = cands.device, cands.dtype
-    nb, n = cands.shape
-    nq = qs.shape[0]
-    w = int(min(w, n - 1))
-    for name, t in (("cands", cands), ("qs", qs), ("upper", upper), ("lower", lower)):
-        check_cuda_tensor(name, t, dev, dt, None if name == "cands" else (nq, n))
-    bounds = bounds.reshape(-1)
-    check_cuda_tensor("bounds", bounds, dev, dt, (nq,))
+def _schedule(nb, n, w, itemsize, tile_b, depth, grid) -> tuple[int, str]:
+    """(warps per block, grid) of a launch: ``None`` knobs from the tune
+    table, a resolved tile halved until it fits in shared memory."""
     shrink = tile_b is None
     if tile_b is None or depth is None or grid is None:
         cfg = resolve_config("lb_fused", b=nb, n=n, backend="cuda")
@@ -90,31 +103,97 @@ def lb_fused_launch(cands, qs, upper, lower, w: int, bounds, p=1, tile_b=None,
     if depth != 1:
         raise NotRunnable(
             f"depth={depth}: the CUDA lb_fused kernel has no cp.async double "
-            "buffering yet (ROADMAP.md queue 2)"
+            "buffering (ROADMAP.md queue 2)"
         )
     tile_b = int(tile_b)
-    if tile_b < 1:
-        raise NotRunnable(f"tile_b={tile_b} rows per block")
-    while fused_smem_bytes(n, w, tile_b, grid, cands.element_size()) > SMEM_LIMIT_BYTES:
+    if not 1 <= tile_b <= 32:
+        raise NotRunnable(f"tile_b={tile_b} warps per block is outside 1..32")
+    while fused_smem_bytes(n, w, tile_b, grid, itemsize) > SMEM_LIMIT_BYTES:
         if not shrink or tile_b == 1:
             raise NotRunnable(
                 f"lb_fused tile_b={tile_b} grid={grid!r} needs "
-                f"{fused_smem_bytes(n, w, tile_b, grid, cands.element_size())} bytes "
+                f"{fused_smem_bytes(n, w, tile_b, grid, itemsize)} bytes "
                 f"of shared memory at n={n}, w={w}; the limit is {SMEM_LIMIT_BYTES}"
             )
         tile_b //= 2
-    lb1 = torch.empty((nq, nb), dtype=dt, device=dev)
-    lb = torch.empty((nq, nb), dtype=dt, device=dev)
-    code = cuda_lib.library().repro_lb_fused(
-        kernel_dtype(cands), p_code(p), cands.data_ptr(), qs.data_ptr(),
-        upper.data_ptr(), lower.data_ptr(), bounds.data_ptr(), nq, nb, n, w,
-        tile_b, int(grid == "bq"), lb1.data_ptr(), lb.data_ptr(),
-        cuda_lib.stream_of(dev),
-    )
-    cuda_lib.check("lb_fused", code)
-    if nq * nb:
-        lb_fused_launch.launches += 1
-    return lb1, lb
+    return tile_b, grid
+
+
+def _check_bounds(bounds, dev, dt, nq):
+    """The bounds may be a strided column (of a top-k); the kernel reads
+    bounds[q * stride]."""
+    if bounds.device != dev or bounds.dtype != dt or tuple(bounds.shape) != (nq,):
+        raise ValueError(
+            f"bounds must be ({nq},) {dt} on {dev}, got {tuple(bounds.shape)} "
+            f"{bounds.dtype} on {bounds.device}"
+        )
+    return max(int(bounds.stride(0)), 1)
+
+
+def lb_fused_prepare(qs, upper, lower, w: int, bounds, p, block: int, stage=None,
+                     tile_b=None, depth=None, grid=None):
+    """K4 for launches on blocks of ``block`` candidate rows: checks the
+    queries, envelopes, ``bounds`` (a (Q,) tensor of any stride, read at
+    each launch) and the optional ``stage`` buffer (Q, block) uint8 once,
+    resolves the schedule once, and returns ``run(cands, real=block)`` ->
+    (lb1, lb), two (Q, block) buffers it reuses; ``run`` also writes the
+    block's stage (rows past ``real`` are pad rows).  On CPU tensors
+    ``run`` is the plain version."""
+    _check_p(p)
+    dev, dt = qs.device, qs.dtype
+    nq, n = qs.shape
+    w = int(min(w, n - 1))
+    if bounds.dim() != 1:
+        bounds = bounds.reshape(-1)
+    if dev.type == "cpu":
+        def run_plain(cands, real=block):
+            lb1, lb = lb_fused_plain(cands, qs, upper, lower, w, bounds, p)
+            if stage is not None:
+                stage.copy_(lb_fused_stage_plain(lb1, lb, bounds, real))
+            return lb1, lb
+
+        return run_plain
+    if dev.type != "cuda":
+        raise ValueError(f"lb_fused runs on cuda or cpu, got {dev}")
+    for name, t in (("qs", qs), ("upper", upper), ("lower", lower)):
+        check_cuda_tensor(name, t, dev, dt, (nq, n))
+    if stage is not None:
+        check_cuda_tensor("stage", stage, dev, torch.uint8, (nq, block))
+    bstride = _check_bounds(bounds, dev, dt, nq)
+    tile_b, grid = _schedule(block, n, w, qs.element_size(), tile_b, depth, grid)
+    lb1 = torch.empty((nq, block), dtype=dt, device=dev)
+    lb = torch.empty((nq, block), dtype=dt, device=dev)
+    fn = cuda_lib.library().repro_lb_fused
+    head = (kernel_dtype(qs), p_code(p))
+    mid = (qs.data_ptr(), upper.data_ptr(), lower.data_ptr(), bounds.data_ptr(),
+           bstride, nq, block, n, w, tile_b, int(grid == "bq"))
+    tail = (lb1.data_ptr(), lb.data_ptr(), cuda_lib.ptr(stage), cuda_lib.stream_of(dev))
+
+    def run(cands, real=block):
+        check_cuda_tensor("cands", cands, dev, dt, (block, n))
+        code = fn(*head, cands.data_ptr(), *mid, int(real), *tail)
+        cuda_lib.check("lb_fused", code)
+        if nq * block:
+            lb_fused_launch.launches += 1
+        return lb1, lb
+
+    run.tensors = (qs, upper, lower, bounds, stage, lb1, lb)  # the pointers it holds
+    return run
+
+
+def lb_fused_launch(cands, qs, upper, lower, w: int, bounds, p=1, tile_b=None,
+                    depth=None, grid=None, *, stage: bool = False,
+                    real: int | None = None):
+    """Launch K4 once on CUDA tensors, through ``lb_fused_prepare``;
+    shapes follow lb_fused_plain.  With ``stage`` it returns (lb1, lb,
+    stage) as ``lb_fused_stage_plain`` derives it; ``real`` (default B)
+    marks the rows past it as pad rows."""
+    check_cuda_tensor("qs", qs, cands.device, cands.dtype)
+    nq, nb = qs.shape[0], cands.shape[0]
+    st = torch.empty((nq, nb), dtype=torch.uint8, device=qs.device) if stage else None
+    run = lb_fused_prepare(qs, upper, lower, w, bounds, p, nb, st, tile_b, depth, grid)
+    lb1, lb = run(cands, nb if real is None else int(real))
+    return (lb1, lb, st) if stage else (lb1, lb)
 
 
 lb_fused_launch.launches = 0

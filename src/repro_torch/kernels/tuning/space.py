@@ -6,14 +6,15 @@ space.  The field names and their validation are the reference's, so a
 ``tune_json`` bundle is read by both packages; their meaning on Hopper:
 
 * ``tile_b`` — for the one-warp-per-pair kernels (K2 ``lb_keogh``, its
-  stream form K7, and K6 ``lb_kim``): warps, that is pairs, per block.
-  For K4 ``lb_fused``: candidate rows per block.
-* ``grid`` — for K4: ``"qb"`` runs one block per (query, tile); ``"bq"``
-  runs one block per tile, which stages the tile in shared memory once
-  and loops over the queries.
+  stream form K7, K6 ``lb_kim`` and K4 ``lb_fused``): warps, that is
+  pairs, per block.
+* ``grid`` — for K4: ``"qb"`` runs one block per (query, tile of
+  candidates); ``"bq"`` runs one block per tile, each warp staging its
+  candidate row in shared memory once and looping over the queries.
 * ``depth`` — the reference's DMA double buffering.  The CUDA K4 has no
-  ``cp.async`` pipeline yet (ROADMAP.md queue 2), so its space sweeps
-  ``depth=1`` only and the wrapper refuses ``depth=2``.
+  ``cp.async`` pipeline (ROADMAP.md queue 2: its tile sits in L2 and the
+  kernel is latency-bound), so its space sweeps ``depth=1`` only and the
+  wrapper refuses ``depth=2``.
 * ``lane_chunk`` — compacted survivor lanes per gather in
   ``repro_torch.core.pipeline``, as in the reference.
 
@@ -54,7 +55,7 @@ class KernelConfig:
     """One schedule point.  Fields a family does not use are ignored by
     its op wrapper."""
 
-    tile_b: int = 8  # warps per block (K2, K6, K7) or rows per block (K4)
+    tile_b: int = 8  # warps, that is pairs, per block (K2, K4, K6, K7)
     lane_chunk: int = 32  # compacted lanes per pipeline gather
     depth: int = 1  # staging slots; the CUDA kernels run depth 1
     grid: str = "qb"  # K4: "qb" block per (query, tile); "bq" per tile

@@ -9,10 +9,14 @@ against the reference's row DP.  The DP kernel (K5) is bit-equal to its
 wavefront plain version on every lane, finished or abandoned, and to
 ``core.dtw.dtw_banded_diag`` on finished ones.
 LB_Kim (K6) is bit-equal by design (exact max/min, no fused multiply-add);
-the fused kernel (K4) is bit-equal to LB_Keogh (K2) plus pass 2 (K3), and
-the stream entry (K7) to K2 on the copied windows, because they share one
-device routine per pass; every schedule in a family's tune space gives
-the same bits.
+the fused kernel (K4, one warp per pair) is bit-equal to LB_Keogh (K2)
+plus pass 2 (K3), because its pass-2 routine adds K3's terms in K3's
+order, and the stream entry (K7) to K2 on the copied windows; every
+schedule in a family's tune space gives the same bits.  The masked-dense
+K5 entry is bit-equal to the pair-list entry on its live slots and
+writes no other slot; the merge kernel is bit-equal to its plain
+version, ties included; the host driver's fused loop runs on the card
+with three launches per block and no synchronisation.
 """
 
 import math
@@ -24,6 +28,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.api import Database, SearchConfig  # noqa: E402
 from repro_torch.core.dtw import dtw_banded_diag  # noqa: E402
+from repro_torch.kernels import block_merge as kb  # noqa: E402
 from repro_torch.kernels import dtw as kd  # noqa: E402
 from repro_torch.kernels import envelope as ke  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
@@ -179,7 +184,7 @@ def test_default_session_launches_every_kernel(dev):
     # envelopes, one fused LB launch per block and the DP chunks
     for name in ("envelope", "lb_kim", "lb_keogh", "lb_improved_pass2", "dtw"):
         assert built[name] > 0, built
-    for name in ("envelope", "lb_fused", "dtw"):
+    for name in ("envelope", "lb_fused", "dtw", "block_merge"):
         assert searched[name] > 0, searched
     assert searched["lb_keogh"] == searched["lb_improved_pass2"] == 0, searched
     ref = Database.build(x, SearchConfig(k=3), device="cpu").search(q)
@@ -263,6 +268,17 @@ def test_lb_fused_kernel(dev, p, dtype):
     assert torch.equal(lb1, klb1)
     assert torch.equal(lb, torch.where(dead, klb1, ki.combine_passes(klb1, lb2, p)))
     for cfg in search_space("lb_fused"):
+        if kf.fused_smem_bytes(200, w, cfg.tile_b, cfg.grid, cands.element_size()) > 232_448:
+            # a block of that many warps' buffers cannot launch: autotune
+            # records the schedule as not runnable, and the same schedule
+            # resolved from the table is halved until it fits
+            with pytest.raises(NotRunnable):
+                kf.lb_fused_launch(cands, qs, u, l, w, bounds, p, cfg.tile_b, cfg.depth,
+                                   cfg.grid)
+            with use_table(TuneTable(entries={("lb_fused", "cuda", "*"): cfg})):
+                got = kf.lb_fused_launch(cands, qs, u, l, w, bounds, p)
+            assert torch.equal(got[0], lb1) and torch.equal(got[1], lb), cfg
+            continue
         got = kf.lb_fused_launch(cands, qs, u, l, w, bounds, p, cfg.tile_b, cfg.depth, cfg.grid)
         assert torch.equal(got[0], lb1) and torch.equal(got[1], lb), cfg
 
@@ -303,7 +319,152 @@ def test_host_driver_fused_route(dev, method):
     s = got.stats
     assert counts["lb_fused"] == (s.blocks_total if method == "lb_improved" else s.blocks_lb2)
     assert counts["lb_keogh"] == 0 and counts["lb_improved_pass2"] == 0
+    if method == "lb_improved":  # the device-resident loop: K4, K5, merge per block
+        assert counts["dtw"] == counts["block_merge"] == s.blocks_total
     assert counts["lb_kim"] == (s.blocks_total if method == "kim_improved" else 0)
     np.testing.assert_array_equal(got.indices, want.indices)
     np.testing.assert_allclose(got.distances, want.distances, rtol=2e-4)
     assert got.stats == want.stats
+
+
+def fused_reference(cands, qs, u, l, w, bounds, p):
+    """K2, then K3 on every lane, kept where lb1 < bound."""
+    klb1, h = kk.lb_keogh_launch(cands, u, l, p)
+    lb2 = ki.lb_improved_pass2_launch(h, qs, w, p)
+    live = klb1 < bounds.reshape(-1, 1)
+    return klb1, torch.where(live, ki.combine_passes(klb1, lb2, p), klb1)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("nq,nb,n,w,dtype", [
+    (1, 1, 2, 1, torch.float32), (3, 33, 64, 0, torch.float32),
+    (2, 5, 300, 299, torch.float64), (16, 32, 1000, 100, torch.float32),
+    (3, 9, 257, 40, torch.float64), (2, 9, 1000, 16, torch.float32),
+    (2, 9, 1000, 17, torch.float32),
+])
+def test_lb_fused_warp_per_pair_every_schedule(dev, p, nq, nb, n, w, dtype):
+    """K4 against K2 + K3 at edge shapes, for every schedule that fits,
+    with strided bounds (a top-k column) and the stage output."""
+    cands, qs = walks(dev, 40, nb, n, dtype), walks(dev, 41, nq, n, dtype)
+    u, l = envelopes(qs, w)
+    lb1 = kk.lb_keogh_plain(cands, u, l, p)[0]
+    top = torch.stack([lb1.median(dim=1).values] * 3, dim=1).contiguous()
+    bounds = top[:, -1]  # stride 3
+    want = fused_reference(cands, qs, u, l, w, bounds, p)
+    real = max(nb - 3, 1)
+    stage_want = kf.lb_fused_stage_plain(*want, bounds, real)
+    ran = 0
+    for cfg in search_space("lb_fused"):
+        if kf.fused_smem_bytes(n, min(w, n - 1), cfg.tile_b, cfg.grid,
+                               cands.element_size()) > 232_448:
+            continue
+        got = kf.lb_fused_launch(cands, qs, u, l, w, bounds, p, cfg.tile_b, cfg.depth,
+                                 cfg.grid, stage=True, real=real)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), cfg
+        assert torch.equal(got[2], stage_want), cfg
+        ran += 1
+    assert ran > 0
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_lb_fused_long_rows_one_warp(dev, p):
+    """Rows whose per-warp buffers take most of shared memory launch at
+    one warp per block (the parent's one-row block took as much)."""
+    n, w = 8000, 800
+    cands, qs = walks(dev, 42, 3, n), walks(dev, 43, 2, n)
+    u, l = envelopes(qs, w)
+    bounds = torch.full((2,), 1e30, device=dev)
+    bounds[1] = 0.0
+    got = kf.lb_fused_launch(cands, qs, u, l, w, bounds, p, 1, 1, "qb")
+    want = fused_reference(cands, qs, u, l, w, bounds, p)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(NotRunnable):
+        kf.lb_fused_launch(cands, qs, u, l, w, bounds, p, 2, 1, "qb")
+
+
+@pytest.mark.parametrize("p", PS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("w", [0, 7, 40, 600])
+def test_dtw_masked_kernel(dev, p, dtype, w):
+    """Live slots bit-equal to the pair-list entry (bounds from a strided
+    column); dead slots are not written, and rows read by no live slot
+    may hold NaN."""
+    n = 640 if w == 600 else 96
+    rng = np.random.default_rng(44)
+    qs, cands = walks(dev, 45, 5, n, dtype), walks(dev, 46, 12, n, dtype)
+    stage = torch.as_tensor(rng.choice(np.array([0, 1, 2, 255], np.uint8), size=(5, 12)),
+                            device=dev)
+    stage[:, 3] = 0  # candidate 3 is read by no slot
+    cands[3] = math.nan
+    qi, ci = (t.contiguous() for t in (stage == 2).nonzero(as_tuple=True))
+    exact = kd.dtw_launch(qs, cands, w, p, qi, ci)
+    top = torch.full((5, 2), 1e30, dtype=dtype, device=dev)
+    top[:, 1] = exact.median() if exact.numel() else 1e30
+    for bounds in (None, top[:, 1]):
+        out = torch.full((5, 12), math.nan, dtype=dtype, device=dev)
+        got = kd.dtw_masked_launch(qs, cands, stage, w, p, bounds, out)
+        b = None if bounds is None else bounds[qi].contiguous()
+        assert torch.equal(got[qi, ci], kd.dtw_launch(qs, cands, w, p, qi, ci, b))
+        assert bool(got[stage != 2].isnan().all())
+
+
+def merge_inputs(dev, seed, nq, k, nb, dtype):
+    rng = np.random.default_rng(seed)
+    top_v = torch.as_tensor(np.sort(rng.integers(0, 4, (nq, k)) * 0.5, axis=1),
+                            dtype=dtype, device=dev)
+    top_v[0] = 1e30  # one query with an empty top-k
+    top_i = torch.as_tensor(rng.integers(0, 1000, (nq, k)), device=dev)
+    stage = torch.as_tensor(rng.choice(np.array([0, 1, 2, 2, 255], np.uint8),
+                                       size=(nq, nb)), device=dev)
+    dvals = torch.as_tensor(rng.integers(0, 5, (nq, nb)) * 0.5, dtype=dtype, device=dev)
+    dvals[stage != 2] = math.nan
+    counts = torch.as_tensor(rng.integers(0, 9, (3, nq)), device=dev)
+    totals = torch.as_tensor(rng.integers(0, 9, 4), device=dev)
+    return top_v, top_i, counts, totals, stage, dvals
+
+
+@pytest.mark.parametrize("nq", [1, 16, 40])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_merge_kernel_bit_equal(dev, nq, k, dtype):
+    """Values from a few levels tie with each other and with the top-k;
+    three blocks in a row; 40 queries loop over 32 warps."""
+    got = merge_inputs(dev, 47 + nq + k, nq, k, 37, dtype)
+    want = tuple(t.clone() for t in got)
+    for lo in (0, 37, 74):
+        kb.block_merge_launch(*got[:4], got[4], got[5], lo, 5)
+        kb.block_merge_plain(*want[:4], want[4], want[5], lo, 5)
+    for g, w_ in zip(got[:4], want[:4]):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("early_abandon", [False, True])
+@pytest.mark.parametrize("p", [1, 2])
+def test_fused_block_loop_on_device_without_sync(dev, p, early_abandon):
+    """The loop launches K4, K5 and the merge once per block and never
+    synchronises; its answers and counters equal the CPU loop's."""
+    from repro_torch.core.cascade import fused_block_loop, nn_search_host
+
+    rng = np.random.default_rng(48)
+    x = rng.normal(size=(530, 96)).cumsum(axis=1).astype(np.float32)
+    q = rng.normal(size=(6, 96)).cumsum(axis=1).astype(np.float32)
+    db, qs = torch.as_tensor(x, device=dev), torch.as_tensor(q, device=dev)
+    u, l = envelopes(qs, 9)
+    fused_block_loop(qs, db, u, l, 9, p, 3, 64, 16, early_abandon)  # build, load
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fused_block_loop(qs, db, u, l, 9, p, 3, 64, 16, early_abandon)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = launch_counts()
+    blocks = -(-530 // 64)
+    assert counts["lb_fused"] == counts["dtw"] == counts["block_merge"] == blocks, counts
+    cpu = fused_block_loop(qs.cpu(), db.cpu(), u.cpu(), l.cpu(), 9, p, 3, 64, 16,
+                           early_abandon)
+    assert torch.equal(out[1].cpu(), cpu[1])
+    torch.testing.assert_close(out[0].cpu(), cpu[0], rtol=2e-4, atol=0)
+    assert torch.equal(out[2].cpu(), cpu[2]) and torch.equal(out[3].cpu(), cpu[3])
+    got = nn_search_host(q, x, 9, p, 3, 64, early_abandon=early_abandon, device=dev)
+    np.testing.assert_array_equal(got.indices, out[1].cpu().numpy())

@@ -1,0 +1,253 @@
+"""The host driver's device-resident block loop, on the CPU.
+
+``repro_torch.core.cascade.fused_block_loop`` serves ``nn_search_host``
+for the fused LB_Keogh -> LB_Improved pipeline at p in {1, 2}: per block
+K4 writes each pair's stage, K5's masked-dense entry runs the
+survivors, and the merge kernel updates the top-k and the counters.  On
+the CPU each step is its kernel's plain version, so these tests hold the
+loop, ``lb_fused_stage_plain``, ``dtw_masked_plain`` and
+``block_merge_plain`` against ``repro.core.cascade.nn_search_host`` and
+its numpy merge: equal top-k indices, distances within rtol 2e-4
+(float32 DP against the reference's), equal ``SearchStats`` field by
+field, and ties won by the lower row.
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from repro.core import cascade as jcas  # noqa: E402
+from repro_torch.core import cascade as tcas  # noqa: E402
+from repro_torch.kernels.block_merge import block_merge_plain  # noqa: E402
+from repro_torch.kernels.dtw import (  # noqa: E402
+    dtw_masked_plain,
+    dtw_pairs_op,
+    dtw_wavefront_plain,
+)
+from repro_torch.kernels.envelope.ops import envelope_plain  # noqa: E402
+from repro_torch.kernels.lb_fused import (  # noqa: E402
+    PAD_STAGE,
+    lb_fused_plain,
+    lb_fused_stage_plain,
+)
+
+torch.set_num_threads(1)
+
+N_DB, N, W, BLOCK, CHUNK = 230, 48, 5, 32, 4  # 230 = 7 x 32 + 6: a ragged tail
+
+
+def walks(rng, rows, n=N):
+    return rng.normal(size=(rows, n)).astype(np.float32).cumsum(axis=1)
+
+
+def stats_key(s):
+    return (s.n_candidates, s.full_dtw, s.stage_names, tuple(s.stage_pruned),
+            s.blocks_total, s.blocks_lb2, s.blocks_dtw, s.dp_lane_work,
+            s.dp_lane_useful)
+
+
+def assert_same(jres, tres):
+    np.testing.assert_array_equal(np.asarray(jres.indices), tres.indices)
+    np.testing.assert_allclose(tres.distances, np.asarray(jres.distances), rtol=2e-4)
+    assert stats_key(tres.stats) == stats_key(jres.stats)
+    jq, tq = getattr(jres, "per_query", ()), getattr(tres, "per_query", ())
+    assert len(jq) == len(tq)
+    for js, ts in zip(jq, tq):
+        assert stats_key(ts) == stats_key(js)
+
+
+@pytest.fixture
+def loop_calls(monkeypatch):
+    """Counts the runs of the device-resident loop inside nn_search_host."""
+    calls = []
+    loop = tcas.fused_block_loop
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return loop(*args, **kwargs)
+
+    monkeypatch.setattr(tcas, "fused_block_loop", counting)
+    return calls
+
+
+@pytest.mark.parametrize("early_abandon", [False, True])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("nq", [1, 8])
+def test_device_loop_matches_reference(nq, k, p, early_abandon, loop_calls):
+    rng = np.random.default_rng(100 + nq + k)
+    db, qs = walks(rng, N_DB), walks(rng, nq)
+    q = qs if nq > 1 else qs[0]
+    jres = jcas.nn_search_host(q, db, W, p, k, BLOCK, CHUNK, "lb_improved",
+                               early_abandon=early_abandon)
+    tres = tcas.nn_search_host(q, db, W, p, k, BLOCK, CHUNK, "lb_improved",
+                               early_abandon=early_abandon, device="cpu")
+    assert loop_calls == [1]
+    assert isinstance(tres, tcas.SearchResult if nq == 1 else tcas.BatchSearchResult)
+    assert_same(jres, tres)
+    assert tres.stats.blocks_dtw > tres.stats.blocks_total // 2  # several chunks pooled
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("k", [1, 5])
+def test_device_loop_ties_go_to_the_lower_row(k, p, loop_calls):
+    """Each row appears three times, in three blocks and within blocks,
+    and the queries are database rows: equal distances everywhere, the
+    top-k must list the lower rows first, as the reference's stable
+    argsort does."""
+    rng = np.random.default_rng(7)
+    base = walks(rng, 40)
+    db = np.concatenate([base, base[::-1], base[rng.permutation(40)]])
+    qs = np.stack([base[3], base[17], base[30] + 0.01])
+    jres = jcas.nn_search_host(qs, db, W, p, k, 16, CHUNK, "lb_improved")
+    tres = tcas.nn_search_host(qs, db, W, p, k, 16, CHUNK, "lb_improved", device="cpu")
+    assert loop_calls == [1]
+    assert_same(jres, tres)
+    assert tres.indices[0, 0] == 3 and tres.indices[1, 0] == 17
+    for qi in range(len(qs)):  # equal values in the top-k: rows ascending
+        d, i = tres.distances[qi], tres.indices[qi]
+        for j in range(k - 1):
+            assert d[j] < d[j + 1] or i[j] < i[j + 1]
+
+
+@pytest.mark.parametrize("method,p,fused", [
+    ("lb_improved", 1, True), ("lb_improved", 2, True), ("lb_improved", math.inf, False),
+    ("kim_improved", 1, False), ("lb_keogh", 1, False),
+])
+def test_device_loop_serves_only_the_fused_pipeline(method, p, fused, loop_calls):
+    rng = np.random.default_rng(8)
+    db, qs = walks(rng, 100), walks(rng, 3)
+    jres = jcas.nn_search_host(qs, db, W, p, 2, BLOCK, CHUNK, method)
+    tres = tcas.nn_search_host(qs, db, W, p, 2, BLOCK, CHUNK, method, device="cpu")
+    assert loop_calls == ([1] if fused else [])
+    assert_same(jres, tres)
+
+
+@pytest.mark.parametrize("real", [BLOCK, BLOCK - 5])
+@pytest.mark.parametrize("p", [1, 2])
+def test_stage_plain_matches_the_host_masks(p, real):
+    """The stage K4 derives against float32 bounds sorts the pairs as the
+    host loop's float64 masks did: dead (lb1 >= bound), pruned by pass 2
+    (lb >= bound), survivor; pad rows 255."""
+    rng = np.random.default_rng(9 + p)
+    cands, qs = torch.as_tensor(walks(rng, BLOCK)), torch.as_tensor(walks(rng, 6))
+    upper, lower = envelope_plain(qs, W)
+    lb1_all, _ = lb_fused_plain(cands, qs, upper, lower, W, torch.full((6,), math.inf), p)
+    # host bounds: float32 values held in float64 (DP outputs), BIG, and 0
+    bound64 = np.quantile(lb1_all.numpy(), 0.4, axis=1).astype(np.float32).astype(np.float64)
+    bound64[1], bound64[2] = 1e30, 0.0
+    bound32 = torch.as_tensor(bound64, dtype=torch.float32)
+    lb1, lb = lb_fused_plain(cands, qs, upper, lower, W, bound32, p)
+    stage = lb_fused_stage_plain(lb1, lb, bound32, real).numpy()
+    alive1 = lb1.numpy() < bound64[:, None]
+    alive2 = alive1 & (lb.numpy() < bound64[:, None])
+    assert stage.dtype == np.uint8
+    np.testing.assert_array_equal(stage[:, real:], PAD_STAGE)
+    np.testing.assert_array_equal(stage[:, :real] == 0, ~alive1[:, :real])
+    np.testing.assert_array_equal(stage[:, :real] == 1, (alive1 & ~alive2)[:, :real])
+    np.testing.assert_array_equal(stage[:, :real] == 2, alive2[:, :real])
+    assert {0, 1, 2} <= set(np.unique(stage[:, :real]).tolist())
+
+
+def reference_merge_blocks(top_v, top_i, blocks, k, chunk):
+    """repro.core.cascade.nn_search_host's survivor pooling and numpy
+    merge (its closure ``merge``), with its counters, over blocks of
+    (lo, stage, dvals)."""
+    nq = top_v.shape[0]
+    top_v, top_i = top_v.astype(np.float64), top_i.copy()
+    pruned = np.zeros((2, nq), np.int64)
+    c3 = np.zeros(nq, np.int64)
+    b2 = b3 = work = useful = 0
+
+    def merge(qi, vals, idxs):
+        av = np.concatenate([top_v[qi], vals])
+        ai = np.concatenate([top_i[qi], idxs])
+        order = np.argsort(av, kind="stable")[:k]
+        top_v[qi], top_i[qi] = av[order], ai[order]
+
+    for lo, stage, dvals in blocks:
+        pruned[0] += (stage == 0).sum(axis=1)
+        pruned[1] += (stage == 1).sum(axis=1)
+        alive = stage == 2
+        b2 += int(((stage == 1) | alive).any())
+        pair_q, pair_c = np.nonzero(alive)
+        c3 += alive.sum(axis=1)
+        for s0 in range(0, len(pair_q), chunk):
+            sel_q, sel_c = pair_q[s0 : s0 + chunk], pair_c[s0 : s0 + chunk]
+            b3 += 1
+            work += chunk
+            useful += len(sel_q)
+            for qi in np.unique(sel_q):
+                sel = sel_q == qi
+                merge(int(qi), dvals[qi, sel_c[sel]].astype(np.float64), lo + sel_c[sel])
+    return top_v, top_i, np.concatenate([pruned, c3[None]]), np.array([b2, b3, work, useful])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("nq", [1, 8])
+def test_plain_merge_equals_the_reference_numpy_merge(nq, k, dtype):
+    """Values drawn from a few levels, so survivors tie with each other
+    and with entries already in the top-k; dead slots hold NaN."""
+    rng = np.random.default_rng(11 + nq + k)
+    nb, chunk = 24, 5
+    top_v = torch.full((nq, k), 1e30, dtype=dtype)
+    top_i = torch.full((nq, k), -1, dtype=torch.int64)
+    counts = torch.zeros((3, nq), dtype=torch.int64)
+    totals = torch.zeros(4, dtype=torch.int64)
+    blocks = []
+    for t in range(4):
+        stage = rng.choice(np.array([0, 1, 2, 2], np.uint8), size=(nq, nb))
+        if t == 3:
+            stage[:, nb - 7 :] = PAD_STAGE  # the ragged tail
+        if t == 1:
+            stage[:, :] = 0  # nothing survives LB_Keogh
+        dvals = rng.integers(0, 4, size=(nq, nb)).astype(np.float64) * 0.5
+        dvals[stage != 2] = np.nan
+        blocks.append((t * nb, stage, dvals))
+        block_merge_plain(top_v, top_i, counts, totals, torch.as_tensor(stage),
+                          torch.as_tensor(dvals, dtype=dtype), t * nb, chunk)
+    want_v, want_i, want_counts, want_totals = reference_merge_blocks(
+        np.full((nq, k), 1e30), np.full((nq, k), -1, np.int64), blocks, k, chunk)
+    np.testing.assert_array_equal(top_i.numpy(), want_i)
+    np.testing.assert_array_equal(top_v.numpy(), want_v.astype(top_v.numpy().dtype))
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    np.testing.assert_array_equal(totals.numpy(), want_totals)
+
+
+@pytest.mark.parametrize("with_bounds", [False, True])
+@pytest.mark.parametrize("p", [1, 2, math.inf])
+def test_masked_dtw_plain_runs_live_slots_only(p, with_bounds):
+    """Live slots equal the pair-list DP of the same pairs (bounds from a
+    strided column, as the loop's top-k gives them); dead slots keep the
+    value they had."""
+    rng = np.random.default_rng(12)
+    qs, cands = torch.as_tensor(walks(rng, 4)), torch.as_tensor(walks(rng, 9))
+    stage = torch.as_tensor(rng.choice(np.array([0, 1, 2, 255], np.uint8), size=(4, 9)))
+    full = dtw_pairs_op(qs, cands, torch.arange(4).repeat_interleave(9),
+                        torch.arange(9).repeat(4), W, p).reshape(4, 9)
+    top = torch.stack([full.median(dim=1).values, full.median(dim=1).values], dim=1)
+    bounds = top[:, -1] if with_bounds else None  # stride 2
+    qi, ci = (stage == 2).nonzero(as_tuple=True)
+    b = None if bounds is None else bounds[qi]
+    for dp in (None, dtw_wavefront_plain):
+        out = torch.full((4, 9), math.nan)
+        if dp is None:  # the CPU route's DP, dtw_plain
+            got = dtw_masked_plain(qs, cands, stage, W, p, bounds, out)
+            want = dtw_pairs_op(qs, cands, qi, ci, W, p, b)
+            exact = dtw_pairs_op(qs, cands, qi, ci, W, p)
+        else:
+            got = dtw_masked_plain(qs, cands, stage, W, p, bounds, out, dp=dp)
+            want = dp(qs, cands, W, p, qi, ci, b)
+            exact = dp(qs, cands, W, p, qi, ci)
+        assert got is out
+        assert torch.equal(out[qi, ci], want)
+        assert bool(out[stage != 2].isnan().all())
+        if b is not None:  # finished lanes exact, abandoned ones >= their bound
+            below = exact < b
+            assert torch.equal(want[below], exact[below])
+            assert bool((want[~below] >= b[~below]).all())

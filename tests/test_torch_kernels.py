@@ -207,6 +207,8 @@ def test_dtw_pairs_and_dense_forms(p):
 
 
 def test_cpu_wrappers_never_launch():
+    from repro_torch.kernels.block_merge import block_merge_prepare
+    from repro_torch.kernels.lb_fused import lb_fused_prepare as lf_prepare
     from repro_torch.kernels.lb_fused import lb_fused_qbatch_op as t_fused
     from repro_torch.kernels.lb_kim import lb_kim_qbatch_op as t_kim
 
@@ -219,9 +221,18 @@ def test_cpu_wrappers_never_launch():
     tdtw.dtw_qbatch_op(xs[:2], xs, 3, 1)
     t_fused(xs, xs[:2], xs[:2], xs[:2], 3, xs[:2, 0], 1)
     t_kim(xs, xs[:2], None, 1)
+    # the device-resident loop's launchers, prepared on CPU tensors
+    stage = torch.empty((2, xs.shape[0]), dtype=torch.uint8)
+    dvals = torch.empty((2, xs.shape[0]), dtype=xs.dtype)
+    top_v = torch.full((2, 3), 1e30, dtype=xs.dtype)
+    top_i = torch.full((2, 3), -1, dtype=torch.int64)
+    lf_prepare(xs[:2], xs[:2], xs[:2], 3, top_v[:, -1], 1, xs.shape[0], stage)(xs, 3)
+    tdtw.dtw_masked_prepare(xs[:2], 3, 1, stage, top_v[:, -1], dvals)(xs)
+    block_merge_prepare(top_v, top_i, torch.zeros((3, 2), dtype=torch.int64),
+                        torch.zeros(4, dtype=torch.int64), stage, dvals, 16)(0)
     assert launch_counts() == {
         "envelope": 0, "lb_keogh": 0, "lb_improved_pass2": 0, "dtw": 0,
-        "lb_fused": 0, "lb_kim": 0, "lb_keogh_stream": 0,
+        "lb_fused": 0, "lb_kim": 0, "lb_keogh_stream": 0, "block_merge": 0,
     }
 
 
@@ -234,12 +245,19 @@ def test_p_codes_and_unsupported_p():
 def test_cuda_launchers_refuse_cpu_tensors():
     """The launch functions take CUDA tensors only; the wrappers route CPU
     tensors to the plain version instead (no fallback the other way)."""
+    from repro_torch.kernels.block_merge import block_merge_launch
+
     xs = t(walks(22, 2, 10))
+    stage = torch.full((2, 2), 2, dtype=torch.uint8)
     for launch, args in (
         (tenv.envelope_launch, (xs, 2)),
         (tlk.lb_keogh_launch, (xs, xs, xs, 1)),
         (tli.lb_improved_pass2_launch, (xs[None], xs[:1], 2, 1)),
         (tdtw.dtw_launch, (xs, xs, 2, 1)),
+        (tdtw.dtw_masked_launch, (xs, xs, stage, 2, 1, None, xs.clone())),
+        (block_merge_launch, (xs, torch.zeros((2, 10), dtype=torch.int64),
+                              torch.zeros((3, 2), dtype=torch.int64),
+                              torch.zeros(4, dtype=torch.int64), stage, xs.clone(), 0, 16)),
     ):
         with pytest.raises(ValueError, match="CUDA tensor"):
             launch(*args)

@@ -178,17 +178,29 @@ def test_stream_ops_vs_ref_and_op(hop, p):
 @pytest.mark.parametrize("method", ["lb_improved", "kim_improved"])
 def test_host_driver_fused_route_matches_jax(method, nq, k, monkeypatch):
     """nn_search_host runs LB_Keogh -> LB_Improved as one fused op per
-    block (on the CPU its plain version) and still returns the
-    reference's top-k and per-stage counters; 200 rows in blocks of 32
-    leave a ragged last block."""
+    block (on the CPU its plain version; for ``lb_improved`` the prepared
+    K4 of the device-resident loop) and still returns the reference's
+    top-k and per-stage counters; 200 rows in blocks of 32 leave a
+    ragged last block."""
     calls = []
     fused = tcas.lb_fused_qbatch_op
+    prepare = tcas.lb_fused_prepare
 
     def counting(*args, **kwargs):
         calls.append(1)
         return fused(*args, **kwargs)
 
+    def counting_prepare(*args, **kwargs):
+        run = prepare(*args, **kwargs)
+
+        def counted(*a):
+            calls.append(1)
+            return run(*a)
+
+        return counted
+
     monkeypatch.setattr(tcas, "lb_fused_qbatch_op", counting)
+    monkeypatch.setattr(tcas, "lb_fused_prepare", counting_prepare)
     rng = np.random.default_rng(9)
     db = rng.normal(size=(200, 40)).astype(np.float32).cumsum(axis=1)
     qs = rng.normal(size=(nq, 40)).astype(np.float32).cumsum(axis=1)

@@ -5,7 +5,10 @@ of length 1,000 from seed 0, ``SearchConfig()``, host driver), runs
 ``--searches`` timed searches of the same 16 queries, one more under
 ``torch.profiler`` for the device's busy time, and prints one JSON line:
 the label, build and search seconds, qps, idle share, pruning counts,
-kernel launches of the first search, and the card's name and power limit.
+kernel launches of the first search, the profiled search's device time
+by kernel (ms and count), and the card's name and power limit.  The busy
+time counts device events only (kernels and copies), so a PyTorch op and
+the kernel it launched are not counted twice.
 
 ``--src`` points at the ``src`` directory of the checkout to time, so two
 commits can be compared on one card in one process tree, in turns:
@@ -79,10 +82,14 @@ def main(argv=None) -> int:
         db.search(queries)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = sum(
-        getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-        for e in prof.key_averages()
-    ) / 1e3
+    by_kernel = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        by_kernel[e.key] = (us / 1e3, e.count)
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    by_kernel = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0]))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
@@ -105,7 +112,7 @@ def main(argv=None) -> int:
         "qps": args.queries / best, "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
         "pruned": res.stats.pruned_by, "full_dtw": res.stats.full_dtw,
-        "launches": launches, **answers,
+        "launches": launches, "device_ms_by_kernel": by_kernel, **answers,
     }), flush=True)
     return 0
 
