@@ -18,17 +18,26 @@ Phases (any failure raises, exits non-zero and prints no result line):
    DP kernel (K5) must be bit-equal to ``dtw_wavefront_plain`` on every
    lane, finished or abandoned, and is also timed at 5 pairs, at the
    brute force's dense shape and against its dependency-chain bound; its
-   masked-dense entry must be bit-equal to the pair-list entry on live
-   slots and write no other slot.  The fused LB kernel (K4, one warp per
+   masked-dense entry, which ends with the merge (dtw_merge), must be
+   bit-equal to the pair-list entry on live slots and write no other
+   slot, and bit-equal to ``dtw_masked_plain`` (the kernel's wavefront
+   DP) then ``block_merge_plain`` over Q in {1, 16, 33}, k in {1, 5},
+   float32 and float64, with ties, an all-dead and a ragged tail block,
+   with and without bounds, and at the main path's Q=16, B=32.  The
+   envelope kernel (K1) must be bit-equal to its plain version at the
+   main path's shapes and at the chunk edges of its scheme, on both of
+   its paths (a block per row for small batches, else a warp per row),
+   and is timed at the build's 100,000 rows and at the search's 16.  The fused LB kernel (K4, one warp per
    pair) must be bit-equal to LB_Keogh (K2) plus pass 2 (K3) under every
    schedule, at edge shapes and at long rows, with its stage output; the
    stream entry (K7) to K2 on the copied windows; every schedule of a
-   family's tune space to its fallback; the merge kernel (block_merge)
-   to its plain version, ties included.
+   family's tune space to its fallback; the standalone merge kernel
+   (block_merge) to its plain version, ties included.
 3. The main path: a default ``Database`` session (100,000 random walks
    of length 1,000, ``SearchConfig()``) built and searched with 16 new
-   queries through the host driver's device-resident loop: exactly one
-   K4, one K5 and one merge launch per block, no K2/K3 launch, and the
+   queries through the host driver's device-resident loop: exactly two
+   launches per block, K4 and K5 with the merge (dtw_merge), no
+   standalone merge, no K2/K3 launch, and the
    loop run again under ``torch.cuda.set_sync_debug_mode("error")`` (no
    synchronisation inside it) with the same answers; the pruning counts
    must be the recorded ones, two queries' top-1 must equal a brute
@@ -47,7 +56,9 @@ Phases (any failure raises, exits non-zero and prints no result line):
 Launches are counted per phase (3 build, 3 search, 4 scan, 4 stream,
 5 tuned), each from zero; phase 2's comparisons are not counted.  The
 last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+limit, and ``{"ok": true, "device": {...}}``.  The standalone merge
+kernel is on no path (its routine runs as dtw_merge's epilogue): its
+entry in the kernels record says so and shows 0 launches.
 """
 
 from __future__ import annotations
@@ -81,7 +92,8 @@ MAIN_FULL_DTW = 16_171
 MAIN_TOP1 = [43381, 21115]
 
 TOL = {"envelope": 0.0, "lb_keogh": 1e-4, "lb_improved_pass2": 2e-4, "dtw": 3e-4,
-       "lb_kim": 0.0, "lb_keogh_stream": 1e-4, "lb_fused": 2e-4, "block_merge": 0.0}
+       "lb_kim": 0.0, "lb_keogh_stream": 1e-4, "lb_fused": 2e-4, "block_merge": 0.0,
+       "dtw_merge": 0.0}
 SOURCES = {
     "envelope": ("src/repro_torch/csrc/envelope.cu",
                  "src/repro/kernels/envelope/kernel.py:52"),
@@ -97,7 +109,13 @@ SOURCES = {
                         "src/repro/kernels/lb_keogh/kernel.py:127"),
     # no TPU kernel: it stands for the reference's host merge
     "block_merge": ("src/repro_torch/csrc/block_merge.cu", "src/repro/core/cascade.py:555"),
+    # K5's masked entry with the merge (csrc/block_merge.cuh) as its epilogue
+    "dtw_merge": ("src/repro_torch/csrc/dtw.cu", "src/repro/kernels/dtw/kernel.py:119"),
 }
+#: kernels on no path of this script, and why
+OFF_PATH = {"block_merge": "its routine (csrc/block_merge.cuh) runs as the epilogue of "
+                           "dtw_merge on the host driver's loop; standalone only as the "
+                           "routine's yardstick and check"}
 
 
 def log(msg: str) -> None:
@@ -265,7 +283,7 @@ def phase_kernels(dev):
     from repro_torch.data.synthetic import random_walks
     from repro_torch.kernels.common import BIG
     from repro_torch.kernels.dtw.ops import dtw_launch, dtw_plain, dtw_wavefront_plain
-    from repro_torch.kernels.envelope.ops import envelope_launch, envelope_plain
+    from repro_torch.kernels.envelope.ops import SMALL_ROWS, envelope_launch, envelope_plain
     from repro_torch.kernels.lb_improved.ops import (
         lb_improved_pass2_launch,
         lb_improved_pass2_plain,
@@ -286,26 +304,44 @@ def phase_kernels(dev):
     up, lp = envelope_plain(xs, w)
     check_close("envelope", u, up, 0.0, "U main")
     check_close("envelope", l, lp, 0.0, "L main")
-    for rows, n, ww, dt in [(16, LENGTH, w, torch.float32), (7, 97, 5, torch.float32),
-                            (5, 64, 63, torch.float32), (3, 2, 1, torch.float64),
-                            (9, 300, 40, torch.float64)]:
-        x = walks(rows, n, dt)
-        a, b = envelope_launch(x, ww)
-        c, d = envelope_plain(x, ww)
-        check_close("envelope", a, c, 0.0, f"U {rows}x{n} w={ww} {dt}")
-        check_close("envelope", b, d, 0.0, f"L {rows}x{n} w={ww} {dt}")
+    # edges: one row, the search's 16 queries, n not a multiple of 4 and a
+    # batch whose base is not 16-byte aligned, w from 1 to n - 1, the
+    # chunk cut to 2w - 1 or about (n + 2w) / 32 (envelope_chunk), n + 2w a
+    # multiple of 32 and not, float64 rows too long for two row buffers;
+    # each as given (up to SMALL_ROWS rows: a block per row) and with
+    # SMALL_ROWS more rows (a warp per row)
+    edges = 0
+    for dt in (torch.float32, torch.float64):
+        for rows, n, ww in [(1, LENGTH, w), (N_QUERIES, LENGTH, w), (7, 97, 5), (5, 64, 63),
+                            (3, 2, 1), (9, 300, 40), (4, 1001, 1), (3, 999, 998),
+                            (3, LENGTH, 12), (3, LENGTH, 16), (3, LENGTH, 17),
+                            (2, 8000, 800)]:
+            for r in (rows, SMALL_ROWS + rows):
+                x = walks(r + 1, n, dt)
+                for label, xv in (("", x[:r]), (" offset", x[1:])):
+                    a, b = envelope_launch(xv, ww)
+                    c, d = envelope_plain(xv, ww)
+                    what = f"{r}x{n} w={ww} {dt}{label}"
+                    check_close("envelope", a, c, 0.0, f"U {what}")
+                    check_close("envelope", b, d, 0.0, f"L {what}")
+                    edges += 1
     ms = time_ms(lambda: envelope_launch(xs, w))
     dms = device_ms(lambda: envelope_launch(xs, w), iters=5)
+    q16 = xs[:N_QUERIES].contiguous()
+    dms16 = device_ms(lambda: envelope_launch(q16, w))
     plain = time_ms(lambda: envelope_plain(xs, w), iters=2, repeats=3)
     lib = time_ms(lambda: torch.nn.functional.max_pool1d(
         xs[:, None, :], 2 * w + 1, stride=1, padding=w), iters=3, repeats=3)
     bnd, by = bound_ms(3 * xs.numel() * 4, 6 * xs.numel())
     rec["envelope"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
                            bound_by=by, library_ms=lib, device_ms=dms,
+                           device_ms_16_rows=dms16,
                            shape=f"rows={N_ROWS} n={LENGTH} w={w}")
-    del xs, u, l, up, lp
-    log(f"[kernel] envelope ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
-        f"max_pool1d {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+    del xs, q16, u, l, up, lp
+    log(f"[kernel] envelope ok (bit-equal at the main shape and {edges} edge shapes): "
+        f"{ms:.4f} ms per call, {dms:.4f} ms on the device ({dms16:.4f} at "
+        f"{N_QUERIES} rows) vs plain {plain:.3f} ms, max_pool1d {lib:.4f} ms, "
+        f"bound {bnd:.4f} ms ({by})")
 
     # K2 LB_Keogh + H: lb rtol 1e-4, H bit-equal
     qs = walks(N_QUERIES, LENGTH)
@@ -470,16 +506,23 @@ def phase_kernels(dev):
 
 
 def phase_kernels_lb(dev, rec):
-    """K6, K7, K4, K5's masked entry and the merge kernel against their
-    plain versions; adds to ``rec``."""
+    """K6, K7, K4, K5's masked entry with the merge and the merge kernel
+    against their plain versions; adds to ``rec``."""
     import numpy as np
     import torch
 
     from repro_torch.data.synthetic import random_walks
     from repro_torch.kernels.block_merge.ops import block_merge_launch, block_merge_plain
     from repro_torch.kernels.common import BIG
-    from repro_torch.kernels.dtw.ops import dtw_launch, dtw_masked_launch
-    from repro_torch.kernels.envelope.ops import envelope_launch
+    from repro_torch.kernels.dtw.ops import (
+        dtw_launch,
+        dtw_masked_prepare,
+        dtw_merge_launch,
+        dtw_merge_plain,
+        dtw_plain,
+        dtw_wavefront_plain,
+    )
+    from repro_torch.kernels.envelope.ops import envelope_launch, envelope_op
     from repro_torch.kernels.lb_fused.ops import (
         fused_smem_bytes,
         lb_fused_launch,
@@ -624,7 +667,7 @@ def phase_kernels_lb(dev, rec):
                            # and the first band that is built by chunks
                            (walks(9, 1000), walks(2, 1000), 16),
                            (walks(9, 1000), walks(2, 1000), 17)):
-            uu, ll = envelope_launch(qq, ww)
+            uu, ll = envelope_op(qq, ww)  # w = 0: (qq, qq), no launch
             fused_case(cc, qq, uu, ll, ww, p, f"{tuple(cc.shape)} w={ww} p={p}",
                        skip_query0=qq.shape[0] > 1)
             cases += 1
@@ -678,9 +721,16 @@ def phase_kernels_lb(dev, rec):
         f"{pair:.4f} ms, plain {plain:.3f} ms, bound {bnd:.5f} ms ({by}); device ms "
         f"by schedule {by_schedule}")
 
-    # K5 masked-dense entry: the survivors of a K4 launch at each query's
-    # 25% quantile, bit-equal to the pair-list entry; dead slots keep their
-    # NaN.  Timed on the survivors at the 2.5% quantile (main-path-like).
+    def merge_state(q_count, k=1, dtype=torch.float32, fill=BIG):
+        """An empty top-k and zero counters for the merge."""
+        return (torch.full((q_count, k), fill, dtype=dtype, device=dev),
+                torch.full((q_count, k), -1, dtype=torch.int64, device=dev),
+                torch.zeros((3, q_count), dtype=torch.int64, device=dev),
+                torch.zeros(4, dtype=torch.int64, device=dev))
+
+    # K5's masked-dense entry (with its merge): the survivors of a K4
+    # launch at each query's 25% quantile, bit-equal to the pair-list
+    # entry; dead slots keep their NaN
     db = cands
     quart = torch.quantile(lb_keogh_launch(db, upper, lower, 1)[0], 0.25, dim=1).contiguous()
     _, _, stage = lb_fused_launch(db, qs, upper, lower, w, quart, 1, stage=True)
@@ -691,21 +741,18 @@ def phase_kernels_lb(dev, rec):
     for p in (1, 2, math.inf):
         for bname, bnds in (("none", None), ("top-k column", top[:, -1])):
             out = torch.full((nq, b), math.nan, device=dev)
-            got = dtw_masked_launch(qs, db, stage, w, p, bnds, out)
+            got = dtw_merge_launch(qs, db, stage, w, p, bnds, out, *merge_state(nq), 0,
+                                   DTW_CHUNK)
             pb = None if bnds is None else bnds[qi].contiguous()
-            check_equal("dtw", got[qi, ci], dtw_launch(qs, db, w, p, qi, ci, pb),
+            check_equal("dtw_merge", got[qi, ci], dtw_launch(qs, db, w, p, qi, ci, pb),
                         f"masked p={p} bounds={bname} vs pair list")
             if not bool(got[stage != 2].isnan().all()):
-                fail(f"dtw masked p={p}: a dead slot was written")
+                fail(f"dtw_merge p={p}: a dead slot was written")
+    log("[kernel] dtw_merge masked slots ok (bit-equal to the pair list, dead slots "
+        "untouched)")
     _, _, stage = lb_fused_launch(db, qs, upper, lower, w, sparse, 1, stage=True)
-    qi = (stage == 2).nonzero()
+    nlive = int((stage == 2).sum())
     out = torch.empty((nq, b), device=dev)
-    m_ms = time_ms(lambda: dtw_masked_launch(qs, db, stage, w, 1, None, out))
-    m_dms = device_ms(lambda: dtw_masked_launch(qs, db, stage, w, 1, None, out))
-    rec["dtw"].update(masked_ms=m_ms, masked_device_ms=m_dms,
-                      masked_shape=f"Q={nq} x B={b} slots, {qi.numel()} live, n={n} w={w} p=1")
-    log(f"[kernel] dtw masked ok (bit-equal to the pair list on {qi.numel()} live slots, "
-        f"dead slots untouched): {m_ms:.4f} ms per call, {m_dms:.4f} ms on the device")
 
     # block_merge: bit-equal to its plain version, ties included, over
     # three blocks; 40 queries loop over 32 warps
@@ -732,15 +779,12 @@ def phase_kernels_lb(dev, rec):
             block_merge_plain(*want, lo, DTW_CHUNK)
         check_equal("block_merge", got[:4], want[:4], f"Q={q_count} k={k} {dtype}")
     # timed at the main path's shape: the survivors of the K4 launch above
-    dv = dtw_masked_launch(qs, db, stage, w, 1)
-    state = (torch.full((nq, 1), BIG, device=dev),
-             torch.full((nq, 1), -1, dtype=torch.int64, device=dev),
-             torch.zeros((3, nq), dtype=torch.int64, device=dev),
-             torch.zeros(4, dtype=torch.int64, device=dev))
+    dv = dtw_merge_launch(qs, db, stage, w, 1, None, torch.empty((nq, b), device=dev),
+                          *merge_state(nq), 0, DTW_CHUNK)
+    state = merge_state(nq)
     ms = time_ms(lambda: block_merge_launch(*state, stage, dv, 0, DTW_CHUNK))
     dms = device_ms(lambda: block_merge_launch(*state, stage, dv, 0, DTW_CHUNK))
     plain = time_ms(lambda: block_merge_plain(*state, stage, dv, 0, DTW_CHUNK), iters=10)
-    nlive = int(qi.numel())
     bnd, by = bound_ms(nq * b + 4 * nlive + 2 * nq * (4 + 8) + 2 * 8 * (3 * nq + 4),
                        nq * b + nlive)
     rec["block_merge"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
@@ -749,14 +793,89 @@ def phase_kernels_lb(dev, rec):
     log(f"[kernel] block_merge ok (bit-equal, ties included): {ms:.4f} ms per call, "
         f"{dms:.4f} ms on the device vs plain {plain:.3f} ms, bound {bnd:.6f} ms ({by})")
 
-    # the loop's order on the same inputs: K4, K5 masked, merge, 20 times;
-    # each kernel's device ms there against its time alone above
+    # K5's masked entry with the merge (dtw_merge): bit-equal to the
+    # masked plain version (the kernel's wavefront DP) then the merge's,
+    # block after block, bounds read from the top-k being merged
+    def merge_case(q_count, k, dtype, bounded, nb_m, n_m, w_m, seed):
+        g = np.random.default_rng(seed)
+        base = walks(6, n_m, dtype)
+        q_m = base[torch.as_tensor(g.integers(0, 6, q_count), device=dev)].contiguous()
+        st = torch.empty((q_count, nb_m), dtype=torch.uint8, device=dev)
+        got = list(merge_state(q_count, k, dtype))
+        want = [t.clone() for t in got]
+        out_m = torch.full((q_count, nb_m), math.nan, dtype=dtype, device=dev)
+        out_w = out_m.clone()
+        run = dtw_masked_prepare(q_m, w_m, 1, st, got[0][:, -1] if bounded else None,
+                                 out_m, merge=(*got, DTW_CHUNK))
+        # random stages, an all-dead block, random again, a ragged tail;
+        # rows repeat, and queries are rows: DP values tie
+        for t in range(4):
+            c_m = base[torch.as_tensor(g.integers(0, 6, nb_m), device=dev)].contiguous()
+            sv = g.choice(np.array([0, 1, 2, 2], np.uint8), size=(q_count, nb_m))
+            if t == 1:
+                sv = g.choice(np.array([0, 1], np.uint8), size=(q_count, nb_m))
+            if t == 3:
+                sv[:, nb_m - 5:] = 255
+            st.copy_(torch.as_tensor(sv, device=dev))
+            run(c_m, t * nb_m)
+            dtw_merge_plain(q_m, c_m, st, w_m, 1, want[0][:, -1] if bounded else None,
+                            out_w, *want, t * nb_m, DTW_CHUNK, dp=dtw_wavefront_plain)
+            live = st == 2
+            what = f"Q={q_count} k={k} {dtype} bounds={bounded} B={nb_m} n={n_m} block {t}"
+            check_equal("dtw_merge", out_m[live], out_w[live], f"DP slots {what}")
+            check_equal("dtw_merge", tuple(got), tuple(want), f"top-k and counters {what}")
+        if int(got[2][2].sum()) == 0:
+            fail(f"dtw_merge Q={q_count} k={k}: the check had no survivor")
+
+    merge_cases = 0
+    for q_count in (1, 16, 33):
+        for k in (1, 5):
+            for dtype in (torch.float32, torch.float64):
+                for bounded in (False, True):
+                    merge_case(q_count, k, dtype, bounded, 37, 64, 6, 70 + merge_cases)
+                    merge_cases += 1
+    for bounded in (False, True):  # the main path's shape: Q=16, B=32, n, w
+        merge_case(nq, 1, torch.float32, bounded, b, n, w, 90 + bounded)
+        merge_cases += 1
+    # timed at the main path's shape: the survivors of the K4 launch at the
+    # 2.5% quantile, merged into a top-1 that takes nothing (values tie);
+    # its first launch checked against the plain versions
+    mstate = merge_state(nq, fill=-1.0)
+    mwant = [t.clone() for t in mstate]
+    mrun = dtw_masked_prepare(qs, w, 1, stage, None, out, (*mstate, DTW_CHUNK))
+    mrun(db, 0)
+    out_w = torch.full_like(out, math.nan)
+    dtw_merge_plain(qs, db, stage, w, 1, None, out_w, *mwant, 0, DTW_CHUNK,
+                    dp=dtw_wavefront_plain)
+    check_equal("dtw_merge", out[stage == 2], out_w[stage == 2], "timed launch DP slots")
+    check_equal("dtw_merge", tuple(mstate), tuple(mwant), "timed launch top-k and counters")
+    ms = time_ms(lambda: mrun(db, 0))
+    dms = device_ms(lambda: mrun(db, 0))
+    plain = time_ms(lambda: dtw_merge_plain(qs, db, stage, w, 1, None, out, *mstate, 0,
+                                            DTW_CHUNK, dp=dtw_plain),
+                    iters=3, repeats=3, warmup=1)
+    # ops: the live pairs' band cells; bytes: their rows, the stage, the
+    # top-k and counters
+    cells = nlive * (n * (2 * w + 1) - w * (w + 1))
+    bnd, by = bound_ms(4 * (nq * n + b * n + nlive) + nq * b + 2 * nq * (4 + 8)
+                       + 2 * 8 * (3 * nq + 4), 5 * cells)
+    rec["dtw_merge"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
+                            bound_by=by, library_ms=None, device_ms=dms,
+                            merge_source="src/repro_torch/csrc/block_merge.cuh",
+                            shape=f"Q={nq} x B={b} slots, {nlive} live, n={n} w={w} p=1, "
+                                  f"k=1; then the merge")
+    log(f"[kernel] dtw_merge ok ({merge_cases} cases bit-equal to dtw_masked_plain + "
+        f"block_merge_plain, ties, dead and ragged blocks, with and without bounds): "
+        f"{ms:.4f} ms per call, {dms:.4f} ms on the device vs plain {plain:.3f} ms, "
+        f"bound {bnd:.5f} ms ({by})")
+
+    # the loop's order on the same inputs: K4, then K5 with the merge, 20
+    # times; each kernel's device ms there against its time alone above
     from torch.profiler import ProfilerActivity, profile
 
     def block():
         lb_fused_launch(cands, qs, upper, lower, w, sparse, 1, stage=True)
-        dtw_masked_launch(qs, db, stage, w, 1, None, out)
-        block_merge_launch(*state, stage, dv, 0, DTW_CHUNK)
+        mrun(db, 0)
 
     block()
     torch.cuda.synchronize()
@@ -766,18 +885,18 @@ def phase_kernels_lb(dev, rec):
         torch.cuda.synchronize()
     seq = {k.split("<")[0].split("::")[-1]: us / 1e3 / c
            for k, (us, c) in kernel_self_us(prof).items()}
-    # K5 alternating with a one-value PyTorch fill instead
+    # K5 with the merge alternating with a one-value PyTorch fill instead
     one = torch.empty(1, device=dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
             one.zero_()
-            dtw_masked_launch(qs, db, stage, w, 1, None, out)
+            mrun(db, 0)
         torch.cuda.synchronize()
     seq["dtw_kernel after a fill"] = next(
         us / 1e3 / c for k, (us, c) in kernel_self_us(prof).items() if "dtw_kernel" in k)
-    rec["block_merge"]["sequence_device_ms"] = seq
-    log(f"[kernel] in the loop's order K4 -> K5 -> merge on the same inputs, device ms "
-        f"per launch: {seq}")
+    rec["dtw_merge"]["sequence_device_ms"] = seq
+    log(f"[kernel] in the loop's order K4 -> K5 with the merge on the same inputs, "
+        f"device ms per launch: {seq}")
     torch.cuda.synchronize()
 
 
@@ -893,19 +1012,20 @@ def phase_main_path(dev, launches):
             "idle share not measured")
     require_launched(launches, "build", ("envelope", "lb_kim", "lb_keogh",
                                          "lb_improved_pass2", "dtw"), "build")
-    require_launched(launches, "search", ("envelope", "lb_fused", "dtw", "block_merge"),
-                     "search")
+    require_launched(launches, "search", ("envelope", "lb_fused", "dtw_merge"), "search")
     got = launches["search"]
-    per_block = (got["lb_fused"], got["dtw"], got["block_merge"])
-    if per_block != (s.blocks_total,) * 3 or got["lb_keogh"] or got["lb_improved_pass2"]:
-        fail(f"search: expected one lb_fused, one dtw and one block_merge launch per "
-             f"block ({s.blocks_total}) and no lb_keogh / lb_improved_pass2 launch, "
-             f"got {got}")
+    per_block = (got["lb_fused"], got["dtw_merge"])
+    others = {name: got[name] for name in ("dtw", "block_merge", "lb_keogh",
+                                           "lb_improved_pass2", "lb_kim", "lb_keogh_stream")}
+    if per_block != (s.blocks_total,) * 2 or any(others.values()):
+        fail(f"search: expected two launches per block ({s.blocks_total} blocks), one "
+             f"lb_fused and one dtw_merge, and no standalone merge, dtw, lb_keogh or "
+             f"lb_improved_pass2 launch, got {got}")
     enqueue_s, loop_s = loop_without_sync(dev, db, queries, res)
     log(f"[main] the block loop ran again under set_sync_debug_mode('error') in "
         f"{loop_s:.3f} s ({enqueue_s:.3f} s of host time to enqueue its "
-        f"{3 * s.blocks_total} launches): no synchronisation, same indices, distances "
-        f"and counters")
+        f"{2 * s.blocks_total} launches, {enqueue_s / s.blocks_total * 1e6:.1f} us a "
+        f"block): no synchronisation, same indices, distances and counters")
     if s.pruned_by != MAIN_PRUNED or s.full_dtw != MAIN_FULL_DTW:
         fail(f"pruning {s.pruned_by}, full_dtw {s.full_dtw} != recorded "
              f"{MAIN_PRUNED}, {MAIN_FULL_DTW}")
@@ -1127,7 +1247,9 @@ def main() -> int:
     for name, r in rec.items():
         source, replaces = SOURCES[name]
         by_phase = {phase: counts[name] for phase, counts in launches.items()}
-        if sum(by_phase.values()) <= 0:
+        if name in OFF_PATH:
+            r["on_no_path"] = OFF_PATH[name]
+        elif sum(by_phase.values()) <= 0:
             fail(f"kernel {name} was launched on no path")
         extra = {k: v for k, v in r.items()
                  if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

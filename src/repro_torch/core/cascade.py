@@ -15,9 +15,9 @@ top-k and prunes against its own tightening bound.
   followed by LB_Improved runs as one fused launch (K4) per block.  A
   pipeline that is that fused step alone (``lb_improved``, the default)
   runs its whole block loop on the tensors' device
-  (``fused_block_loop``): per block K4 writes each pair's stage, K5 runs
-  the survivors in place, and a merge kernel updates the top-k and the
-  counters, with no copy back until the loop ends.
+  (``fused_block_loop``): per block K4 writes each pair's stage, then K5
+  runs the survivors in place and, in the same launch, merges them into
+  the top-k and the counters, with no copy back until the loop ends.
 
 Both take numpy arrays or tensors.  They run on the tensors' device, or
 on ``device`` (default: the GPU; ``RuntimeError`` when there is none).
@@ -33,7 +33,6 @@ import torch
 
 from repro_torch.core import pipeline as pipe
 from repro_torch.core.dtw import BIG, PNorm, finish_cost
-from repro_torch.kernels.block_merge.ops import block_merge_prepare
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.dtw.ops import dtw_masked_prepare, dtw_pairs_op
 from repro_torch.kernels.envelope.ops import envelope_op
@@ -294,9 +293,9 @@ def fused_block_loop(qs, db, upper, lower, w: int, p: PNorm, k: int, block: int,
        survivor, 255 a pad row of the tail block);
     2. K5's masked-dense entry runs the DP on the survivors, abandoning
        against the same k-th best when ``early_abandon`` (an abandoned
-       value is >= that bound, so it never enters the top-k);
-    3. the merge kernel takes the survivors into each query's top-k
-       (a stable merge: an equal value never displaces an entry, a lower
+       value is >= that bound, so it never enters the top-k), and in the
+       same launch merges the survivors into each query's top-k (a
+       stable merge: an equal value never displaces an entry, a lower
        row wins a tie) and adds the counters of the host loop that pooled
        them into ``dtw_chunk``-sized launches.
 
@@ -316,16 +315,15 @@ def fused_block_loop(qs, db, upper, lower, w: int, p: PNorm, k: int, block: int,
     dvals = torch.empty((nq, block), dtype=dt, device=dev)
     bound = top_v[:, -1]  # read by each launch: the k-th best so far
     lbs = lb_fused_prepare(qs, upper, lower, w, bound, p, block, stage)
-    dp = dtw_masked_prepare(qs, w, p, stage, bound if early_abandon else None, dvals)
-    merge = block_merge_prepare(top_v, top_i, counts, totals, stage, dvals, dtw_chunk)
+    dp_merge = dtw_masked_prepare(qs, w, p, stage, bound if early_abandon else None, dvals,
+                                  merge=(top_v, top_i, counts, totals, dtw_chunk))
     for lo in range(0, n_db, block):
         real = min(block, n_db - lo)
         cands = db[lo : lo + block]
         if real < block:  # pad the tail block with its last row
             cands = torch.cat([cands, cands[-1:].expand(block - real, n)], dim=0)
         lbs(cands, real)
-        dp(cands)
-        merge(lo)
+        dp_merge(cands, lo)
     return top_v, top_i, counts, totals
 
 

@@ -46,7 +46,7 @@
 // in registers: from one diagonal to the next only one of them moves by
 // one element, so a step loads one value, a step ahead.  Steps run in
 // unrolled blocks of 2S, after which the windows are back in place.
-#include "common.cuh"
+#include "block_merge.cuh"
 
 namespace repro {
 
@@ -288,59 +288,112 @@ __device__ T wavefront_smem(const T* qb, const T* cb, int n, int w, T* da, T* db
   return da[w >> 1];
 }
 
-// One warp per pair.  S > 0: the band in registers, S slots per lane;
-// S = 0: in shared memory.  With `stage` (the masked-dense entry) a slot
-// whose stage is not 2 exits before it reads a row.  The bound of a pair
-// is bounds[pair], or bounds[q * bound_qstride] when that stride is > 0.
+// The DP of one pair on one warp: stage the two rows and run the
+// wavefront.  S > 0: the band in registers, S slots per lane; S = 0: in
+// shared memory.  Returns the pair's value in lane 0.
 template <typename T, int P, int S>
-__global__ void __launch_bounds__(32)
-dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
-           const int64_t* __restrict__ qidx, const int64_t* __restrict__ cidx,
-           const uint8_t* __restrict__ stage, const T* __restrict__ bounds,
-           int64_t bound_qstride, int64_t bstride, int n, int w,
-           T* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+__device__ __forceinline__ T dtw_pair(const T* __restrict__ qrow_g,
+                                      const T* __restrict__ crow_g, int n, int w,
+                                      bool check, T bound, unsigned char* smem_raw) {
   constexpr int V = 16 / sizeof(T);
-  const int64_t pair = blockIdx.x;
-  if (stage && stage[pair] != 2) return;
   const int margin = row_margin(w, S > 0 ? S : 1, V);
   const int len = row_len(n, w, S > 0 ? S : 1, V);
   T* qrow = reinterpret_cast<T*>(smem_raw);
   T* crow = qrow + len;
   const int lane = threadIdx.x;
-  const int64_t q = qidx ? qidx[pair] : pair / bstride;
-  const int64_t c = cidx ? cidx[pair] : pair % bstride;
-  const bool check = bounds != nullptr;
-  const T bound = !check ? big<T>() : bounds[bound_qstride > 0 ? q * bound_qstride : pair];
-  stage_row(qrow, qs + q * n, n, margin, len, row_pad<T>(), lane);
-  stage_row(crow, cands + c * n, n, margin, len, -row_pad<T>(), lane);
+  stage_row(qrow, qrow_g, n, margin, len, row_pad<T>(), lane);
+  stage_row(crow, crow_g, n, margin, len, -row_pad<T>(), lane);
   __syncwarp();
   const T* qb = qrow + margin;
   const T* cb = crow + margin;
-  T v;
   if constexpr (S == 0) {
     T* da = crow + len + 1;
-    v = wavefront_smem<T, P>(qb, cb, n, w, da, da + (w + 3), check, bound);
+    return wavefront_smem<T, P>(qb, cb, n, w, da, da + (w + 3), check, bound);
   } else if (w & 1) {
-    v = wavefront_regs<T, P, S, 1>(qb, cb, n, w, check, bound, qrow);
+    return wavefront_regs<T, P, S, 1>(qb, cb, n, w, check, bound, qrow);
   } else {
-    v = wavefront_regs<T, P, S, 0>(qb, cb, n, w, check, bound, qrow);
+    return wavefront_regs<T, P, S, 0>(qb, cb, n, w, check, bound, qrow);
   }
-  if (lane == 0) out[pair] = v;
+}
+
+// The merge epilogue of the masked-dense entry (block_merge.cuh).  Each
+// block of query q takes a ticket once its slot is written (a dead slot
+// at once): lane 0 adds 1 to q's counter with release and acquire
+// semantics, so the slot is visible before the ticket and every slot of
+// q before the merge.  The block that takes q's nb-th ticket merges q,
+// reading the slots through L2, and resets the counter.  Every block of q
+// read q's bound before its ticket, so the merger's writes to top_v never
+// change a bound that a DP of this launch reads.  ws: Q tickets, all 0
+// between launches.  Not inlined: one copy per T serves the 18 DP
+// instances of that T, and the DP's registers are dead by the call.
+template <typename T>
+__device__ __noinline__ void merge_epilogue(const MergeOut<T>& m,
+                                            const uint8_t* __restrict__ stage, const T* out,
+                                            unsigned long long* ws, int64_t nq, int64_t nb,
+                                            int64_t q, int lane) {
+  int last = 0;
+  if (lane == 0) {
+    unsigned long long old;
+    asm volatile("atom.add.acq_rel.gpu.u64 %0, [%1], %2;"
+                 : "=l"(old) : "l"(ws + q), "l"(1ull) : "memory");
+    last = old == (unsigned long long)(nb - 1);
+  }
+  last = __shfl_sync(0xffffffffu, last, 0);
+  __syncwarp();  // the other lanes' reads come after lane 0's acquire
+  if (!last) return;
+  merge_query(m, stage, out, nq, nb, q, lane);
+  if (lane == 0) ws[q] = 0;  // every block of q has taken its ticket
+}
+
+// One warp per pair.  With `stage` and merge.top_v (the masked-dense
+// entry) a slot whose stage is not 2 skips the DP before it reads a row,
+// and leaves its out value as it was; every slot then takes its ticket
+// for the merge epilogue, and one block past the last slot adds the
+// block's totals from the stage.  The pair-list entry passes neither.
+// The bound of a pair is bounds[pair], or bounds[q * bound_qstride] when
+// that stride is > 0 (a column of top_v, which the epilogue writes: no
+// __restrict__).
+template <typename T, int P, int S>
+__global__ void __launch_bounds__(32)
+dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
+           const int64_t* __restrict__ qidx, const int64_t* __restrict__ cidx,
+           const uint8_t* __restrict__ stage, const T* bounds, int64_t bound_qstride,
+           int64_t bstride, int n, int w, T* __restrict__ out, MergeOut<T> merge,
+           unsigned long long* ws) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t pair = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int64_t npairs = (int64_t)gridDim.x - (merge.top_v ? 1 : 0);
+  if (pair == npairs) {  // the merge's totals block
+    add_block_totals(merge, stage, npairs, lane);
+    return;
+  }
+  const int64_t q = qidx ? qidx[pair] : pair / bstride;
+  if (!stage || stage[pair] == 2) {
+    const int64_t c = cidx ? cidx[pair] : pair % bstride;
+    const bool check = bounds != nullptr;
+    const T bound =
+        !check ? big<T>() : bounds[bound_qstride > 0 ? q * bound_qstride : pair];
+    const T v = dtw_pair<T, P, S>(qs + q * n, cands + c * n, n, w, check, bound, smem_raw);
+    if (lane == 0) out[pair] = v;
+  }
+  if (merge.top_v) merge_epilogue(merge, stage, out, ws, npairs / bstride, bstride, q, lane);
 }
 
 template <typename T, int P, int S>
 cudaError_t launch_dtw(const T* qs, const T* cands, const int64_t* qidx,
                        const int64_t* cidx, const uint8_t* stage, const T* bounds,
                        int64_t bound_qstride, int64_t npairs, int64_t bstride,
-                       int n, int w, T* out, cudaStream_t s) {
+                       int n, int w, T* out, const MergeOut<T>& merge,
+                       unsigned long long* ws, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   const size_t len = row_len(n, w, S > 0 ? S : 1, V);
   const size_t smem = sizeof(T) * (2 * len + (S == 0 ? 2 * (size_t)(w + 3) : 0));
   cudaError_t err = allow_smem(dtw_kernel<T, P, S>, smem);
   if (err != cudaSuccess) return err;
-  dtw_kernel<T, P, S><<<(unsigned)npairs, 32, smem, s>>>(
-      qs, cands, qidx, cidx, stage, bounds, bound_qstride, bstride, n, w, out);
+  const unsigned blocks = (unsigned)(npairs + (merge.top_v ? 1 : 0));
+  dtw_kernel<T, P, S><<<blocks, 32, smem, s>>>(
+      qs, cands, qidx, cidx, stage, bounds, bound_qstride, bstride, n, w, out, merge, ws);
   return cudaGetLastError();
 }
 
@@ -360,14 +413,15 @@ static cudaError_t dtw_dispatch(const T* q, const T* c, const int64_t* qidx,
                                 const int64_t* cidx, const uint8_t* stage,
                                 const T* bd, int64_t bound_qstride, int64_t npairs,
                                 int64_t bstride, int n, int w, T* o,
+                                const repro::MergeOut<T>& m, unsigned long long* ws,
                                 cudaStream_t s) {
   switch (dtw_slots(w)) {
-    case 1: return repro::launch_dtw<T, P, 1>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
-    case 2: return repro::launch_dtw<T, P, 2>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
-    case 4: return repro::launch_dtw<T, P, 4>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
-    case 8: return repro::launch_dtw<T, P, 8>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
-    case 16: return repro::launch_dtw<T, P, 16>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
-    default: return repro::launch_dtw<T, P, 0>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, s);
+    case 1: return repro::launch_dtw<T, P, 1>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
+    case 2: return repro::launch_dtw<T, P, 2>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
+    case 4: return repro::launch_dtw<T, P, 4>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
+    case 8: return repro::launch_dtw<T, P, 8>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
+    case 16: return repro::launch_dtw<T, P, 16>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
+    default: return repro::launch_dtw<T, P, 0>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
   }
 }
 
@@ -387,7 +441,7 @@ extern "C" int repro_dtw(int dtype, int pcode, const void* qs, const void* cands
     cudaError_t err = dtw_dispatch<T, P>(
         static_cast<const T*>(qs), static_cast<const T*>(cands), qidx, cidx,
         nullptr, static_cast<const T*>(bounds), 0, npairs, bstride, n, w,
-        static_cast<T*>(out), s);
+        static_cast<T*>(out), repro::MergeOut<T>{}, nullptr, s);
     if (err != cudaSuccess) return (int)err;)
   return (int)cudaGetLastError();
 }
@@ -395,23 +449,32 @@ extern "C" int repro_dtw(int dtype, int pcode, const void* qs, const void* cands
 // The masked-dense entry of the host driver's device-resident loop: slot
 // s = q * nb + b runs query q against candidate row b of `cands` (nb rows)
 // when stage[s] == 2 (a survivor of K4) and writes out[s]; every other
-// slot's warp exits before it reads a row, and its out[s] is left as it
-// was.  bounds[q * bound_stride] is query q's powered abandon bound, or
-// bounds is nullptr for no abandon test.
+// slot's warp skips the DP before it reads a row, and its out[s] is left
+// as it was.  bounds[q * bound_stride] is query q's powered abandon bound,
+// or bounds is nullptr for no abandon test.  The same launch then merges
+// the block starting at database row lo into top_v (Q, k), top_i, counts
+// (3, Q) and totals (4,) as repro_block_merge does (block_merge.cuh), bit
+// for bit; `workspace` holds Q zeros (unsigned 64-bit) and is left so.
 extern "C" int repro_dtw_masked(int dtype, int pcode, const void* qs,
                                 const void* cands, const uint8_t* stage,
                                 const void* bounds, int64_t bound_stride,
                                 int64_t nq, int64_t nb, int n, int w, void* out,
-                                void* stream) {
+                                void* top_v, int64_t* top_i, int k, int64_t lo,
+                                int dtw_chunk, int64_t* counts, int64_t* totals,
+                                void* workspace, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nq * nb == 0) return (int)cudaGetLastError();
-  if (stage == nullptr || (bounds != nullptr && bound_stride < 1))
+  if (stage == nullptr || (bounds != nullptr && bound_stride < 1) || top_v == nullptr ||
+      top_i == nullptr || k < 1 || dtw_chunk < 1 || counts == nullptr ||
+      totals == nullptr || workspace == nullptr)
     return (int)cudaErrorInvalidValue;
   REPRO_DISPATCH(dtype, pcode,
+    const repro::MergeOut<T> m{static_cast<T*>(top_v), top_i, counts, totals, k,
+                               dtw_chunk, lo};
     cudaError_t err = dtw_dispatch<T, P>(
         static_cast<const T*>(qs), static_cast<const T*>(cands), nullptr, nullptr,
         stage, static_cast<const T*>(bounds), bound_stride, nq * nb, nb, n, w,
-        static_cast<T*>(out), s);
+        static_cast<T*>(out), m, static_cast<unsigned long long*>(workspace), s);
     if (err != cudaSuccess) return (int)err;)
   return (int)cudaGetLastError();
 }

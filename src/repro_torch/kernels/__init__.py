@@ -6,7 +6,9 @@ projection H) and its stream form ``lb_keogh_stream`` (K7),
 one warp per pair, pass 2 predicated on the bound), ``dtw`` (K5, the
 banded DP with per-lane abandoning, also in a masked-dense form),
 ``lb_kim`` (K6) and ``block_merge`` (the host driver's top-k merge and
-counters on the device, no TPU counterpart).  Each package holds
+counters on the device, no TPU counterpart).  ``dtw_merge`` counts the
+launches of K5's masked entry with the merge as its epilogue, the host
+driver's loop's second launch per block.  Each package holds
 ``ops.py`` — the wrappers, the plain PyTorch version and the kernel's
 launch function, which counts its launches — and, for a TPU kernel,
 ``ref.py``, the oracle.
@@ -16,7 +18,7 @@ wrappers resolve their launch shapes from.
 """
 
 from repro_torch.kernels.block_merge.ops import block_merge_launch
-from repro_torch.kernels.dtw.ops import dtw_launch
+from repro_torch.kernels.dtw.ops import dtw_launch, dtw_merge_launch
 from repro_torch.kernels.envelope.ops import envelope_launch
 from repro_torch.kernels.lb_fused.ops import lb_fused_launch
 from repro_torch.kernels.lb_improved.ops import lb_improved_pass2_launch
@@ -33,6 +35,7 @@ LAUNCHERS = {
     "lb_kim": lb_kim_launch,
     "lb_keogh_stream": lb_keogh_stream_launch,
     "block_merge": block_merge_launch,
+    "dtw_merge": dtw_merge_launch,
 }
 
 

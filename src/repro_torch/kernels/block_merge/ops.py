@@ -20,6 +20,9 @@ updates in place:
   dp_lane_work (dtw_chunk times that) and dp_lane_useful (S).
 
 The plain version is a torch stable sort; the kernel is bit-equal to it.
+On the host driver's loop the same routine runs as the epilogue of K5's
+masked entry (``kernels/dtw/ops.py::dtw_masked_prepare`` with ``merge``);
+this kernel runs it alone, as its yardstick and check.
 """
 
 from __future__ import annotations
@@ -55,6 +58,19 @@ def block_merge_plain(top_v, top_i, counts, totals, stage, dvals, lo: int,
     totals += torch.stack([any_lb2, chunks, chunks * dtw_chunk, s])
 
 
+def check_merge_buffers(top_v, top_i, counts, totals, nq: int, dtype, device,
+                        dtw_chunk: int):
+    """Validate the top-k and counters of a merge on the card; raise
+    rather than launch on them."""
+    k = top_v.shape[-1]
+    check_cuda_tensor("top_v", top_v, device, dtype, (nq, k))
+    check_cuda_tensor("top_i", top_i, device, torch.int64, (nq, k))
+    check_cuda_tensor("counts", counts, device, torch.int64, (3, nq))
+    check_cuda_tensor("totals", totals, device, torch.int64, (4,))
+    if k < 1 or int(dtw_chunk) < 1:
+        raise ValueError(f"k={k} and dtw_chunk={dtw_chunk} must be >= 1")
+
+
 def block_merge_prepare(top_v, top_i, counts, totals, stage, dvals,
                         dtw_chunk: int):
     """The merge for launches on blocks: checks every buffer once and
@@ -68,14 +84,9 @@ def block_merge_prepare(top_v, top_i, counts, totals, stage, dvals,
         raise ValueError(f"block_merge runs on cuda or cpu, got {dev}")
     nq, k = top_v.shape
     nb = stage.shape[1]
-    check_cuda_tensor("top_v", top_v, dev, dt)
-    check_cuda_tensor("top_i", top_i, dev, torch.int64, (nq, k))
-    check_cuda_tensor("counts", counts, dev, torch.int64, (3, nq))
-    check_cuda_tensor("totals", totals, dev, torch.int64, (4,))
+    check_merge_buffers(top_v, top_i, counts, totals, nq, dt, dev, dtw_chunk)
     check_cuda_tensor("stage", stage, dev, torch.uint8, (nq, nb))
     check_cuda_tensor("dvals", dvals, dev, dt, (nq, nb))
-    if k < 1 or int(dtw_chunk) < 1:
-        raise ValueError(f"k={k} and dtw_chunk={dtw_chunk} must be >= 1")
     fn = cuda_lib.library().repro_block_merge
     head = (kernel_dtype(top_v), top_v.data_ptr(), top_i.data_ptr(), k,
             stage.data_ptr(), dvals.data_ptr(), nq, nb)

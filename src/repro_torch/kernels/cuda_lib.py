@@ -51,8 +51,10 @@ SIGNATURES = {
     "repro_lb_kim": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
     # dtype, p, qs, cands, qidx, cidx, bounds, npairs, bstride, n, w, out, stream
     "repro_dtw": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
-    # dtype, p, qs, cands, stage, bounds, bound_stride, nq, nb, n, w, out, stream
-    "repro_dtw_masked": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P, _P],
+    # dtype, p, qs, cands, stage, bounds, bound_stride, nq, nb, n, w, out,
+    # top_v, top_i, k, lo, dtw_chunk, counts, totals, workspace, stream
+    "repro_dtw_masked": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P,
+                         _P, _P, _INT, _I64, _INT, _P, _P, _P, _P],
     # dtype, top_v, top_i, k, stage, dvals, nq, nb, lo, dtw_chunk, counts, totals, stream
     "repro_block_merge": [_INT, _P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _P, _P, _P],
 }

@@ -1,8 +1,9 @@
 from repro_torch.kernels.dtw.ops import (
     dtw_launch,
-    dtw_masked_launch,
     dtw_masked_plain,
     dtw_masked_prepare,
+    dtw_merge_launch,
+    dtw_merge_plain,
     dtw_op,
     dtw_pairs_op,
     dtw_plain,
@@ -14,9 +15,10 @@ from repro_torch.kernels.dtw.ref import dtw_early_ref, dtw_ref
 __all__ = [
     "dtw_early_ref",
     "dtw_launch",
-    "dtw_masked_launch",
     "dtw_masked_plain",
     "dtw_masked_prepare",
+    "dtw_merge_launch",
+    "dtw_merge_plain",
     "dtw_op",
     "dtw_pairs_op",
     "dtw_plain",

@@ -13,9 +13,13 @@ A masked-dense entry serves the host driver's device-resident block
 loop: slot (q, b) of a (Q, B) grid runs query q against candidate row b
 only where K4's stage is 2, with query q's bound read from a strided
 column (the running k-th best); the other slots are neither read nor
-written.  ``dtw_masked_prepare``, its one host path, checks the buffers
-once and returns a launcher that the loop calls once per block;
-``dtw_masked_launch`` is one call of it.
+written.  The same launch ends with the block's merge into the loop's
+top-k and counters (``csrc/block_merge.cuh``, the routine of the
+standalone merge kernel): the last block of each query merges it, so
+the loop runs two launches per block, K4 and this one.
+``dtw_masked_prepare``, its one host path, checks the buffers once and
+returns a launcher that the loop calls once per block;
+``dtw_merge_launch`` is one call of it.
 
 Two plain versions sit beside it.  ``dtw_plain`` is the reference's
 semantics (row DP, an abandoned lane returns its row minimum); the CPU
@@ -38,6 +42,7 @@ from repro_torch.core.dtw import (
     finish_cost,
 )
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.block_merge.ops import block_merge_plain, check_merge_buffers
 from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype, p_code
 
 
@@ -165,17 +170,36 @@ def dtw_masked_plain(qs, cands, stage, w: int, p=1, bounds=None, out=None,
     return out
 
 
-def dtw_masked_prepare(qs, w: int, p, stage, bounds, out):
-    """K5's masked-dense entry for launches on blocks of candidate rows:
-    checks the queries, the ``stage`` and ``out`` buffers (Q, B) and
-    ``bounds`` (a (Q,) tensor of any stride read at each launch, or None)
-    once and returns ``run(cands)`` -> ``out``.  On CPU tensors ``run``
-    is ``dtw_masked_plain``."""
+def dtw_merge_plain(qs, cands, stage, w: int, p, bounds, out, top_v, top_i, counts,
+                    totals, lo: int, dtw_chunk: int, dp=dtw_plain):
+    """Plain version of the masked-dense entry with the merge:
+    ``dtw_masked_plain`` into ``out``, then ``block_merge_plain`` of the
+    block starting at database row ``lo``, all in place."""
+    dtw_masked_plain(qs, cands, stage, w, p, bounds, out, dp)
+    block_merge_plain(top_v, top_i, counts, totals, stage, out, lo, dtw_chunk)
+    return out
+
+
+def dtw_masked_prepare(qs, w: int, p, stage, bounds, out, merge):
+    """K5's masked-dense entry with the merge, for launches on blocks of
+    candidate rows: checks the queries, the ``stage`` and ``out`` buffers
+    (Q, B), ``bounds`` (a (Q,) tensor of any stride read at each launch,
+    or None) and ``merge`` = ``(top_v, top_i, counts, totals,
+    dtw_chunk)``, the buffers of ``block_merge_plain``, once and returns
+    ``run(cands, lo=0)`` -> ``out``.  Each launch runs the DP of the live
+    slots into ``out``, then merges the block, whose first candidate is
+    database row ``lo``, into the merge buffers (bounds may be a column
+    of top_v: every DP of a launch reads its bound before the merge of
+    its query writes it).  On CPU tensors ``run`` is ``dtw_merge_plain``:
+    ``dtw_masked_plain`` then ``block_merge_plain``."""
     nq, n = qs.shape
     w = int(min(w, n - 1))
     dev, dt = qs.device, qs.dtype
+    top_v, top_i, counts, totals, dtw_chunk = merge
     if dev.type == "cpu":
-        return lambda cands: dtw_masked_plain(qs, cands, stage, w, p, bounds, out)
+        return lambda cands, lo=0: dtw_merge_plain(qs, cands, stage, w, p, bounds, out,
+                                                   top_v, top_i, counts, totals, lo,
+                                                   dtw_chunk)
     if dev.type != "cuda":
         raise ValueError(f"dtw runs on cuda or cpu, got {dev}")
     nb = stage.shape[1]
@@ -187,29 +211,38 @@ def dtw_masked_prepare(qs, w: int, p, stage, bounds, out):
         if bounds.device != dev or bounds.dtype != dt or tuple(bounds.shape) != (nq,):
             raise ValueError(f"bounds must be ({nq},) {dt} on {dev}")
         bstride = max(int(bounds.stride(0)), 1)
+    check_merge_buffers(top_v, top_i, counts, totals, nq, dt, dev, dtw_chunk)
+    # the merge epilogue's tickets, one per query
+    workspace = torch.zeros(nq, dtype=torch.int64, device=dev)
     fn = cuda_lib.library().repro_dtw_masked
     head = (kernel_dtype(qs), p_code(p), qs.data_ptr())
-    tail = (stage.data_ptr(), cuda_lib.ptr(bounds), bstride, nq, nb, n, w,
-            out.data_ptr(), cuda_lib.stream_of(dev))
+    mid = (stage.data_ptr(), cuda_lib.ptr(bounds), bstride, nq, nb, n, w, out.data_ptr(),
+           top_v.data_ptr(), top_i.data_ptr(), top_v.shape[1])
+    tail = (int(dtw_chunk), counts.data_ptr(), totals.data_ptr(), workspace.data_ptr(),
+            cuda_lib.stream_of(dev))
 
-    def run(cands):
+    def run(cands, lo=0):
         check_cuda_tensor("cands", cands, dev, dt, (nb, n))
-        cuda_lib.check("dtw", fn(*head, cands.data_ptr(), *tail))
+        cuda_lib.check("dtw", fn(*head, cands.data_ptr(), *mid, int(lo), *tail))
         if nq * nb:
-            dtw_launch.launches += 1
+            dtw_merge_launch.launches += 1
         return out
 
-    run.tensors = (qs, stage, bounds, out)  # the pointers it holds
+    run.tensors = (qs, stage, bounds, out, top_v, top_i, counts, totals,
+                   workspace)  # the pointers it holds
     return run
 
 
-def dtw_masked_launch(qs, cands, stage, w: int, p=1, bounds=None, out=None):
-    """Launch K5's masked-dense entry once on CUDA tensors, through
-    ``dtw_masked_prepare``; shapes follow dtw_masked_plain."""
+def dtw_merge_launch(qs, cands, stage, w: int, p, bounds, out, top_v, top_i, counts,
+                     totals, lo: int, dtw_chunk: int):
+    """Launch K5's masked-dense entry with the merge once on CUDA tensors,
+    through ``dtw_masked_prepare``; arguments follow dtw_merge_plain."""
     check_cuda_tensor("qs", qs, qs.device, qs.dtype)
-    if out is None:
-        out = torch.empty(tuple(stage.shape), dtype=qs.dtype, device=qs.device)
-    return dtw_masked_prepare(qs, w, p, stage, bounds, out)(cands)
+    merge = (top_v, top_i, counts, totals, dtw_chunk)
+    return dtw_masked_prepare(qs, w, p, stage, bounds, out, merge)(cands, lo)
+
+
+dtw_merge_launch.launches = 0
 
 
 def _dispatch(qs, cands, w, p, qidx, cidx, bounds):

@@ -4,7 +4,11 @@ The kernel (``csrc/envelope.cu``) replaces the TPU kernel
 ``repro/kernels/envelope/kernel.py::envelope_pallas_padded``.  The op keeps
 the reference op's semantics: w is clamped to n - 1 and w = 0 returns
 (x, x) without a launch.  The kernel pads inside shared memory, so no
-+-BIG padded copies are made here.
++-BIG padded copies are made here.  A batch of up to ``SMALL_ROWS`` rows
+runs a block per row that reduces the row by doubling; a larger one runs
+one warp per row and cuts the padded row into ``envelope_chunk(n, w)``
+chunks (van Herk–Gil–Werman scans per chunk); the plain version cuts it
+into tiles of 2w + 1.  Max and min are exact, so all give the same bits.
 """
 
 from __future__ import annotations
@@ -14,6 +18,21 @@ import torch
 from repro_torch.core.envelope import envelope_batch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype
+
+
+#: batches of up to this many rows run a block per row
+#: (``csrc/envelope.cu`` ENV_SMALL_ROWS), unless 4 (n + 2w) values of the
+#: padded row overflow a block's shared memory
+SMALL_ROWS = 256
+
+
+def envelope_chunk(n: int, w: int) -> int:
+    """The chunk the warp per row cuts a padded row of n + 2w values into,
+    for 1 <= w <= n - 1 (``csrc/envelope.cu`` env_chunk): about (n + 2w) /
+    32, odd, at most 2w - 1, so every window of 2w + 1 values spans two
+    chunks."""
+    c = -(-(n + 2 * w) // 32) | 1
+    return min(c, 2 * w - 1)
 
 
 def envelope_plain(xs: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -14,9 +14,14 @@ plus pass 2 (K3), because its pass-2 routine adds K3's terms in K3's
 order, and the stream entry (K7) to K2 on the copied windows; every
 schedule in a family's tune space gives the same bits.  The masked-dense
 K5 entry is bit-equal to the pair-list entry on its live slots and
-writes no other slot; the merge kernel is bit-equal to its plain
-version, ties included; the host driver's fused loop runs on the card
-with three launches per block and no synchronisation.
+writes no other slot; with the merge as its epilogue it is bit-equal to
+``dtw_masked_plain`` (the kernel's wavefront DP) then
+``block_merge_plain``, ties included, as is the standalone merge kernel;
+the host driver's fused loop runs on the card with two launches per
+block (K4, then K5 with the merge) and no synchronisation.  The envelope
+kernel (K1: a block per row up to ``SMALL_ROWS`` rows, else one warp per
+row, chunked van Herk–Gil–Werman) is bit-equal to its plain version on
+both paths, at the chunk edges of ``envelope_chunk``.
 """
 
 import math
@@ -68,6 +73,40 @@ def test_envelope_kernel_bit_equal(dev, rows, n, w, dtype):
     x = walks(dev, 1, rows, n, dtype)
     u, l = ke.envelope_launch(x, w)
     pu, pl = ke.envelope_plain(x, w)
+    assert torch.equal(u, pu) and torch.equal(l, pl)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,n,w", [
+    (1, 1000, 100), (16, 1000, 100),  # one row; the search's queries
+    (3, 1000, 12), (3, 1001, 12),     # n + 2w a multiple of 32, and not
+    (5, 1000, 5), (5, 1000, 16),      # chunk 2w - 1: lanes own several chunks
+    (5, 1000, 17), (2, 999, 998),     # chunk about (n + 2w) / 32; w = n - 1
+    (4, 33, 1), (6, 131, 65),
+])
+def test_envelope_kernel_chunk_edges(dev, rows, n, w, dtype):
+    """Bit-equal at the chunk edges of the warp per row
+    (``envelope_chunk(n, w)``), rows of odd length (16-byte alignment
+    varies by row), and a batch whose base is not 16-byte aligned: each
+    shape as given (up to ``SMALL_ROWS`` rows: a block per row) and with
+    ``SMALL_ROWS`` more rows (a warp per row)."""
+    from repro_torch.kernels.envelope.ops import SMALL_ROWS, envelope_chunk
+
+    assert envelope_chunk(n, w) % 2 == 1 and envelope_chunk(n, w) <= 2 * w - 1
+    x = walks(dev, 2, rows + 1, n, dtype)
+    wide = walks(dev, 3, SMALL_ROWS + rows + 1, n, dtype)
+    for xs in (x[:rows], x[1:], wide[:-1], wide[1:]):
+        u, l = ke.envelope_launch(xs, w)
+        pu, pl = ke.envelope_plain(xs, w)
+        assert torch.equal(u, pu) and torch.equal(l, pl)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_envelope_kernel_long_rows(dev, dtype):
+    """Rows whose two staging buffers do not fit (float64): one buffer."""
+    x = walks(dev, 3, 3, 8000, dtype)
+    u, l = ke.envelope_launch(x, 800)
+    pu, pl = ke.envelope_plain(x, 800)
     assert torch.equal(u, pu) and torch.equal(l, pl)
 
 
@@ -184,9 +223,10 @@ def test_default_session_launches_every_kernel(dev):
     # envelopes, one fused LB launch per block and the DP chunks
     for name in ("envelope", "lb_kim", "lb_keogh", "lb_improved_pass2", "dtw"):
         assert built[name] > 0, built
-    for name in ("envelope", "lb_fused", "dtw", "block_merge"):
+    for name in ("envelope", "lb_fused", "dtw_merge"):
         assert searched[name] > 0, searched
-    assert searched["lb_keogh"] == searched["lb_improved_pass2"] == 0, searched
+    for name in ("lb_keogh", "lb_improved_pass2", "dtw", "block_merge"):
+        assert searched[name] == 0, searched
     ref = Database.build(x, SearchConfig(k=3), device="cpu").search(q)
     np.testing.assert_array_equal(res.indices, ref.indices)
     np.testing.assert_allclose(res.distances, ref.distances, rtol=2e-4)
@@ -319,8 +359,9 @@ def test_host_driver_fused_route(dev, method):
     s = got.stats
     assert counts["lb_fused"] == (s.blocks_total if method == "lb_improved" else s.blocks_lb2)
     assert counts["lb_keogh"] == 0 and counts["lb_improved_pass2"] == 0
-    if method == "lb_improved":  # the device-resident loop: K4, K5, merge per block
-        assert counts["dtw"] == counts["block_merge"] == s.blocks_total
+    if method == "lb_improved":  # the device-resident loop: K4, K5 with the merge
+        assert counts["dtw_merge"] == s.blocks_total
+        assert counts["dtw"] == counts["block_merge"] == 0
     assert counts["lb_kim"] == (s.blocks_total if method == "kim_improved" else 0)
     np.testing.assert_array_equal(got.indices, want.indices)
     np.testing.assert_allclose(got.distances, want.distances, rtol=2e-4)
@@ -386,9 +427,9 @@ def test_lb_fused_long_rows_one_warp(dev, p):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("w", [0, 7, 40, 600])
 def test_dtw_masked_kernel(dev, p, dtype, w):
-    """Live slots bit-equal to the pair-list entry (bounds from a strided
-    column); dead slots are not written, and rows read by no live slot
-    may hold NaN."""
+    """Live slots of the masked entry (with its merge) bit-equal to the
+    pair-list entry (bounds from a strided column); dead slots are not
+    written, and rows read by no live slot may hold NaN."""
     n = 640 if w == 600 else 96
     rng = np.random.default_rng(44)
     qs, cands = walks(dev, 45, 5, n, dtype), walks(dev, 46, 12, n, dtype)
@@ -402,7 +443,11 @@ def test_dtw_masked_kernel(dev, p, dtype, w):
     top[:, 1] = exact.median() if exact.numel() else 1e30
     for bounds in (None, top[:, 1]):
         out = torch.full((5, 12), math.nan, dtype=dtype, device=dev)
-        got = kd.dtw_masked_launch(qs, cands, stage, w, p, bounds, out)
+        merge = (torch.full((5, 1), 1e30, dtype=dtype, device=dev),
+                 torch.full((5, 1), -1, dtype=torch.int64, device=dev),
+                 torch.zeros((3, 5), dtype=torch.int64, device=dev),
+                 torch.zeros(4, dtype=torch.int64, device=dev))
+        got = kd.dtw_merge_launch(qs, cands, stage, w, p, bounds, out, *merge, 0, 16)
         b = None if bounds is None else bounds[qi].contiguous()
         assert torch.equal(got[qi, ci], kd.dtw_launch(qs, cands, w, p, qi, ci, b))
         assert bool(got[stage != 2].isnan().all())
@@ -438,10 +483,64 @@ def test_block_merge_kernel_bit_equal(dev, nq, k, dtype):
         assert torch.equal(g, w_)
 
 
+def merge_blocks(dev, seed, nq, nb, n, dtype):
+    """Four blocks of candidates and stages: random stages, an all-dead
+    block, a ragged tail (pad slots 255); rows repeat within and across
+    blocks and queries are database rows, so DP values tie with each
+    other and with entries already in the top-k."""
+    rng = np.random.default_rng(seed)
+    base = walks(dev, seed, 6, n, dtype)
+    qs = base[rng.integers(0, 6, nq)].contiguous()
+    blocks = []
+    for t in range(4):
+        cands = base[rng.integers(0, 6, nb)].contiguous()
+        stage = rng.choice(np.array([0, 1, 2, 2], np.uint8), size=(nq, nb))
+        if t == 1:
+            stage = rng.choice(np.array([0, 1], np.uint8), size=(nq, nb))
+        if t == 3:
+            stage[:, nb - 5:] = 255
+        blocks.append((t * nb, cands, torch.as_tensor(stage, device=dev)))
+    return qs, blocks
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize("p", PS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("nq", [1, 16, 33])
+def test_dtw_merge_epilogue_bit_equal(dev, nq, k, dtype, p, bounded):
+    """K5's masked entry with the merge against dtw_masked_plain (the
+    kernel's wavefront DP) then block_merge_plain, block after block with
+    bounds read from the top-k being merged: top-k values and indices,
+    counts and totals bit-equal, the DP slots too."""
+    nb, n, w = 37, 48, 5
+    qs, blocks = merge_blocks(dev, 60 + nq + k, nq, nb, n, dtype)
+    state = [torch.full((nq, k), 1e30, dtype=dtype, device=dev),
+             torch.full((nq, k), -1, dtype=torch.int64, device=dev),
+             torch.zeros((3, nq), dtype=torch.int64, device=dev),
+             torch.zeros(4, dtype=torch.int64, device=dev)]
+    want = [t.clone() for t in state]
+    out = torch.full((nq, nb), math.nan, dtype=dtype, device=dev)
+    out_want = out.clone()
+    st = torch.empty((nq, nb), dtype=torch.uint8, device=dev)  # K4's stage buffer
+    run = kd.dtw_masked_prepare(qs, w, p, st, state[0][:, -1] if bounded else None, out,
+                                merge=(*state, 16))
+    for lo, cands, stage in blocks:
+        st.copy_(stage)
+        run(cands, lo)
+        kd.dtw_merge_plain(qs, cands, stage, w, p, want[0][:, -1] if bounded else None,
+                           out_want, *want, lo, 16, dp=kd.dtw_wavefront_plain)
+        live = stage == 2
+        assert torch.equal(out[live], out_want[live])
+        for g, w_ in zip(state, want):
+            assert torch.equal(g, w_)
+    assert int(state[2][2].sum()) > 0 and int(state[3][1]) > 0
+
+
 @pytest.mark.parametrize("early_abandon", [False, True])
 @pytest.mark.parametrize("p", [1, 2])
 def test_fused_block_loop_on_device_without_sync(dev, p, early_abandon):
-    """The loop launches K4, K5 and the merge once per block and never
+    """The loop launches K4 and K5 with the merge once per block and never
     synchronises; its answers and counters equal the CPU loop's."""
     from repro_torch.core.cascade import fused_block_loop, nn_search_host
 
@@ -460,7 +559,8 @@ def test_fused_block_loop_on_device_without_sync(dev, p, early_abandon):
         torch.cuda.set_sync_debug_mode("default")
     counts = launch_counts()
     blocks = -(-530 // 64)
-    assert counts["lb_fused"] == counts["dtw"] == counts["block_merge"] == blocks, counts
+    assert counts["lb_fused"] == counts["dtw_merge"] == blocks, counts
+    assert counts["dtw"] == counts["block_merge"] == 0, counts
     cpu = fused_block_loop(qs.cpu(), db.cpu(), u.cpu(), l.cpu(), 9, p, 3, 64, 16,
                            early_abandon)
     assert torch.equal(out[1].cpu(), cpu[1])

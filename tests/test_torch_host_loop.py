@@ -2,14 +2,16 @@
 
 ``repro_torch.core.cascade.fused_block_loop`` serves ``nn_search_host``
 for the fused LB_Keogh -> LB_Improved pipeline at p in {1, 2}: per block
-K4 writes each pair's stage, K5's masked-dense entry runs the
-survivors, and the merge kernel updates the top-k and the counters.  On
-the CPU each step is its kernel's plain version, so these tests hold the
-loop, ``lb_fused_stage_plain``, ``dtw_masked_plain`` and
-``block_merge_plain`` against ``repro.core.cascade.nn_search_host`` and
-its numpy merge: equal top-k indices, distances within rtol 2e-4
-(float32 DP against the reference's), equal ``SearchStats`` field by
-field, and ties won by the lower row.
+K4 writes each pair's stage, and K5's masked-dense entry runs the
+survivors and, in the same launch, merges them into the top-k and the
+counters (``dtw_masked_prepare(..., merge=...)``).  On the CPU each step
+is its kernel's plain version, so these tests hold the loop,
+``lb_fused_stage_plain``, ``dtw_masked_plain`` and ``block_merge_plain``
+(alone and as the merged entry's CPU route) against
+``repro.core.cascade.nn_search_host`` and its numpy merge: equal top-k
+indices, distances within rtol 2e-4 (float32 DP against the
+reference's), equal ``SearchStats`` field by field, and ties won by the
+lower row.
 """
 
 import math
@@ -25,6 +27,7 @@ from repro_torch.core import cascade as tcas  # noqa: E402
 from repro_torch.kernels.block_merge import block_merge_plain  # noqa: E402
 from repro_torch.kernels.dtw import (  # noqa: E402
     dtw_masked_plain,
+    dtw_masked_prepare,
     dtw_pairs_op,
     dtw_wavefront_plain,
 )
@@ -112,6 +115,59 @@ def test_device_loop_ties_go_to_the_lower_row(k, p, loop_calls):
         d, i = tres.distances[qi], tres.indices[qi]
         for j in range(k - 1):
             assert d[j] < d[j + 1] or i[j] < i[j + 1]
+
+
+@pytest.mark.parametrize("early_abandon", [False, True])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("nq", [1, 8])
+def test_merged_entry_cpu_route_is_the_two_plain_versions(nq, k, p, early_abandon):
+    """The CPU route of K5's masked entry with the merge, block after
+    block with the bound read from the top-k it merges into, equals
+    ``dtw_masked_plain`` then ``block_merge_plain`` bit for bit (DP slots,
+    top-k, counts, totals); over the whole database it answers as
+    ``repro.core.cascade.nn_search_host``.  Rows repeat within and across
+    blocks and the queries are database rows, so distances tie."""
+    rng = np.random.default_rng(30 + nq + k)
+    base = walks(rng, 30)
+    db = np.concatenate([base, base[::-1], base[rng.permutation(30)], base[:12]])
+    qs = db[rng.integers(0, len(db), nq)] + (rng.random((nq, N)) < 0.1) * 0.5
+    qs = qs.astype(np.float32)
+    q_t, db_t = torch.as_tensor(qs), torch.as_tensor(db)
+    upper, lower = envelope_plain(q_t, W)
+    block = 16
+    state = [torch.full((nq, k), 1e30), torch.full((nq, k), -1, dtype=torch.int64),
+             torch.zeros((3, nq), dtype=torch.int64), torch.zeros(4, dtype=torch.int64)]
+    want = [x.clone() for x in state]
+    stage = torch.empty((nq, block), dtype=torch.uint8)
+    out, out_want = torch.full((nq, block), math.nan), torch.full((nq, block), math.nan)
+    bound = state[0][:, -1]
+    run = dtw_masked_prepare(q_t, W, p, stage, bound if early_abandon else None, out,
+                             merge=(*state, CHUNK))
+    for lo in range(0, len(db), block):
+        real = min(block, len(db) - lo)
+        cands = db_t[lo : lo + block]
+        if real < block:
+            cands = torch.cat([cands, cands[-1:].expand(block - real, N)])
+        lb1, lb = lb_fused_plain(cands, q_t, upper, lower, W, bound, p)
+        stage.copy_(lb_fused_stage_plain(lb1, lb, bound, real))
+        wb = want[0][:, -1].clone() if early_abandon else None
+        dtw_masked_plain(q_t, cands, stage, W, p, wb, out_want)
+        block_merge_plain(*want, stage, out_want, lo, CHUNK)
+        assert run(cands, lo) is out
+        live = stage == 2
+        assert torch.equal(out[live], out_want[live])
+        for got, exp in zip(state, want):
+            assert torch.equal(got, exp)
+    jres = jcas.nn_search_host(qs if nq > 1 else qs[0], db, W, p, k, block, CHUNK,
+                               "lb_improved", early_abandon=early_abandon)
+    np.testing.assert_array_equal(np.asarray(jres.indices).reshape(nq, k), state[1].numpy())
+    got_d = tcas.finish_cost(state[0], p).numpy()
+    np.testing.assert_allclose(got_d, np.asarray(jres.distances).reshape(nq, k), rtol=2e-4)
+    s = jres.stats
+    assert state[2].sum(dim=1).tolist() == [*s.stage_pruned, s.full_dtw]
+    assert state[3].tolist() == [s.blocks_lb2, s.blocks_dtw, s.dp_lane_work,
+                                 s.dp_lane_useful]
 
 
 @pytest.mark.parametrize("method,p,fused", [

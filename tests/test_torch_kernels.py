@@ -65,6 +65,72 @@ def close(got, want, rtol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol, atol=0)
 
 
+def chunked_envelope(x, w, chunk):
+    """Numpy mirror of the CUDA kernel's scheme (csrc/envelope.cu): the row
+    padded with w copies of its edge values, cut into chunks; U[i] joins
+    the suffix extreme of i's chunk from i, the prefix extreme of b's chunk
+    up to b = i + 2w (padded positions) and the chunks between them."""
+    n = len(x)
+    nck = -(-(n + 2 * w) // chunk)
+    xp = np.concatenate([np.full(w, x[0]), x, np.full(nck * chunk - n - w, x[-1])])
+    blocks = xp.reshape(nck, chunk)
+    out = []
+    for acc in (np.maximum, np.minimum):
+        suff = acc.accumulate(blocks[:, ::-1], axis=1)[:, ::-1].reshape(-1)
+        pref = acc.accumulate(blocks, axis=1).reshape(-1)
+        whole = acc.reduce(blocks, axis=1)
+        env = np.empty(n, x.dtype)
+        for i in range(n):
+            ka, kb = i // chunk, (i + 2 * w) // chunk
+            assert ka < kb  # every window spans two chunks
+            env[i] = acc.reduce([suff[i], pref[i + 2 * w], *whole[ka + 1 : kb]])
+        out.append(env)
+    return out
+
+
+@pytest.mark.parametrize("b,n,w", [
+    (2, 48, 8),    # n + 2w = 64, a multiple of 32
+    (2, 49, 8),    # and not
+    (2, 200, 3),   # 2w + 1 <= (n + 2w) / 32: the chunk is cut to 2w - 1
+    (2, 200, 40),  # 2w + 1 > it: the chunk is about (n + 2w) / 32
+    (3, 1000, 12), (2, 1000, 16), (2, 1000, 17),
+    (3, 37, 36), (2, 2, 1), (1, 33, 1),  # w = n - 1; w = 1
+])
+def test_envelope_plain_vs_ref_at_kernel_chunk_edges(b, n, w):
+    """The plain version against the JAX envelope_ref at the chunk edges of
+    the kernel's scheme (``envelope_chunk``: odd, at most 2w - 1), and the
+    scheme itself (numpy mirror) against both, bit for bit."""
+    from repro_torch.kernels.envelope.ops import envelope_chunk
+
+    chunk = envelope_chunk(n, w)
+    assert chunk % 2 == 1 and 1 <= chunk <= 2 * w - 1
+    xs = walks(2, b, n)
+    u, l = tenv.envelope_plain(t(xs), w)
+    ur, lr = envelope_ref(jnp.asarray(xs), w)
+    np.testing.assert_array_equal(u.numpy(), np.asarray(ur))
+    np.testing.assert_array_equal(l.numpy(), np.asarray(lr))
+    for row, ru, rl in zip(xs, u.numpy(), l.numpy()):
+        cu, cl = chunked_envelope(row, w, chunk)
+        np.testing.assert_array_equal(cu, ru)
+        np.testing.assert_array_equal(cl, rl)
+
+
+def test_envelope_mirrors_match_csrc():
+    """The wrapper's mirrors of the kernel's rules state the constants of
+    ``csrc/envelope.cu``: the largest batch that runs a block per row and
+    the warp per row's chunk rule."""
+    import pathlib
+    import re
+
+    from repro_torch.kernels.envelope import ops
+
+    src = (pathlib.Path(ops.__file__).parent.parent.parent / "csrc" / "envelope.cu").read_text()
+    small = re.search(r"constexpr int64_t ENV_SMALL_ROWS = (\d+);", src)
+    assert small and int(small.group(1)) == ops.SMALL_ROWS
+    assert "const int c = ((n + 2 * w + 31) / 32) | 1;" in src
+    assert "return c < 2 * w - 1 ? c : 2 * w - 1;" in src
+
+
 @pytest.mark.parametrize("b,n,w", SHAPES + [(3, 16, 0), (2, 9, 30)])
 def test_envelope_plain_vs_ref_and_op(b, n, w):
     xs = walks(1, b, n)
@@ -227,12 +293,14 @@ def test_cpu_wrappers_never_launch():
     top_v = torch.full((2, 3), 1e30, dtype=xs.dtype)
     top_i = torch.full((2, 3), -1, dtype=torch.int64)
     lf_prepare(xs[:2], xs[:2], xs[:2], 3, top_v[:, -1], 1, xs.shape[0], stage)(xs, 3)
-    tdtw.dtw_masked_prepare(xs[:2], 3, 1, stage, top_v[:, -1], dvals)(xs)
-    block_merge_prepare(top_v, top_i, torch.zeros((3, 2), dtype=torch.int64),
-                        torch.zeros(4, dtype=torch.int64), stage, dvals, 16)(0)
+    counters = (torch.zeros((3, 2), dtype=torch.int64), torch.zeros(4, dtype=torch.int64))
+    block_merge_prepare(top_v, top_i, *counters, stage, dvals, 16)(0)
+    tdtw.dtw_masked_prepare(xs[:2], 3, 1, stage, top_v[:, -1], dvals,
+                            merge=(top_v, top_i, *counters, 16))(xs, 20)
     assert launch_counts() == {
         "envelope": 0, "lb_keogh": 0, "lb_improved_pass2": 0, "dtw": 0,
         "lb_fused": 0, "lb_kim": 0, "lb_keogh_stream": 0, "block_merge": 0,
+        "dtw_merge": 0,
     }
 
 
@@ -254,7 +322,10 @@ def test_cuda_launchers_refuse_cpu_tensors():
         (tlk.lb_keogh_launch, (xs, xs, xs, 1)),
         (tli.lb_improved_pass2_launch, (xs[None], xs[:1], 2, 1)),
         (tdtw.dtw_launch, (xs, xs, 2, 1)),
-        (tdtw.dtw_masked_launch, (xs, xs, stage, 2, 1, None, xs.clone())),
+        (tdtw.dtw_merge_launch, (xs, xs, stage, 2, 1, None, xs.clone(), xs[:, :1].clone(),
+                                 torch.zeros((2, 1), dtype=torch.int64),
+                                 torch.zeros((3, 2), dtype=torch.int64),
+                                 torch.zeros(4, dtype=torch.int64), 0, 16)),
         (block_merge_launch, (xs, torch.zeros((2, 10), dtype=torch.int64),
                               torch.zeros((3, 2), dtype=torch.int64),
                               torch.zeros(4, dtype=torch.int64), stage, xs.clone(), 0, 16)),

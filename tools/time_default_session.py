@@ -4,11 +4,16 @@ Builds the session ``chip_smoke.py`` phase 3 drives (100,000 random walks
 of length 1,000 from seed 0, ``SearchConfig()``, host driver), runs
 ``--searches`` timed searches of the same 16 queries, one more under
 ``torch.profiler`` for the device's busy time, and prints one JSON line:
-the label, build and search seconds, qps, idle share, pruning counts,
-kernel launches of the first search, the profiled search's device time
+the label, build and search seconds, qps, the host's enqueue time per block
+of the search's device loop, idle share, pruning counts, kernel
+launches of the first search, the profiled search's device time
 by kernel (ms and count), and the card's name and power limit.  The busy
 time counts device events only (kernels and copies), so a PyTorch op and
-the kernel it launched are not counted twice.
+the kernel it launched are not counted twice.  Then ``--searches``
+searches of the same queries with ``method="lb_webb"`` (the host loop,
+one envelope launch per block) are timed, and one more profiled: their
+seconds, device time by kernel, and whether they return the default
+search's indices.
 
 ``--src`` points at the ``src`` directory of the checkout to time, so two
 commits can be compared on one card in one process tree, in turns:
@@ -32,6 +37,8 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+#: blocks of the device loop whose host enqueue is timed
+ENQUEUE_BLOCKS = 256
 
 
 def main(argv=None) -> int:
@@ -77,19 +84,42 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         searches.append(time.perf_counter() - t0)
         launches = launches or launch_counts()
+    # the host's enqueue per block: the search's device loop over the first
+    # ENQUEUE_BLOCKS blocks, timed on the host up to its last launch, from
+    # an idle device (fewer launches than the launch queue holds); best of 3
+    from repro_torch.core.cascade import fused_block_loop
+    from repro_torch.kernels.envelope.ops import envelope_op
+
+    cfg = db.config
+    qs = torch.as_tensor(db.prepare_queries(queries), device=db.rows_tensor.device)
+    qs = qs.to(db.rows_tensor.dtype).contiguous()
+    upper, lower = envelope_op(qs, db.w)
+    rows = db.rows_tensor[: ENQUEUE_BLOCKS * cfg.block]
+    enqueue = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused_block_loop(qs, rows, upper, lower, db.w, cfg.p, cfg.k, cfg.block, 16)
+        enqueue.append((time.perf_counter() - t0) / ENQUEUE_BLOCKS)
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         db.search(queries)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-        by_kernel[e.key] = (us / 1e3, e.count)
+    by_kernel = device_by_kernel(prof)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
-    by_kernel = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0]))
+    # lb_webb: the host loop, with an envelope launch per block
+    webb_s = []
+    for _ in range(args.searches):
+        t0 = time.perf_counter()
+        webb = db.search(queries, method="lb_webb")
+        torch.cuda.synchronize()
+        webb_s.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        db.search(queries, method="lb_webb")
+        torch.cuda.synchronize()
+    webb_kernels = device_by_kernel(prof)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
@@ -109,12 +139,31 @@ def main(argv=None) -> int:
             }
     print(json.dumps({
         "label": args.label, "card": card, "build_s": build_s, "search_s": searches,
-        "qps": args.queries / best, "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
+        "qps": args.queries / best, "enqueue_us_per_block": min(enqueue) * 1e6,
+        "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
         "pruned": res.stats.pruned_by, "full_dtw": res.stats.full_dtw,
         "launches": launches, "device_ms_by_kernel": by_kernel, **answers,
+        "lb_webb": {
+            "search_s": webb_s, "busy_ms": sum(ms for ms, _ in webb_kernels.values()),
+            "same_indices_as_default": bool(np.array_equal(webb.indices, res.indices)),
+            "device_ms_by_kernel": webb_kernels,
+        },
     }), flush=True)
     return 0
+
+
+def device_by_kernel(prof) -> dict:
+    """{kernel or copy: (device ms, count)} of a profile, largest first."""
+    import torch
+
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        out[e.key] = (us / 1e3, e.count)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
 
 
 if __name__ == "__main__":
