@@ -32,7 +32,13 @@ Phases (any failure raises, exits non-zero and prints no result line):
    schedule, at edge shapes and at long rows, with its stage output; the
    stream entry (K7) to K2 on the copied windows; every schedule of a
    family's tune space to its fallback; the standalone merge kernel
-   (block_merge) to its plain version, ties included.
+   (block_merge) to its plain version, ties included.  K2 and K3 are also
+   timed at Q=16, B=1,024 and at Q=1 (the reference's single-query
+   kernels K8a and K8b).  Long rows: every kernel at float32 n = 12,288
+   and float64 n = 6,144, w = n // 10 and n - 1 (past the shared-memory
+   form of K1, K3, K4 and K5, which take their long-row paths), and K5 at
+   n = 32,768, w = 500, each against its plain version, with each long
+   path's time per call.
 3. The main path: a default ``Database`` session (100,000 random walks
    of length 1,000, ``SearchConfig()``) built and searched with 16 new
    queries through the host driver's device-resident loop: exactly two
@@ -42,7 +48,11 @@ Phases (any failure raises, exits non-zero and prints no result line):
    synchronisation inside it) with the same answers; the pruning counts
    must be the recorded ones, two queries' top-1 must equal a brute
    force over all rows, and every distance must match the float64
-   oracle.
+   oracle.  Then a long-row session (2,048 random walks of 12,288,
+   float32): built, searched through the same loop (K4 on its long-row
+   path), two launches per block, the loop again under sync debug mode,
+   top-1 against a K5 brute force; and its first 512 rows on the scan
+   route, top-1 against the brute force too.
 4. A small session (768 rows of 128) on the scan driver for every
    univariate method, on the GPU and on the CPU: same indices.  Then the
    stream form of LB_Improved (K7, then K3) over a flat segment against
@@ -53,8 +63,9 @@ Phases (any failure raises, exits non-zero and prints no result line):
    searches that must answer as the untuned session does, measured costs
    in ``plan().explain()``, and ``python -m repro_torch.launch.tune``.
 
-Launches are counted per phase (3 build, 3 search, 4 scan, 4 stream,
-5 tuned), each from zero; phase 2's comparisons are not counted.  The
+Launches are counted per phase (3 build, 3 search, the long-row
+session's build and search on both routes, 4 scan, 4 stream, 5 tuned),
+each from zero; phase 2's comparisons are not counted.  The
 last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The standalone merge
 kernel is on no path (its routine runs as dtw_merge's epilogue): its
@@ -83,6 +94,16 @@ FP32_OPS_PER_S = 67e12
 N_ROWS, LENGTH, N_QUERIES = 100_000, 1000, 16
 BLOCK, DTW_CHUNK = 32, 16
 SEED = 0
+#: candidates of K2's and K3's second timed shape (Q=16, B=1,024)
+WIDE_B = 1024
+#: the long-row checks: (n, dtype), each at w = n // 10 and w = n - 1
+LONG_SHAPES = ((12_288, "float32"), (6_144, "float64"))
+#: K5 past its register path's two staged rows: (n, w), float32, 2 pairs
+DTW_LONG = (32_768, 500)
+#: the long-row session: rows, length (float32, w = n // 10), queries; and
+#: the rows of its scan-route twin
+LONG_SESSION = (2048, 12_288, 4)
+LONG_SCAN_ROWS = 512
 
 #: the default session's pruning counts and top-1 rows as first measured
 #: on the card with separate LB_Keogh and LB_Improved launches (PERF.md);
@@ -162,24 +183,80 @@ def kernel_self_us(prof) -> dict[str, tuple[float, int]]:
     return out
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
-    """Device time of one call: the self time of the kernels that
-    ``iters`` calls ran under torch.profiler, over ``iters``; the host's
-    launch path is not in it.  Fails if the profiler saw no kernel."""
+PROFILER_ATTEMPTS = 3
+# measurements the profiler saw no device events for, timed with events
+PROFILER_MISSES: list[str] = []
+
+
+def profiled_kernels(run, what: str, cpu: bool = False) -> dict[str, tuple[float, int]]:
+    """``kernel_self_us`` of ``run()`` under torch.profiler.  A profiler
+    session now and then returns no device events at all, so a session
+    that saw none is run again, up to ``PROFILER_ATTEMPTS`` sessions; {}
+    if none of them saw any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    for attempt in range(PROFILER_ATTEMPTS):
+        with profile(activities=acts) as prof:
+            run()
+            torch.cuda.synchronize()
+        got = kernel_self_us(prof)
+        if sum(us for us, _ in got.values()) > 0:
+            return got
+        log(f"[profiler] session {attempt + 1} of {PROFILER_ATTEMPTS} saw no device "
+            f"time ({what})")
+    return {}
+
+
+def events_device_ms(fn, iters: int = 20, repeats: int = 3) -> float:
+    """Device time of one call from CUDA events, for when the profiler
+    sees none: two events around ``iters`` calls, all queued behind a
+    spinning kernel so the card never waits for the host's launches;
+    the median over ``repeats`` of the interval over ``iters`` (the gaps
+    between the card's kernels in it)."""
+    import torch
+
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return statistics.median(runs)
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 2, what: str = "") -> float:
+    """Device time of one call: the self time of the kernels that
+    ``iters`` calls ran under torch.profiler, over ``iters``; the host's
+    launch path is not in it.  Where no profiler session saw a kernel,
+    the time comes from CUDA events (``events_device_ms``) and the
+    measurement is listed in ``PROFILER_MISSES``."""
+    import torch
+
+    code = getattr(fn, "__code__", None)
+    what = what or (f"{getattr(fn, '__qualname__', 'call')} at chip_smoke.py:"
+                    f"{code.co_firstlineno if code else '?'}")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    total = sum(us for us, _ in kernel_self_us(prof).values())
-    if total <= 0:
-        fail("torch.profiler saw no device time")
-    return total / 1e3 / iters
+
+    got = profiled_kernels(run, what)
+    if got:
+        return sum(us for us, _ in got.values()) / 1e3 / iters
+    PROFILER_MISSES.append(what)
+    ms = events_device_ms(fn, iters)
+    log(f"[profiler] {what}: timed with CUDA events instead, {ms:.5f} ms a call")
+    return ms
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -372,11 +449,25 @@ def phase_kernels(dev):
     plain = time_ms(lambda: lb_keogh_plain(cands, upper, lower, 1), iters=10)
     nq, b, n = N_QUERIES, BLOCK, LENGTH
     bnd, by = bound_ms(4 * (b * n + 2 * nq * n + nq * b + nq * b * n), 8 * nq * b * n)
+    # the same at Q=16, B=1,024: 65.5 MB of H, bound by its writes
+    wide = walks(WIDE_B, LENGTH)
+    lbw, hw = lb_keogh_launch(wide, upper, lower, 1)
+    lbp, hp = lb_keogh_plain(wide, upper, lower, 1)
+    check_close("lb_keogh", lbw, lbp, TOL["lb_keogh"], f"B={WIDE_B} lb")
+    check_close("lb_keogh", hw, hp, 0.0, f"B={WIDE_B} H")
+    del lbp, hp
+    ms_w = time_ms(lambda: lb_keogh_launch(wide, upper, lower, 1))
+    dms_w = device_ms(lambda: lb_keogh_launch(wide, upper, lower, 1))
+    bnd_w, _ = bound_ms(4 * (WIDE_B * n + 2 * nq * n + nq * WIDE_B + nq * WIDE_B * n),
+                        8 * nq * WIDE_B * n)
     rec["lb_keogh"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                            bound_by=by, library_ms=None, device_ms=dms,
-                           shape=f"Q={nq} B={b} n={n} p=1")
-    log(f"[kernel] lb_keogh ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
-        f"bound {bnd:.5f} ms ({by})")
+                           shape=f"Q={nq} B={b} n={n} p=1", ms_B1024=ms_w,
+                           device_ms_B1024=dms_w, bound_ms_B1024=bnd_w)
+    log(f"[kernel] lb_keogh ok: {ms:.4f} ms per call, {dms:.5f} ms on the device vs "
+        f"plain {plain:.3f} ms, bound {bnd:.5f} ms ({by}); at B={WIDE_B}: {ms_w:.4f} ms "
+        f"per call, {dms_w:.4f} ms on the device, bound {bnd_w:.4f} ms "
+        f"({bnd_w / dms_w:.0%} of it)")
 
     # K3 LB_Improved pass 2: rtol 2e-4
     err = 0.0
@@ -406,11 +497,46 @@ def phase_kernels(dev):
     dms = device_ms(lambda: lb_improved_pass2_launch(h, qs, w, 1))
     plain = time_ms(lambda: lb_improved_pass2_plain(h, qs, w, 1), iters=10)
     bnd, by = bound_ms(4 * (nq * b * n + nq * n + nq * b), 11 * nq * b * n)
+    # the same at Q=16, B=1,024, on K2's H above
+    for p in (1, 2, math.inf):
+        hp = hw if p == 1 else lb_keogh_launch(wide, upper, lower, p)[1]
+        check_close("lb_improved_pass2", lb_improved_pass2_launch(hp, qs, w, p),
+                    lb_improved_pass2_plain(hp, qs, w, p), TOL["lb_improved_pass2"],
+                    f"B={WIDE_B} p={p}")
+    del hp
+    ms_w = time_ms(lambda: lb_improved_pass2_launch(hw, qs, w, 1))
+    dms_w = device_ms(lambda: lb_improved_pass2_launch(hw, qs, w, 1))
+    bnd_w, _ = bound_ms(4 * (nq * WIDE_B * n + nq * n + nq * WIDE_B), 11 * nq * WIDE_B * n)
+    del wide, lbw, hw
+    # K8a and K8b, the reference's single-query kernels: K2 and K3 at Q=1
+    q1, u1, l1 = (t[:1].contiguous() for t in (qs, upper, lower))
+    _, h1 = lb_keogh_launch(cands, u1, l1, 1)
+    q1_rec = dict(
+        lb_keogh=(time_ms(lambda: lb_keogh_launch(cands, u1, l1, 1)),
+                  device_ms(lambda: lb_keogh_launch(cands, u1, l1, 1)),
+                  bound_ms(4 * (b * n + 2 * n + b + b * n), 8 * b * n)[0]),
+        lb_improved_pass2=(time_ms(lambda: lb_improved_pass2_launch(h1, q1, w, 1)),
+                           device_ms(lambda: lb_improved_pass2_launch(h1, q1, w, 1)),
+                           bound_ms(4 * (b * n + n + b), 11 * b * n)[0]))
+    rec["lb_keogh"].update(ms_Q1=q1_rec["lb_keogh"][0], device_ms_Q1=q1_rec["lb_keogh"][1],
+                           bound_ms_Q1=q1_rec["lb_keogh"][2])
+    log(f"[kernel] K8a = lb_keogh at Q=1, B={b}: {q1_rec['lb_keogh'][0]:.4f} ms per call, "
+        f"{q1_rec['lb_keogh'][1]:.5f} ms on the device, bound {q1_rec['lb_keogh'][2]:.6f} ms; "
+        f"K8b = lb_improved_pass2 at Q=1: {q1_rec['lb_improved_pass2'][0]:.4f} ms per call, "
+        f"{q1_rec['lb_improved_pass2'][1]:.5f} ms on the device, bound "
+        f"{q1_rec['lb_improved_pass2'][2]:.6f} ms")
     rec["lb_improved_pass2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                     bound_ms=bnd, bound_by=by, library_ms=None,
-                                    device_ms=dms, shape=f"Q={nq} B={b} n={n} w={w} p=1")
-    log(f"[kernel] lb_improved_pass2 ok: {ms:.4f} ms vs plain {plain:.3f} ms, "
-        f"bound {bnd:.5f} ms ({by})")
+                                    device_ms=dms, shape=f"Q={nq} B={b} n={n} w={w} p=1",
+                                    ms_B1024=ms_w, device_ms_B1024=dms_w,
+                                    bound_ms_B1024=bnd_w,
+                                    ms_Q1=q1_rec["lb_improved_pass2"][0],
+                                    device_ms_Q1=q1_rec["lb_improved_pass2"][1],
+                                    bound_ms_Q1=q1_rec["lb_improved_pass2"][2])
+    log(f"[kernel] lb_improved_pass2 ok: {ms:.4f} ms per call, {dms:.5f} ms on the device "
+        f"vs plain {plain:.3f} ms, bound {bnd:.5f} ms ({by}); at B={WIDE_B}: {ms_w:.4f} ms "
+        f"per call, {dms_w:.4f} ms on the device, bound {bnd_w:.4f} ms "
+        f"({bnd_w / dms_w:.0%} of it)")
 
     # K5 banded DP: bit-equal to its wavefront plain version on every lane,
     # finished or abandoned; finished lanes within rtol 3e-4 of dtw_plain
@@ -871,33 +997,214 @@ def phase_kernels_lb(dev, rec):
 
     # the loop's order on the same inputs: K4, then K5 with the merge, 20
     # times; each kernel's device ms there against its time alone above
-    from torch.profiler import ProfilerActivity, profile
-
+    # ("not measured" where no profiler session saw the kernels)
     def block():
         lb_fused_launch(cands, qs, upper, lower, w, sparse, 1, stage=True)
         mrun(db, 0)
 
-    block()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def blocks():
         for _ in range(20):
             block()
-        torch.cuda.synchronize()
+
+    block()
+    torch.cuda.synchronize()
     seq = {k.split("<")[0].split("::")[-1]: us / 1e3 / c
-           for k, (us, c) in kernel_self_us(prof).items()}
+           for k, (us, c) in profiled_kernels(blocks, "K4 -> K5 sequence").items()}
     # K5 with the merge alternating with a one-value PyTorch fill instead
     one = torch.empty(1, device=dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def filled():
         for _ in range(20):
             one.zero_()
             mrun(db, 0)
-        torch.cuda.synchronize()
+
     seq["dtw_kernel after a fill"] = next(
-        us / 1e3 / c for k, (us, c) in kernel_self_us(prof).items() if "dtw_kernel" in k)
+        (us / 1e3 / c for k, (us, c) in profiled_kernels(filled, "K5 after a fill").items()
+         if "dtw_kernel" in k), "not measured")
     rec["dtw_merge"]["sequence_device_ms"] = seq
     log(f"[kernel] in the loop's order K4 -> K5 with the merge on the same inputs, "
         f"device ms per launch: {seq}")
     torch.cuda.synchronize()
+
+
+def phase_long_rows(dev, rec):
+    """Every kernel past the shared-memory form of K1, K3, K4 and K5, held
+    against its plain version, and each long path's time per call, added
+    to its kernel's record in ``rec`` under ``long_rows``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import random_walks
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.common import BIG, KERNEL_DTYPES, kernel_dtype
+    from repro_torch.kernels.dtw.ops import (
+        dtw_launch,
+        dtw_merge_launch,
+        dtw_merge_plain,
+        dtw_wavefront_plain,
+    )
+    from repro_torch.kernels.envelope.ops import envelope_launch, envelope_plain
+    from repro_torch.kernels.lb_fused.ops import (
+        fused_long,
+        lb_fused_launch,
+        lb_fused_stage_plain,
+    )
+    from repro_torch.kernels.lb_improved.ops import (
+        combine_passes,
+        lb_improved_pass2_launch,
+        lb_improved_pass2_plain,
+    )
+    from repro_torch.kernels.lb_keogh import (
+        lb_keogh_launch,
+        lb_keogh_plain,
+        lb_keogh_stream_launch,
+        materialize_windows,
+    )
+    from repro_torch.kernels.lb_kim.ops import lb_kim_launch, lb_kim_plain
+
+    rng = np.random.default_rng(SEED + 5)
+    lib = cuda_lib.library()
+    table = []
+
+    def walks(count, length, dtype):
+        return torch.as_tensor(random_walks(rng, count, length), device=dev).to(dtype)
+
+    def timed(kernel, shape, path, fn, nbytes, ops):
+        ms = time_ms(fn, iters=3, repeats=3, warmup=1)
+        bnd, by = bound_ms(nbytes, ops)
+        table.append(dict(kernel=kernel, shape=shape, path=path, ms=ms, bound_ms=bnd,
+                          bound_by=by))
+
+    def dtw_path(dt, n, w):
+        slots = lib.repro_dtw_slots(KERNEL_DTYPES[dt], n, w)
+        if slots > 0:
+            return f"register wavefront, {slots} slots a lane"
+        if slots == 0:
+            return "shared-memory wavefront"
+        diag = lib.repro_dtw_workspace(KERNEL_DTYPES[dt], 1, n, w)
+        return ("long rows, rows in place, diagonals in " +
+                ("the workspace" if diag else "shared memory"))
+
+    def dtw_checks(qs, cands, w, shape, dt):
+        """K5's pair list and masked entry with the merge on 2 live pairs,
+        bit-equal to the wavefront plain version; timed."""
+        n = qs.shape[1]
+        qi = torch.tensor([0, 1], device=dev)
+        ci = torch.tensor([1, 0], device=dev)
+        want = dtw_wavefront_plain(qs, cands, w, 1, qi, ci)
+        check_equal("dtw", dtw_launch(qs, cands, w, 1, qi, ci), want,
+                    f"{shape} vs wavefront plain")
+        stage = torch.zeros((2, cands.shape[0]), dtype=torch.uint8, device=dev)
+        stage[0, 1] = stage[1, 0] = 2
+        stage[1, 1] = 1
+        state = [torch.full((2, 1), BIG, dtype=dt, device=dev),
+                 torch.full((2, 1), -1, dtype=torch.int64, device=dev),
+                 torch.zeros((3, 2), dtype=torch.int64, device=dev),
+                 torch.zeros(4, dtype=torch.int64, device=dev)]
+        expect = [t.clone() for t in state]
+        out = torch.full((2, cands.shape[0]), math.nan, dtype=dt, device=dev)
+        out_want = out.clone()
+        dtw_merge_launch(qs, cands, stage, w, 1, None, out, *state, 0, DTW_CHUNK)
+        dtw_merge_plain(qs, cands, stage, w, 1, None, out_want, *expect, 0, DTW_CHUNK,
+                        dp=dtw_wavefront_plain)
+        live = stage == 2
+        check_equal("dtw_merge", out[live], out_want[live], f"{shape} DP slots")
+        check_equal("dtw_merge", tuple(state), tuple(expect), f"{shape} top-k and counters")
+        cells = 2 * (n * (2 * w + 1) - w * (w + 1))
+        timed("dtw", f"2 pairs {shape}", dtw_path(dt, n, w),
+              lambda: dtw_launch(qs, cands, w, 1, qi, ci),
+              qs.element_size() * (4 * n + 4), 5 * cells)
+
+    for n, dtn in LONG_SHAPES:
+        dt = getattr(torch, dtn)
+        isz = torch.empty(0, dtype=dt).element_size()
+        for w in (n // 10, n - 1):
+            shape = f"n={n} w={w} {dtn}"
+            # K1: 3 rows (a block per row where its padded row fits, else a
+            # warp per row) and 300 (a warp per row)
+            for rows in (3, 300):
+                x = walks(rows + 1, n, dt)[1:]  # a base off 16-byte alignment
+                u, l = envelope_launch(x, w)
+                pu, pl = envelope_plain(x, w)
+                check_close("envelope", u, pu, 0.0, f"U {rows} rows {shape}")
+                check_close("envelope", l, pl, 0.0, f"L {rows} rows {shape}")
+            ws = lib.repro_envelope_workspace(kernel_dtype(x), 300, n, w)
+            timed("envelope", f"300 rows {shape}",
+                  "warp per row, buffers in the workspace" if ws else
+                  "warp per row, buffers in shared memory",
+                  lambda: envelope_launch(x, w), 3 * x.numel() * isz, 6 * x.numel())
+            del x, u, l, pu, pl
+            # K2, K3, K6, K7 on Q=2 queries, B=5 candidates
+            qs, cands = walks(2, n, dt), walks(5, n, dt)
+            upper, lower = envelope_launch(qs, w)
+            for p in (1, 2, math.inf):
+                lb, h = lb_keogh_launch(cands, upper, lower, p)
+                plb, ph = lb_keogh_plain(cands, upper, lower, p)
+                check_close("lb_keogh", lb, plb, TOL["lb_keogh"], f"lb p={p} {shape}")
+                check_close("lb_keogh", h, ph, 0.0, f"H p={p} {shape}")
+                check_close("lb_improved_pass2", lb_improved_pass2_launch(h, qs, w, p),
+                            lb_improved_pass2_plain(h, qs, w, p), TOL["lb_improved_pass2"],
+                            f"p={p} {shape}")
+                check_equal("lb_kim", lb_kim_launch(cands, qs, None, p),
+                            lb_kim_plain(cands, qs, None, p), f"p={p} {shape}")
+                seg = walks(1, 4 * 3 + n, dt)[0]  # windows at hop 3: not 16-byte aligned
+                check_equal("lb_keogh_stream", lb_keogh_stream_launch(seg, upper, lower, n, 3, p),
+                            lb_keogh_launch(materialize_windows(seg, n, 3), upper, lower, p),
+                            f"hop=3 p={p} {shape}")
+            _, h = lb_keogh_launch(cands, upper, lower, 1)
+            rows2 = 10
+            timed("lb_keogh", f"Q=2 B=5 {shape}", "warp per pair",
+                  lambda: lb_keogh_launch(cands, upper, lower, 1),
+                  isz * (5 * n + 4 * n + rows2 + rows2 * n), 8 * rows2 * n)
+            ws = lib.repro_lb_improved_pass2_workspace(kernel_dtype(h), rows2, n, w)
+            timed("lb_improved_pass2", f"Q=2 B=5 {shape}",
+                  "warp per row, buffers in the workspace" if ws else
+                  "warp per row, buffers in shared memory",
+                  lambda: lb_improved_pass2_launch(h, qs, w, 1),
+                  isz * (rows2 * n + 2 * n + rows2), 11 * rows2 * n)
+            timed("lb_kim", f"Q=2 B=5 {shape}", "warp per pair",
+                  lambda: lb_kim_launch(cands, qs, None, 1), isz * (7 * n + rows2), 14 * n)
+            timed("lb_keogh_stream", f"Q=2 B=5 hop=3 {shape}", "warp per pair",
+                  lambda: lb_keogh_stream_launch(seg, upper, lower, n, 3, 1),
+                  isz * (seg.numel() + 4 * n + rows2 + rows2 * n), 8 * rows2 * n)
+            # K4: bit-equal to K2 + K3 with the stage, resolved and explicit tiles
+            for p in (1, 2):
+                klb1, kh = lb_keogh_launch(cands, upper, lower, p)
+                bounds = klb1.median(dim=1).values.contiguous()
+                live = klb1 < bounds[:, None]
+                want = (klb1, torch.where(
+                    live, combine_passes(klb1, lb_improved_pass2_launch(kh, qs, w, p), p),
+                    klb1))
+                stage_want = lb_fused_stage_plain(*want, bounds, 4)
+                for tile_b, grid in ((None, None), (1, "qb"), (3, "bq")):
+                    got = lb_fused_launch(cands, qs, upper, lower, w, bounds, p, tile_b,
+                                          None if tile_b is None else 1, grid, stage=True,
+                                          real=4)
+                    check_equal("lb_fused", got, (*want, stage_want),
+                                f"vs K2 + K3 tile_b={tile_b} grid={grid} p={p} {shape}")
+            nlive = int(live.sum())
+            timed("lb_fused", f"Q=2 B=5 {shape}, {nlive} live",
+                  "long rows, buffers in the workspace" if fused_long(n, w, "qb", isz)
+                  else "warp per pair, buffers in shared memory",
+                  lambda: lb_fused_launch(cands, qs, upper, lower, w, bounds, 1),
+                  isz * (5 * n + 6 * n + 2 + 2 * rows2) + rows2,
+                  8 * rows2 * n + 12 * nlive * n)
+            # K5: the pair list and the masked entry with the merge
+            dtw_checks(qs, cands, w, shape, dt)
+            del qs, cands, upper, lower, h, seg
+    n, w = DTW_LONG
+    dtw_checks(walks(2, n, torch.float32), walks(2, n, torch.float32), w,
+               f"n={n} w={w} float32", torch.float32)
+    torch.cuda.synchronize()
+    for r in table:
+        rec[r["kernel"]].setdefault("long_rows", []).append(
+            {k: v for k, v in r.items() if k != "kernel"})
+    for r in table:
+        log(f"[long] {r['kernel']:<18} {r['shape']:<44} {r['path']:<52} "
+            f"{r['ms']:.4f} ms per call, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    log(f"[long] every kernel at float32 n={LONG_SHAPES[0][0]} and float64 "
+        f"n={LONG_SHAPES[1][0]}, w = n // 10 and n - 1, held against its plain version; "
+        f"K5 also at n={n} w={w}")
 
 
 # ------------------------------------------------------------- phase 3
@@ -906,17 +1213,20 @@ def phase_kernels_lb(dev, rec):
 def device_busy(fn) -> tuple[float, float, dict]:
     """(device ms, host wall ms, {kernel: (ms, count)}) of one call under
     torch.profiler: the self times of the device's kernels and copies,
-    and the wall clock around the call."""
+    and the wall clock around the call (of the session that saw them)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wall = []
+
+    def run():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {k: (us / 1e3, c) for k, (us, c) in kernel_self_us(prof).items()}
-    return sum(ms for ms, _ in by_kernel.values()), wall_ms, by_kernel
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    got = profiled_kernels(run, "profiled search", cpu=True)
+    by_kernel = {k: (us / 1e3, c) for k, (us, c) in got.items()}
+    return sum(ms for ms, _ in by_kernel.values()), wall[-1], by_kernel
 
 
 def loop_without_sync(dev, db, queries, res) -> tuple[float, float]:
@@ -1049,7 +1359,75 @@ def phase_main_path(dev, launches):
     if worst > 2e-4:
         fail(f"distance vs float64 dtw_reference: rel err {worst:.3g} > 2e-4")
     log(f"[main] distances vs float64 dtw_reference: max rel err {worst:.3g}")
-    return dict(x=x, queries=queries, db=db, res=res)
+    return dict(x=x, queries=queries, db=db, res=res, search_s=search_s)
+
+
+def phase_long_session(dev, launches, main):
+    """Long rows end to end: ``Database.build`` of LONG_SESSION's random
+    walks (float32, w = n // 10) and a search through the host driver's
+    device loop, two launches per block (K4 on its long-row path, K5 with
+    the merge), the loop again under sync debug mode; then the same rows'
+    first LONG_SCAN_ROWS on the scan route.  Each top-1 must equal a K5
+    brute force over all rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Database
+    from repro_torch.data.synthetic import random_walks
+    from repro_torch.kernels.dtw.ops import dtw_qbatch_op
+
+    rng = np.random.default_rng(SEED + 6)
+    n_rows, n, nq = LONG_SESSION
+    x = random_walks(rng, n_rows, n)
+    queries = random_walks(rng, nq, n)
+    main_block_ms = main["search_s"] / main["res"].stats.blocks_total * 1e3
+    for rows, route, tag in ((n_rows, "host", "long"), (LONG_SCAN_ROWS, "scan", "long_scan")):
+        def build():
+            t0 = time.perf_counter()
+            db = Database.build(x[:rows])
+            torch.cuda.synchronize()
+            return db, time.perf_counter() - t0
+
+        def search():
+            t0 = time.perf_counter()
+            res = db.search(queries)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+
+        db, build_s = counted(launches, f"{tag}_build", build)
+        plan = db.plan(queries).explain()
+        if not plan.startswith(f"driver: {route}"):
+            fail(f"{tag} session did not route to the {route} driver:\n{plan}")
+        res, search_s = counted(launches, f"{tag}_search", search)
+        s = res.stats
+        got = launches[f"{tag}_search"]
+        what = f"{rows} x {n} float32 w={db.w}"
+        if route == "host":
+            others = {k: v for k, v in got.items() if k not in ("envelope", "lb_fused",
+                                                                  "dtw_merge")}
+            if (got["lb_fused"], got["dtw_merge"]) != (s.blocks_total,) * 2 or any(
+                    others.values()):
+                fail(f"{tag} search: expected two launches per block ({s.blocks_total} "
+                     f"blocks), one lb_fused and one dtw_merge, got {got}")
+            enqueue_s, loop_s = loop_without_sync(dev, db, queries, res)
+            log(f"[long] {what}: build {build_s:.2f} s, search of {nq} queries "
+                f"{search_s:.3f} s, {s.blocks_total} blocks of two launches, "
+                f"{search_s / s.blocks_total * 1e3:.3f} ms a block (default session "
+                f"{main_block_ms:.4f} ms a block); the loop under "
+                f"set_sync_debug_mode('error') {loop_s:.3f} s, same answers and counters")
+        else:
+            require_launched(launches, f"{tag}_search", ("lb_keogh", "lb_improved_pass2",
+                                                         "dtw"), f"{tag} search")
+            log(f"[long] {what} on the scan route: build {build_s:.2f} s, search of {nq} "
+                f"queries {search_s:.3f} s")
+        log(f"[long]   pruned {s.pruned_by}, full_dtw {s.full_dtw} of {s.n_candidates}; "
+            f"launches: build {launches[f'{tag}_build']}; search {got}")
+        qs = torch.as_tensor(db.prepare_queries(queries), device=dev)
+        best = dtw_qbatch_op(qs, db.rows_tensor, db.w, db.p).argmin(dim=1).cpu().numpy()
+        if not np.array_equal(best, res.indices[:, 0]):
+            fail(f"{tag}: top-1 {res.indices[:, 0]} != brute force {best}")
+        log(f"[long]   brute force top-1 {best.tolist()} == session top-1")
+        del db, res
 
 
 # ------------------------------------------------------------- phase 4
@@ -1238,8 +1616,10 @@ def main() -> int:
     smi = phase_toolchain()
     rec = phase_kernels(dev)
     phase_kernels_lb(dev, rec)
+    phase_long_rows(dev, rec)
     launches: dict[str, dict[str, int]] = {}
     main_out = phase_main_path(dev, launches)
+    phase_long_session(dev, launches, main_out)
     phase_scan_sessions(dev, launches)
     phase_stream(dev, launches)
     phase_tuned(dev, launches, main_out)
@@ -1260,6 +1640,9 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], launches_by_phase=by_phase, **extra,
         ))
+    if PROFILER_MISSES:
+        log(f"[profiler] device ms from CUDA events for {len(PROFILER_MISSES)} "
+            f"measurement(s) no profiler session saw: {PROFILER_MISSES}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,6 +12,11 @@
 
 namespace repro {
 
+// Dynamic shared memory one block may use on sm_90 (227 KB); a launcher
+// whose buffers would need more takes its long-row path.
+// (kernels/common.py SMEM_LIMIT_BYTES repeats it.)
+constexpr size_t SMEM_LIMIT = 232448;
+
 // Finite sentinel of the DP (kernels/common.py BIG): inf would poison the
 // (min,+) arithmetic with inf - inf.
 template <typename T> __device__ __forceinline__ T big() { return T(1.0e30); }
@@ -45,20 +50,6 @@ template <typename T> __device__ __forceinline__ T warp_min(T v) {
   for (int off = 16; off > 0; off >>= 1)
     v = tmin(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
-}
-
-// Block-wide reduction (sum or max) of one value per thread; every
-// thread gets the result.  `scratch` holds blockDim.x / 32 values.
-template <typename T, int P> __device__ T block_reduce(T v, T* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  v = warp_reduce<T, P>(v);
-  __syncthreads();  // scratch may still be read by an earlier call
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  T r = scratch[0];
-  for (int i = 1; i < nwarps; ++i) r = combine<T, P>(r, scratch[i]);
-  return r;
 }
 
 // Sliding max and min over the window [i - w, i + w] of one row of n

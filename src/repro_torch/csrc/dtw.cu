@@ -46,6 +46,13 @@
 // in registers: from one diagonal to the next only one of them moves by
 // one element, so a step loads one value, a step ahead.  Steps run in
 // unrolled blocks of 2S, after which the windows are back in place.
+// Long rows, whose two staged rows (and diagonals) overflow a block's
+// shared memory, take one more instantiation per dtype and p, chosen by
+// shape (S = LONG_ROWS): the shared-memory wavefront with the rows read
+// in place from device memory through L1, the +-ROW_PAD sentinels applied
+// by index, and the two diagonals in shared memory, or, past 2 (w + 3)
+// values, in a workspace slice per pair (the entries' workspace).  Its
+// cells are the same, so it is bit-equal to the staged paths.
 #include "block_merge.cuh"
 
 namespace repro {
@@ -54,6 +61,8 @@ namespace repro {
 constexpr int ABANDON_EVERY = 32;
 // Largest register slot count per lane; wider bands use shared memory.
 constexpr int MAX_SLOTS = 16;
+// The slot count that selects the long-row path.
+constexpr int LONG_ROWS = -1;
 
 // Row padding: |ROW_PAD - x| and |x + ROW_PAD| exceed BIG for any row
 // value |x| < 1e34, so a cell with i or j outside 0..n-1 costs >= BIG and
@@ -252,12 +261,35 @@ __device__ __forceinline__ T wavefront_regs(const T* qb, const T* cb, int n, int
   return scratch[w >> 1];
 }
 
-// The shared-memory wavefront for bands past the register cap: the same
-// slots, diagonals da and db in shared memory (index -1 and w + 1 hold
+// The rows of a pair, staged in shared memory with their pads (qb[i] and
+// cb[j] valid for -margin <= i, j < n + margin) ...
+template <typename T> struct StagedRows {
+  const T* q;
+  const T* c;
+  __device__ __forceinline__ T qv(int i) const { return q[i]; }
+  __device__ __forceinline__ T cv(int j) const { return c[j]; }
+};
+
+// ... or read in place from device memory, the pads applied by index: the
+// same value at every index the wavefront reads.
+template <typename T> struct GlobalRows {
+  const T* __restrict__ q;
+  const T* __restrict__ c;
+  int n;
+  __device__ __forceinline__ T qv(int i) const {
+    return (unsigned)i < (unsigned)n ? __ldg(q + i) : row_pad<T>();
+  }
+  __device__ __forceinline__ T cv(int j) const {
+    return (unsigned)j < (unsigned)n ? __ldg(c + j) : -row_pad<T>();
+  }
+};
+
+// The shared-memory wavefront for bands past the register cap and for
+// long rows: the same slots, diagonals da and db (index -1 and w + 1 hold
 // BIG), lane-strided slots, one __syncwarp per step.
-template <typename T, int P>
-__device__ T wavefront_smem(const T* qb, const T* cb, int n, int w, T* da, T* db,
-                            bool check, T bound) {
+template <typename T, int P, typename Rows>
+__device__ T wavefront_smem(const Rows& rows, int n, int w, T* da, T* db, bool check,
+                            T bound) {
   const int lane = threadIdx.x & 31;
   for (int t = lane - 1; t <= w + 1; t += 32) {
     da[t] = t == (w >> 1) ? T(0) : big<T>();
@@ -277,7 +309,7 @@ __device__ T wavefront_smem(const T* qb, const T* cb, int n, int w, T* da, T* db
     const T* src = (s & 1) ? da : db;
     const int I = (s - w + par) >> 1, J = (s + w - par) >> 1;
     for (int t = lane; t <= w; t += 32) {
-      T cost = pair_cost<T, P>(qb[I + t], cb[J - t]);
+      T cost = pair_cost<T, P>(rows.qv(I + t), rows.cv(J - t));
       if (t > w - par) cost = big<T>();
       const T up = par ? src[t] : src[t - 1];
       const T left = par ? src[t + 1] : src[t];
@@ -288,31 +320,47 @@ __device__ T wavefront_smem(const T* qb, const T* cb, int n, int w, T* da, T* db
   return da[w >> 1];
 }
 
+// Whether the diagonals of the long-row path (2 (w + 3) values) fit in
+// shared memory; if not they are a slice of the workspace per pair.
+template <typename T> __host__ __device__ __forceinline__ bool long_diag_in_smem(int w) {
+  return sizeof(T) * 2 * (size_t)(w + 3) <= SMEM_LIMIT;
+}
+
 // The DP of one pair on one warp: stage the two rows and run the
 // wavefront.  S > 0: the band in registers, S slots per lane; S = 0: in
-// shared memory.  Returns the pair's value in lane 0.
+// shared memory; S = LONG_ROWS: the rows in place, the diagonals in shared
+// memory or in the workspace slice `diag`.  Returns the pair's value in
+// lane 0.
 template <typename T, int P, int S>
 __device__ __forceinline__ T dtw_pair(const T* __restrict__ qrow_g,
                                       const T* __restrict__ crow_g, int n, int w,
-                                      bool check, T bound, unsigned char* smem_raw) {
-  constexpr int V = 16 / sizeof(T);
-  const int margin = row_margin(w, S > 0 ? S : 1, V);
-  const int len = row_len(n, w, S > 0 ? S : 1, V);
-  T* qrow = reinterpret_cast<T*>(smem_raw);
-  T* crow = qrow + len;
-  const int lane = threadIdx.x;
-  stage_row(qrow, qrow_g, n, margin, len, row_pad<T>(), lane);
-  stage_row(crow, crow_g, n, margin, len, -row_pad<T>(), lane);
-  __syncwarp();
-  const T* qb = qrow + margin;
-  const T* cb = crow + margin;
-  if constexpr (S == 0) {
-    T* da = crow + len + 1;
-    return wavefront_smem<T, P>(qb, cb, n, w, da, da + (w + 3), check, bound);
-  } else if (w & 1) {
-    return wavefront_regs<T, P, S, 1>(qb, cb, n, w, check, bound, qrow);
+                                      bool check, T bound, unsigned char* smem_raw,
+                                      T* diag) {
+  if constexpr (S == LONG_ROWS) {
+    T* da = (long_diag_in_smem<T>(w) ? reinterpret_cast<T*>(smem_raw) : diag) + 1;
+    return wavefront_smem<T, P>(GlobalRows<T>{qrow_g, crow_g, n}, n, w, da, da + (w + 3),
+                                check, bound);
   } else {
-    return wavefront_regs<T, P, S, 0>(qb, cb, n, w, check, bound, qrow);
+    constexpr int V = 16 / sizeof(T);
+    const int margin = row_margin(w, S > 0 ? S : 1, V);
+    const int len = row_len(n, w, S > 0 ? S : 1, V);
+    T* qrow = reinterpret_cast<T*>(smem_raw);
+    T* crow = qrow + len;
+    const int lane = threadIdx.x;
+    stage_row(qrow, qrow_g, n, margin, len, row_pad<T>(), lane);
+    stage_row(crow, crow_g, n, margin, len, -row_pad<T>(), lane);
+    __syncwarp();
+    const T* qb = qrow + margin;
+    const T* cb = crow + margin;
+    if constexpr (S == 0) {
+      T* da = crow + len + 1;
+      return wavefront_smem<T, P>(StagedRows<T>{qb, cb}, n, w, da, da + (w + 3), check,
+                                  bound);
+    } else if (w & 1) {
+      return wavefront_regs<T, P, S, 1>(qb, cb, n, w, check, bound, qrow);
+    } else {
+      return wavefront_regs<T, P, S, 0>(qb, cb, n, w, check, bound, qrow);
+    }
   }
 }
 
@@ -359,7 +407,7 @@ dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
            const int64_t* __restrict__ qidx, const int64_t* __restrict__ cidx,
            const uint8_t* __restrict__ stage, const T* bounds, int64_t bound_qstride,
            int64_t bstride, int n, int w, T* __restrict__ out, MergeOut<T> merge,
-           unsigned long long* ws) {
+           unsigned long long* ws, T* __restrict__ diag_ws) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int64_t pair = blockIdx.x;
   const int lane = threadIdx.x;
@@ -374,10 +422,20 @@ dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
     const bool check = bounds != nullptr;
     const T bound =
         !check ? big<T>() : bounds[bound_qstride > 0 ? q * bound_qstride : pair];
-    const T v = dtw_pair<T, P, S>(qs + q * n, cands + c * n, n, w, check, bound, smem_raw);
+    T* diag = diag_ws ? diag_ws + (size_t)pair * 2 * (w + 3) : nullptr;
+    const T v = dtw_pair<T, P, S>(qs + q * n, cands + c * n, n, w, check, bound, smem_raw,
+                                  diag);
     if (lane == 0) out[pair] = v;
   }
   if (merge.top_v) merge_epilogue(merge, stage, out, ws, npairs / bstride, bstride, q, lane);
+}
+
+// Dynamic shared memory of one pair's block on path S.
+template <typename T> __host__ __device__ inline size_t dtw_smem(int n, int w, int S) {
+  if (S == LONG_ROWS) return long_diag_in_smem<T>(w) ? sizeof(T) * 2 * (size_t)(w + 3) : 0;
+  constexpr int V = 16 / sizeof(T);
+  const size_t len = row_len(n, w, S > 0 ? S : 1, V);
+  return sizeof(T) * (2 * len + (S == 0 ? 2 * (size_t)(w + 3) : 0));
 }
 
 template <typename T, int P, int S>
@@ -385,27 +443,40 @@ cudaError_t launch_dtw(const T* qs, const T* cands, const int64_t* qidx,
                        const int64_t* cidx, const uint8_t* stage, const T* bounds,
                        int64_t bound_qstride, int64_t npairs, int64_t bstride,
                        int n, int w, T* out, const MergeOut<T>& merge,
-                       unsigned long long* ws, cudaStream_t s) {
-  constexpr int V = 16 / sizeof(T);
-  const size_t len = row_len(n, w, S > 0 ? S : 1, V);
-  const size_t smem = sizeof(T) * (2 * len + (S == 0 ? 2 * (size_t)(w + 3) : 0));
+                       unsigned long long* ws, T* diag_ws, cudaStream_t s) {
+  const size_t smem = dtw_smem<T>(n, w, S);
+  if (S == LONG_ROWS && !long_diag_in_smem<T>(w) && diag_ws == nullptr)
+    return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(dtw_kernel<T, P, S>, smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)(npairs + (merge.top_v ? 1 : 0));
   dtw_kernel<T, P, S><<<blocks, 32, smem, s>>>(
-      qs, cands, qidx, cidx, stage, bounds, bound_qstride, bstride, n, w, out, merge, ws);
+      qs, cands, qidx, cidx, stage, bounds, bound_qstride, bstride, n, w, out, merge, ws,
+      S == LONG_ROWS && !long_diag_in_smem<T>(w) ? diag_ws : nullptr);
   return cudaGetLastError();
 }
 
 }  // namespace repro
 
-// The slot count per lane of the register path, or 0 for the
-// shared-memory path (bands wider than 32 * MAX_SLOTS cells).
-static int dtw_slots(int w) {
+// The slot count per lane of the register path, 0 for the shared-memory
+// path (bands wider than 32 * MAX_SLOTS cells), or LONG_ROWS where that
+// path's shared memory would pass the card's limit.
+template <typename T> static int dtw_slots(int n, int w) {
   const int per_lane = (w + 1 + 31) / 32;
   int slots = 1;
   while (slots < per_lane) slots *= 2;
-  return slots > repro::MAX_SLOTS ? 0 : slots;
+  if (slots > repro::MAX_SLOTS) slots = 0;
+  const size_t smem = repro::dtw_smem<T>(n, w, slots);
+  return smem > repro::SMEM_LIMIT ? repro::LONG_ROWS : slots;
+}
+
+// Bytes of workspace the long-row path needs for the diagonals of npairs
+// pairs (0 where it is not taken or they fit in shared memory).
+template <typename T> static size_t dtw_diag_bytes(int64_t npairs, int n, int w) {
+  if (npairs <= 0 || dtw_slots<T>(n, w) != repro::LONG_ROWS ||
+      repro::long_diag_in_smem<T>(w))
+    return 0;
+  return sizeof(T) * (size_t)npairs * 2 * (size_t)(w + 3);
 }
 
 template <typename T, int P>
@@ -414,14 +485,15 @@ static cudaError_t dtw_dispatch(const T* q, const T* c, const int64_t* qidx,
                                 const T* bd, int64_t bound_qstride, int64_t npairs,
                                 int64_t bstride, int n, int w, T* o,
                                 const repro::MergeOut<T>& m, unsigned long long* ws,
-                                cudaStream_t s) {
-  switch (dtw_slots(w)) {
-    case 1: return repro::launch_dtw<T, P, 1>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
-    case 2: return repro::launch_dtw<T, P, 2>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
-    case 4: return repro::launch_dtw<T, P, 4>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
-    case 8: return repro::launch_dtw<T, P, 8>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
-    case 16: return repro::launch_dtw<T, P, 16>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
-    default: return repro::launch_dtw<T, P, 0>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, s);
+                                T* dw, cudaStream_t s) {
+  switch (dtw_slots<T>(n, w)) {
+    case 1: return repro::launch_dtw<T, P, 1>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
+    case 2: return repro::launch_dtw<T, P, 2>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
+    case 4: return repro::launch_dtw<T, P, 4>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
+    case 8: return repro::launch_dtw<T, P, 8>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
+    case 16: return repro::launch_dtw<T, P, 16>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
+    case 0: return repro::launch_dtw<T, P, 0>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
+    default: return repro::launch_dtw<T, P, repro::LONG_ROWS>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
   }
 }
 
@@ -429,19 +501,20 @@ static cudaError_t dtw_dispatch(const T* q, const T* c, const int64_t* qidx,
 // abandon test; out (npairs,) powered.  Dense mode: qidx = cidx = nullptr
 // and npairs = Q * bstride.  0 <= w <= n - 1.  The register path takes
 // S = the smallest power of two with 32 S >= w + 1 while S <= 16; wider
-// bands take the shared-memory path.  A launch that cannot run (shared
-// memory past the card's limit) returns its error.
+// bands take the shared-memory path; rows whose path would pass the
+// card's shared memory take the long-row path, with their diagonals in
+// `workspace` (repro_dtw_workspace bytes; else unused and may be null).
 extern "C" int repro_dtw(int dtype, int pcode, const void* qs, const void* cands,
                          const int64_t* qidx, const int64_t* cidx,
                          const void* bounds, int64_t npairs, int64_t bstride,
-                         int n, int w, void* out, void* stream) {
+                         int n, int w, void* out, void* workspace, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npairs == 0) return (int)cudaGetLastError();
   REPRO_DISPATCH(dtype, pcode,
     cudaError_t err = dtw_dispatch<T, P>(
         static_cast<const T*>(qs), static_cast<const T*>(cands), qidx, cidx,
         nullptr, static_cast<const T*>(bounds), 0, npairs, bstride, n, w,
-        static_cast<T*>(out), repro::MergeOut<T>{}, nullptr, s);
+        static_cast<T*>(out), repro::MergeOut<T>{}, nullptr, static_cast<T*>(workspace), s);
     if (err != cudaSuccess) return (int)err;)
   return (int)cudaGetLastError();
 }
@@ -454,7 +527,9 @@ extern "C" int repro_dtw(int dtype, int pcode, const void* qs, const void* cands
 // or bounds is nullptr for no abandon test.  The same launch then merges
 // the block starting at database row lo into top_v (Q, k), top_i, counts
 // (3, Q) and totals (4,) as repro_block_merge does (block_merge.cuh), bit
-// for bit; `workspace` holds Q zeros (unsigned 64-bit) and is left so.
+// for bit; `workspace` holds Q zeros (unsigned 64-bit), left so, then,
+// where the long-row path keeps its diagonals there, the
+// repro_dtw_workspace bytes of Q * nb pairs.
 extern "C" int repro_dtw_masked(int dtype, int pcode, const void* qs,
                                 const void* cands, const uint8_t* stage,
                                 const void* bounds, int64_t bound_stride,
@@ -474,7 +549,22 @@ extern "C" int repro_dtw_masked(int dtype, int pcode, const void* qs,
     cudaError_t err = dtw_dispatch<T, P>(
         static_cast<const T*>(qs), static_cast<const T*>(cands), nullptr, nullptr,
         stage, static_cast<const T*>(bounds), bound_stride, nq * nb, nb, n, w,
-        static_cast<T*>(out), m, static_cast<unsigned long long*>(workspace), s);
+        static_cast<T*>(out), m, static_cast<unsigned long long*>(workspace),
+        reinterpret_cast<T*>(static_cast<unsigned long long*>(workspace) + nq), s);
     if (err != cudaSuccess) return (int)err;)
   return (int)cudaGetLastError();
+}
+
+// Bytes of workspace the long-row path needs for the diagonals of npairs
+// pairs (0: none); the masked entry's workspace holds them after its Q
+// tickets.
+extern "C" int64_t repro_dtw_workspace(int dtype, int64_t npairs, int n, int w) {
+  return (int64_t)(dtype == 0 ? dtw_diag_bytes<float>(npairs, n, w)
+                              : dtw_diag_bytes<double>(npairs, n, w));
+}
+
+// The path a launch at (n, w) takes: S > 0 the register path with S slots
+// per lane, 0 the shared-memory path, -1 (LONG_ROWS) the long-row path.
+extern "C" int repro_dtw_slots(int dtype, int n, int w) {
+  return dtype == 0 ? dtw_slots<float>(n, w) : dtw_slots<double>(n, w);
 }

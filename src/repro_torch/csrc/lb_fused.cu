@@ -12,7 +12,7 @@
 // for p in {1, 2}, and optionally the pair's cascade stage: 0 pruned by
 // LB_Keogh (lb1 >= bound), 1 pruned by LB_Improved (lb >= bound), 2 a
 // survivor, 255 for a candidate at or past `real` (the padded rows of a
-// tail block).  H never leaves shared memory.
+// tail block).  H never leaves shared memory, except on the long-row path.
 //
 // Bound on this card: bytes (each candidate row read once, two values per
 // pair written), far below what the launch and one pair's chain of
@@ -24,14 +24,20 @@
 // holds tile_b warps: one block per (query, tile of tile_b candidates)
 // (grid "qb"), or one block per tile whose warps each stage their
 // candidate row once and loop over the queries (grid "bq").  Pass 1 is
-// K2's keogh_pair and pass 2 improved_pair, which builds the envelope of
-// H by chunks (each lane scans one of 32 chunks; no doubling levels, so a
-// live pair's chain is short; a band narrower than a chunk is scanned
-// directly on the row) and adds K3's terms in K3's order
+// keogh_pair (K2's terms in K2's order) and pass 2 improved_pair, which
+// builds the envelope of H by chunks (each lane scans one of 32 chunks; no
+// doubling levels, so a live pair's chain is short; a band narrower than a
+// chunk is scanned directly on the row) and adds K3's terms in K3's order
 // (lb_routines.cuh), so lb1 is bit-equal to K2's lb and lb to K2's lb
 // plus K3's lb2 under every schedule.  A ragged last tile is
 // masked, never padded: no pad lane can keep pass 2 alive.  The bounds
 // are read with a stride, so a caller can pass a column of its top-k.
+// Long rows, whose one warp's buffers overflow a block's shared memory,
+// take the long-row path by shape: H and the pass-2 buffers in a slice of
+// a workspace per warp of the grid (which the wrapper's prepared launcher
+// allocates once), pass 2 K3's own routine (env_scan.cuh envelope_join,
+// then improved_terms), any tile_b.
+#include "env_scan.cuh"
 #include "lb_routines.cuh"
 
 namespace repro {
@@ -42,25 +48,44 @@ __host__ __device__ __forceinline__ size_t fused_warp_elems(int n, int w, bool b
   return (size_t)n * (bq ? 2 : 1) + 4 * (size_t)(n + 2 * w);
 }
 
-template <typename T, int P, bool BQ>
+// Whether a launch takes the long-row path: one warp's buffers overflow
+// a block's shared memory (kernels/lb_fused/ops.py fused_long repeats it).
+template <typename T> __host__ __device__ __forceinline__ bool fused_long(int n, int w, bool bq) {
+  return sizeof(T) * fused_warp_elems(n, w, bq) > SMEM_LIMIT;
+}
+
+// LONG: each warp's H row and pass-2 buffers are a slice of the workspace
+// ws (EnvLayout's one-row buffers, the H row written into its staged row's
+// place and padded there), pass 2 is K3's (improved_terms over the
+// envelope_join scans), and "bq" reads its candidate row in place.
+template <typename T, int P, bool BQ, bool LONG>
 __global__ void __launch_bounds__(1024)
 lb_fused_kernel(const T* __restrict__ cands, const T* __restrict__ qs,
                 const T* __restrict__ upper, const T* __restrict__ lower,
                 const T* __restrict__ bounds, int64_t bound_stride, int64_t nq,
                 int64_t nb, int n, int w, int tile_b, int64_t real,
                 T* __restrict__ lb1_out, T* __restrict__ lb_out,
-                uint8_t* __restrict__ stage_out) {
+                uint8_t* __restrict__ stage_out, T* __restrict__ ws) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T* hs = reinterpret_cast<T*>(smem_raw) + (size_t)warp * fused_warp_elems(n, w, BQ);
-  T* row = hs + n;                       // "bq" only
-  T* buf = hs + (size_t)n * (BQ ? 2 : 1);
+  const EnvLayout<T> g(n, w);
+  T* hs;
+  T* buf;  // the short path's envelope buffer, or the long path's U row
+  if constexpr (LONG) {
+    T* X = ws + ((size_t)blockIdx.x * tile_b + warp) * g.per_warp(1);
+    hs = X + w;
+    buf = X + g.xlen;
+  } else {
+    hs = reinterpret_cast<T*>(smem_raw) + (size_t)warp * fused_warp_elems(n, w, BQ);
+    buf = hs + (size_t)n * (BQ ? 2 : 1);
+  }
   const int64_t ntiles = (nb + tile_b - 1) / tile_b;
   const int64_t t = BQ ? blockIdx.x : blockIdx.x % ntiles;
   const int64_t c = t * tile_b + warp;
   if (c >= nb) return;  // no block barrier follows: a warp may leave
   const T* cr = cands + c * n;
-  if (BQ) {
+  if (BQ && !LONG) {
+    T* row = hs + n;
     for (int i = lane; i < n; i += 32) row[i] = cr[i];
     __syncwarp();
     cr = row;
@@ -72,8 +97,24 @@ lb_fused_kernel(const T* __restrict__ cands, const T* __restrict__ qs,
     __syncwarp();  // H complete before any lane reads it
     const T bound = bounds[q * bound_stride];
     T lb = lb1;
-    if (lb1 < bound)  // the same in every lane: the warp stays converged
-      lb = lb1 + improved_pair<T, P>(hs, qs + q * n, n, w, buf, lane);
+    if (lb1 < bound) {  // the same in every lane: the warp stays converged
+      if constexpr (LONG) {
+        T* X = hs - w;
+        T r;
+        if (w == 0) {
+          r = improved_terms<T, P>(hs, hs, qs + q * n, n, lane);
+        } else {
+          T* lbuf = buf + g.olen;
+          pad_row(X, g, lane);
+          envelope_join<T, true>(X, g, buf, lbuf + g.olen, lane);
+          envelope_join<T, false>(X, g, lbuf, lbuf + g.olen, lane);
+          r = improved_terms<T, P>(buf, lbuf, qs + q * n, n, lane);
+        }
+        lb = lb1 + r;
+      } else {
+        lb = lb1 + improved_pair<T, P>(hs, qs + q * n, n, w, buf, lane);
+      }
+    }
     if (lane == 0) {
       lb1_out[q * nb + c] = lb1;
       lb_out[q * nb + c] = lb;
@@ -85,22 +126,50 @@ lb_fused_kernel(const T* __restrict__ cands, const T* __restrict__ qs,
   }
 }
 
+template <typename T, int P, bool BQ, bool LONG>
+cudaError_t launch_lb_fused_path(const T* cands, const T* qs, const T* upper,
+                            const T* lower, const T* bounds, int64_t bound_stride,
+                            int64_t nq, int64_t nb, int n, int w, int tile_b,
+                            int64_t real, T* lb1, T* lb, uint8_t* stage, T* ws,
+                            cudaStream_t s) {
+  if (tile_b < 1 || tile_b > 32) return cudaErrorInvalidValue;
+  const int64_t ntiles = (nb + tile_b - 1) / tile_b;
+  size_t smem = 0;
+  if (LONG) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+  } else {
+    smem = sizeof(T) * tile_b * fused_warp_elems(n, w, BQ);
+    cudaError_t err = allow_smem(lb_fused_kernel<T, P, BQ, LONG>, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned blocks = (unsigned)(BQ ? ntiles : ntiles * nq);
+  lb_fused_kernel<T, P, BQ, LONG><<<blocks, 32 * tile_b, smem, s>>>(
+      cands, qs, upper, lower, bounds, bound_stride, nq, nb, n, w, tile_b, real,
+      lb1, lb, stage, ws);
+  return cudaGetLastError();
+}
+
 template <typename T, int P, bool BQ>
 cudaError_t launch_lb_fused(const T* cands, const T* qs, const T* upper,
                             const T* lower, const T* bounds, int64_t bound_stride,
                             int64_t nq, int64_t nb, int n, int w, int tile_b,
-                            int64_t real, T* lb1, T* lb, uint8_t* stage,
+                            int64_t real, T* lb1, T* lb, uint8_t* stage, T* ws,
                             cudaStream_t s) {
-  if (tile_b < 1 || tile_b > 32) return cudaErrorInvalidValue;
+  if (fused_long<T>(n, w, BQ))
+    return launch_lb_fused_path<T, P, BQ, true>(cands, qs, upper, lower, bounds,
+                                                bound_stride, nq, nb, n, w, tile_b, real, lb1, lb, stage, ws, s);
+  return launch_lb_fused_path<T, P, BQ, false>(cands, qs, upper, lower, bounds,
+                                               bound_stride, nq, nb, n, w, tile_b, real, lb1, lb, stage, ws, s);
+}
+
+// Bytes of workspace of a launch: one warp's buffers per warp of the grid
+// on the long-row path, else 0.
+template <typename T>
+size_t lb_fused_workspace(int64_t nq, int64_t nb, int n, int w, int tile_b, bool bq) {
+  if (!fused_long<T>(n, w, bq) || tile_b < 1 || nq * nb == 0) return 0;
   const int64_t ntiles = (nb + tile_b - 1) / tile_b;
-  const size_t smem = sizeof(T) * tile_b * fused_warp_elems(n, w, BQ);
-  cudaError_t err = allow_smem(lb_fused_kernel<T, P, BQ>, smem);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)(BQ ? ntiles : ntiles * nq);
-  lb_fused_kernel<T, P, BQ><<<blocks, 32 * tile_b, smem, s>>>(
-      cands, qs, upper, lower, bounds, bound_stride, nq, nb, n, w, tile_b, real,
-      lb1, lb, stage);
-  return cudaGetLastError();
+  const int64_t blocks = bq ? ntiles : ntiles * nq;
+  return sizeof(T) * (size_t)blocks * tile_b * EnvLayout<T>(n, w).per_warp(1);
 }
 
 }  // namespace repro
@@ -114,7 +183,8 @@ extern "C" int repro_lb_fused(int dtype, int pcode, const void* cands,
                               const void* lower, const void* bounds,
                               int64_t bound_stride, int64_t nq, int64_t nb, int n,
                               int w, int tile_b, int grid_bq, int64_t real,
-                              void* lb1, void* lb, void* stage, void* stream) {
+                              void* lb1, void* lb, void* stage, void* workspace,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nq * nb == 0) return (int)cudaGetLastError();
   if (pcode != 1 && pcode != 2) return (int)cudaErrorInvalidValue;
@@ -125,11 +195,18 @@ extern "C" int repro_lb_fused(int dtype, int pcode, const void* cands,
           static_cast<const T*>(cands), static_cast<const T*>(qs),
           static_cast<const T*>(upper), static_cast<const T*>(lower),
           static_cast<const T*>(bounds), bound_stride, nq, nb, n, w, tile_b, real,
-          static_cast<T*>(lb1), static_cast<T*>(lb), st, s);
+          static_cast<T*>(lb1), static_cast<T*>(lb), st, static_cast<T*>(workspace), s);
     return (int)repro::launch_lb_fused<T, P, false>(
         static_cast<const T*>(cands), static_cast<const T*>(qs),
         static_cast<const T*>(upper), static_cast<const T*>(lower),
         static_cast<const T*>(bounds), bound_stride, nq, nb, n, w, tile_b, real,
-        static_cast<T*>(lb1), static_cast<T*>(lb), st, s));
+        static_cast<T*>(lb1), static_cast<T*>(lb), st, static_cast<T*>(workspace), s));
   return (int)cudaGetLastError();
+}
+
+// Bytes of workspace repro_lb_fused needs at this shape (0: none).
+extern "C" int64_t repro_lb_fused_workspace(int dtype, int64_t nq, int64_t nb, int n, int w,
+                                            int tile_b, int grid_bq) {
+  return (int64_t)(dtype == 0 ? repro::lb_fused_workspace<float>(nq, nb, n, w, tile_b, grid_bq)
+                              : repro::lb_fused_workspace<double>(nq, nb, n, w, tile_b, grid_bq));
 }

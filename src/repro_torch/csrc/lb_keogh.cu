@@ -15,11 +15,22 @@
 // the max form there, as repro.core.lb.lb_keogh_powered does.
 //
 // Bound on this card: bytes.  Writing H (one row of n values per pair)
-// dominates; each pair does a handful of operations per value.
-// Design: one warp per pair (lb_routines.cuh: keogh_pair), `warps` pairs
-// per block (the tune knob tile_b; it changes no reduction order).  Pairs
+// dominates; each pair does a handful of operations per value.  At the
+// host driver's blocks (hundreds of pairs) nothing fills the card, and the
+// time is one pair's chain of loads.
+// Design: one warp per pair (lb_routines.cuh: keogh_pair_batched), `warps`
+// pairs per block (the tune knob tile_b; it changes no reduction order).
+// Each lane keeps the element order of keogh_pair (lane l adds l, l + 32,
+// ..., so lb is bit-equal to K4's pass 1) but issues the loads of
+// KEOGH_BATCH elements before their arithmetic, so a pair's chain is
+// n / (32 KEOGH_BATCH) round trips to memory instead of n / 32.  Pairs
 // are numbered query-major, so a block's warps mostly share one query and
-// its U, L rows come from L1.  Pairs are either the dense (Q, B) grid
+// its U, L rows (8 KB at n = 1,000) come from L1 through the read-only
+// path: no staging and no block barrier, and the pair-list entry, whose
+// warps may each have another query, runs the same code.  H is written
+// with streaming stores: it is read once, by K3, and should not push the
+// candidate rows out of L2.  No row is held in shared memory, so no
+// length is refused.  Pairs are either the dense (Q, B) grid
 // (qidx == nullptr: pair = q * B + c) or explicit (qidx, cidx) lists, so
 // one entry serves the dense stage and the compacted per-pair stage.
 // Candidate row c starts at cands + c * cstride: cstride = n for a (B, n)
@@ -42,8 +53,8 @@ __global__ void lb_keogh_kernel(const T* __restrict__ cands,
   if (pair >= npairs) return;
   const int64_t q = qidx ? qidx[pair] : pair / bstride;
   const int64_t c = cidx ? cidx[pair] : pair % bstride;
-  const T acc = keogh_pair<T, P>(cands + c * cstride, upper + q * n,
-                                 lower + q * n, h + pair * n, n, lane);
+  const T acc = keogh_pair_batched<T, P>(cands + c * cstride, upper + q * n,
+                                         lower + q * n, h + pair * n, n, lane);
   if (lane == 0) lb[pair] = acc;
 }
 
@@ -53,6 +64,19 @@ cudaError_t launch_lb_keogh(const T* cands, const T* upper, const T* lower,
                             int64_t npairs, int64_t bstride, int64_t cstride,
                             int n, int warps, T* lb, T* h, cudaStream_t s) {
   if (warps < 1 || warps > 32) return cudaErrorInvalidValue;
+  // A block of `warps` pairs cannot pass what the kernel's registers
+  // allow (the float64 batches of loads take more than 64 a thread, so
+  // not 32 warps): fewer warps a block change no output bit.  No launch
+  // bound instead: one (1,024) slowed the float32 kernel by 8-16%
+  // (tools/ab_lb_pass.py).
+  static int max_warps = 0;
+  if (max_warps == 0) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, lb_keogh_kernel<T, P>);
+    if (err != cudaSuccess) return err;
+    max_warps = attr.maxThreadsPerBlock / 32;
+  }
+  if (warps > max_warps) warps = max_warps;
   const unsigned blocks = (unsigned)((npairs + warps - 1) / warps);
   lb_keogh_kernel<T, P><<<blocks, 32 * warps, 0, s>>>(
       cands, upper, lower, qidx, cidx, npairs, bstride, cstride, n, lb, h);

@@ -1,14 +1,18 @@
 // The two passes of LB_Improved as device routines (CUDA C++ for sm_90a).
 //
-// keogh_pair is pass 1 of one (query, candidate) pair on one warp: it is
-// the body of K2 (lb_keogh.cu, dense, pair-list and stream entries) and of
-// K4's pass 1 (lb_fused.cu).  improved_row is pass 2 of one projection
-// row on one 256-thread block, the body of K3 (lb_improved.cu).
-// improved_pair is the same pass 2 on one warp, the body of K4's pass 2:
-// it builds the same envelope another way (chunk_extrema) and adds the
-// same terms in the same order as improved_row (the block's eight warps
-// emulated by eight accumulators per lane), so K4's lb1 is bit-equal to
-// K2's lb and its lb to K2's lb plus K3's lb2.
+// keogh_pair is pass 1 of one (query, candidate) pair on one warp, the
+// body of K4's pass 1 (lb_fused.cu); keogh_pair_batched adds the same
+// terms in the same order with batched loads and streaming stores, the
+// body of K2 (lb_keogh.cu, dense, pair-list and stream entries).  Pass 2
+// sums the terms of one row in a fixed order, that of a block of
+// PASS2_THREADS threads (thread t adds elements
+// t, t + 256, ..., then a warp butterfly and the eight warps' partials in
+// order): improved_terms adds them so on one warp from the row's
+// envelope, the body of K3 (lb_improved.cu, the envelope by
+// env_scan.cuh) and of K4's long-row pass 2; improved_pair builds the
+// envelope another way (chunk_extrema) and adds the same terms in the
+// same order, the body of K4's pass 2.  So K4's lb1 is bit-equal to K2's
+// lb and its lb to K2's lb plus K3's lb2.
 #pragma once
 
 #include "common.cuh"
@@ -17,6 +21,8 @@ namespace repro {
 
 // Threads of a pass-2 block; the block reduction's order depends on it.
 constexpr int PASS2_THREADS = 256;
+// Elements a lane of K2 loads before it runs them through its sum.
+constexpr int KEOGH_BATCH = 8;
 
 // Pass 1 on one warp: lanes stride the row (coalesced), accumulate the
 // powered LB_Keogh terms of candidate row cr against the envelope rows
@@ -37,21 +43,71 @@ __device__ __forceinline__ T keogh_pair(const T* __restrict__ cr,
   return warp_reduce<T, P>(acc);
 }
 
-// Pass 2 on one block of PASS2_THREADS threads: the band-w envelope of the
-// projection row h (n values) by doubling in `buf` (4 * (n + 2w) values),
-// then the powered distance of the query row qr to it, reduced across the
-// block through `scratch` (32 values).  Every thread gets the result.
+// Pass 1 as K2 runs it: keogh_pair's terms in keogh_pair's order (lane l
+// adds elements l, l + 32, ... one after another), with the loads of
+// KEOGH_BATCH elements issued before their arithmetic (the last batch
+// predicated, so no element waits for its own round trip), the rows read
+// through the read-only path (a block's warps share the query's U and L
+// rows, which stay in L1), and H written with streaming stores (st.cs:
+// written once, read by K3 later, so it should not evict the candidate
+// rows from L2).  Bit-equal to keogh_pair.
 template <typename T, int P>
-__device__ __forceinline__ T improved_row(const T* h, const T* __restrict__ qr,
-                                          int n, int w, T* buf, T* scratch) {
-  const SlidingExtrema<T> ext = sliding_extrema(h, n, w, buf);
+__device__ __forceinline__ T keogh_pair_batched(const T* __restrict__ cr,
+                                                const T* __restrict__ ur,
+                                                const T* __restrict__ lr,
+                                                T* __restrict__ hr, int n, int lane) {
   T acc = T(0);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const T v = qr[i];
-    const T d = tmax(v - ext.upper(i), T(0)) + tmax(ext.lower(i) - v, T(0));
-    acc = combine<T, P>(acc, cost_of<T, P>(d));
+  for (int base = lane; base < n; base += 32 * KEOGH_BATCH) {
+    T v[KEOGH_BATCH], uu[KEOGH_BATCH], ll[KEOGH_BATCH];
+#pragma unroll
+    for (int e = 0; e < KEOGH_BATCH; ++e) {
+      const int i = base + 32 * e;
+      const bool in = i < n;
+      v[e] = in ? __ldg(cr + i) : T(0);
+      uu[e] = in ? __ldg(ur + i) : T(0);
+      ll[e] = in ? __ldg(lr + i) : T(0);
+    }
+#pragma unroll
+    for (int e = 0; e < KEOGH_BATCH; ++e) {
+      const int i = base + 32 * e;
+      if (i < n) {
+        const T d = tmax(v[e] - uu[e], T(0)) + tmax(ll[e] - v[e], T(0));
+        acc = combine<T, P>(acc, cost_of<T, P>(d));
+        __stcs(hr + i, tmin(tmax(v[e], ll[e]), uu[e]));
+      }
+    }
   }
-  return block_reduce<T, P>(acc, scratch);
+  return warp_reduce<T, P>(acc);
+}
+
+// Pass 2 of one row on one warp from its envelope U, L (n values each):
+// lane l adds the powered distance terms of query row qr at elements l,
+// l + 32, ... into accumulator (i / 32) % 8, that is those of virtual
+// thread t = i % 256 of a PASS2_THREADS block in that thread's order;
+// each accumulator is reduced by the warp butterfly and the eight partials
+// are combined in order.  Every lane gets the result.
+template <typename T, int P>
+__device__ __forceinline__ T improved_terms(const T* U, const T* L,
+                                            const T* __restrict__ qr, int n, int lane) {
+  constexpr int VW = PASS2_THREADS / 32;
+  T acc[VW];
+#pragma unroll
+  for (int j = 0; j < VW; ++j) acc[j] = T(0);
+  for (int base = 0; base < n; base += PASS2_THREADS) {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      const int i = base + 32 * j + lane;
+      if (i < n) {
+        const T v = qr[i];
+        const T d = tmax(v - U[i], T(0)) + tmax(L[i] - v, T(0));
+        acc[j] = combine<T, P>(acc[j], cost_of<T, P>(d));
+      }
+    }
+  }
+  T r = warp_reduce<T, P>(acc[0]);
+#pragma unroll
+  for (int j = 1; j < VW; ++j) r = combine<T, P>(r, warp_reduce<T, P>(acc[j]));
+  return r;
 }
 
 // The band-w envelope of a row on one warp, by chunks: the row padded with
@@ -155,16 +211,15 @@ __device__ __forceinline__ ChunkExtrema<T> chunk_extrema(const T* x, int n, int 
   return ChunkExtrema<T>{phi, plo, shi, slo, chunk, win, span, thi, tlo};
 }
 
-// Pass 2 of one pair on one warp, bit-equal to improved_row: the envelope
+// Pass 2 of one pair on one warp, bit-equal to improved_terms: the envelope
 // of h in the warp's own `buf` (4 * (n + 2w) values, warp barriers only;
 // by chunks when every window spans two chunks, else scanned directly;
 // one branch per row, since a test per element inside the unrolled
 // chunked loop slowed it by a third), then
 // the terms of virtual thread t = 32 j + lane of a PASS2_THREADS block
-// summed in accumulator j in improved_row's order (elements t, t + 256,
+// summed in accumulator j in that thread's order (elements t, t + 256,
 // ...), each accumulator reduced by the warp butterfly and the eight
-// partials combined in order, as block_reduce does.  Every lane gets the
-// result.
+// partials combined in order.  Every lane gets the result.
 template <typename T, int P>
 __device__ __forceinline__ T improved_pair(const T* h, const T* __restrict__ qr,
                                            int n, int w, T* buf, int lane) {

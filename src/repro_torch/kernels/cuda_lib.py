@@ -35,28 +35,44 @@ _INT = ctypes.c_int
 
 #: C signatures: every entry returns cudaGetLastError() as an int.
 SIGNATURES = {
-    # dtype, x, u, l, rows, n, w, stream
-    "repro_envelope": [_INT, _P, _P, _P, _I64, _INT, _INT, _P],
+    # dtype, x, u, l, rows, n, w, workspace, stream
+    "repro_envelope": [_INT, _P, _P, _P, _I64, _INT, _INT, _P, _P],
     # dtype, p, cands, upper, lower, qidx, cidx, npairs, bstride, n, warps, lb, h, stream
     "repro_lb_keogh": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
     # dtype, p, segment, upper, lower, nq, nb, hop, n, warps, lb, h, stream
     "repro_lb_keogh_stream": [_INT, _INT, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P, _P, _P],
-    # dtype, p, h, qs, qidx, rows, bstride, n, w, lb2, stream
-    "repro_lb_improved_pass2": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
+    # dtype, p, h, qs, qidx, rows, bstride, n, w, lb2, workspace, stream
+    "repro_lb_improved_pass2": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
     # dtype, p, cands, qs, upper, lower, bounds, bound_stride, nq, nb, n, w, tile_b,
-    # grid_bq, real, lb1, lb, stage, stream
+    # grid_bq, real, lb1, lb, stage, workspace, stream
     "repro_lb_fused": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _INT,
-                       _INT, _I64, _P, _P, _P, _P],
+                       _INT, _I64, _P, _P, _P, _P, _P],
     # dtype, p, cands, qs, mask, nq, nb, n, warps, lb, stream
     "repro_lb_kim": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
-    # dtype, p, qs, cands, qidx, cidx, bounds, npairs, bstride, n, w, out, stream
-    "repro_dtw": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
+    # dtype, p, qs, cands, qidx, cidx, bounds, npairs, bstride, n, w, out, workspace,
+    # stream
+    "repro_dtw": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
     # dtype, p, qs, cands, stage, bounds, bound_stride, nq, nb, n, w, out,
     # top_v, top_i, k, lo, dtw_chunk, counts, totals, workspace, stream
     "repro_dtw_masked": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P,
                          _P, _P, _INT, _I64, _INT, _P, _P, _P, _P],
     # dtype, top_v, top_i, k, stage, dvals, nq, nb, lo, dtw_chunk, counts, totals, stream
     "repro_block_merge": [_INT, _P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _P, _P, _P],
+    # dtype, n, w -> K5's path: slots per lane, 0 shared memory, -1 long rows
+    "repro_dtw_slots": [_INT, _INT, _INT],
+}
+
+#: Bytes of workspace a launch needs at its shape (0: none), one query per
+#: entry that has a long-row path.
+WORKSPACE_SIGNATURES = {
+    # dtype, rows, n, w
+    "repro_envelope_workspace": [_INT, _I64, _INT, _INT],
+    # dtype, rows, n, w
+    "repro_lb_improved_pass2_workspace": [_INT, _I64, _INT, _INT],
+    # dtype, nq, nb, n, w, tile_b, grid_bq
+    "repro_lb_fused_workspace": [_INT, _I64, _I64, _INT, _INT, _INT, _INT],
+    # dtype, npairs, n, w
+    "repro_dtw_workspace": [_INT, _I64, _INT, _INT],
 }
 
 
@@ -156,6 +172,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in WORKSPACE_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int64
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
@@ -166,6 +186,19 @@ def check(name: str, code: int) -> None:
     if code != 0:
         msg = library().repro_error_string(code).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {code} ({msg})")
+
+
+def workspace(name: str, device, *shape_args):
+    """The device workspace of a launch of kernel ``name`` at the shape
+    ``shape_args`` (the arguments of ``repro_<name>_workspace`` after the
+    dtype code, which comes first): a uint8 tensor of the bytes the
+    library asks for, or None where the launch needs none."""
+    import torch
+
+    nbytes = int(getattr(library(), f"repro_{name}_workspace")(*shape_args))
+    if nbytes <= 0:
+        return None
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 def ptr(t) -> int | None:

@@ -4,7 +4,10 @@ The kernel (``csrc/dtw.cu``) replaces the TPU kernel
 ``repro/kernels/dtw/kernel.py::dtw_banded_pallas``.  It takes (query,
 candidate) pairs as the dense (Q, B) grid or as explicit (qidx, cidx)
 index lists into the query and candidate rows, and gathers the rows
-itself, so the drivers build no (chunk, n) copies.  Per-lane powered
+itself, so the drivers build no (chunk, n) copies.  Rows too long for
+the kernel's shared memory take its long-row path, chosen by shape in
+the kernel (the rows read in place, the diagonals in a workspace that
+the wrapper allocates where they too overflow).  Per-lane powered
 ``bounds`` (the cascade's running k-th best) let a lane abandon: it then
 returns a value >= its bound instead of the exact distance.  Omitted,
 every lane runs the full DP.  p in {1, 2, inf}, float32 and float64.
@@ -139,10 +142,11 @@ def dtw_launch(qs, cands, w: int, p=1, qidx=None, cidx=None, bounds=None):
     if bounds is not None:
         check_cuda_tensor("bounds", bounds, dev, dt, lead)
     out = torch.empty(lead, dtype=dt, device=dev)
+    ws = cuda_lib.workspace("dtw", dev, kernel_dtype(qs), npairs, n, w)
     code = cuda_lib.library().repro_dtw(
         kernel_dtype(qs), p_code(p), qs.data_ptr(), cands.data_ptr(),
         cuda_lib.ptr(qidx), cuda_lib.ptr(cidx), cuda_lib.ptr(bounds), npairs,
-        cands.shape[0], n, w, out.data_ptr(), cuda_lib.stream_of(dev),
+        cands.shape[0], n, w, out.data_ptr(), cuda_lib.ptr(ws), cuda_lib.stream_of(dev),
     )
     cuda_lib.check("dtw", code)
     if npairs:
@@ -212,8 +216,10 @@ def dtw_masked_prepare(qs, w: int, p, stage, bounds, out, merge):
             raise ValueError(f"bounds must be ({nq},) {dt} on {dev}")
         bstride = max(int(bounds.stride(0)), 1)
     check_merge_buffers(top_v, top_i, counts, totals, nq, dt, dev, dtw_chunk)
-    # the merge epilogue's tickets, one per query
-    workspace = torch.zeros(nq, dtype=torch.int64, device=dev)
+    # the merge epilogue's tickets, one per query, then the long-row
+    # path's diagonals where they overflow shared memory
+    diag = int(cuda_lib.library().repro_dtw_workspace(kernel_dtype(qs), nq * nb, n, w))
+    workspace = torch.zeros(nq + -(-diag // 8), dtype=torch.int64, device=dev)
     fn = cuda_lib.library().repro_dtw_masked
     head = (kernel_dtype(qs), p_code(p), qs.data_ptr())
     mid = (stage.data_ptr(), cuda_lib.ptr(bounds), bstride, nq, nb, n, w, out.data_ptr(),

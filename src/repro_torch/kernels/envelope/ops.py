@@ -9,6 +9,9 @@ runs a block per row that reduces the row by doubling; a larger one runs
 one warp per row and cuts the padded row into ``envelope_chunk(n, w)``
 chunks (van Herk–Gil–Werman scans per chunk); the plain version cuts it
 into tiles of 2w + 1.  Max and min are exact, so all give the same bits.
+Where one warp's buffers overflow a block's shared memory (long rows),
+the warp per row keeps them in a workspace that the launch allocates
+(``cuda_lib.workspace``), so every length runs.
 """
 
 from __future__ import annotations
@@ -46,9 +49,10 @@ def envelope_launch(xs: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tenso
     check_cuda_tensor("xs", xs, xs.device, xs.dtype)
     u = torch.empty_like(xs)
     l = torch.empty_like(xs)
+    ws = cuda_lib.workspace("envelope", xs.device, kernel_dtype(xs), rows, n, w)
     code = cuda_lib.library().repro_envelope(
         kernel_dtype(xs), xs.data_ptr(), u.data_ptr(), l.data_ptr(),
-        rows, n, w, cuda_lib.stream_of(xs.device),
+        rows, n, w, cuda_lib.ptr(ws), cuda_lib.stream_of(xs.device),
     )
     cuda_lib.check("envelope", code)
     if rows:

@@ -1,5 +1,6 @@
 from repro_torch.kernels.lb_fused.ops import (
     PAD_STAGE,
+    fused_long,
     fused_smem_bytes,
     lb_fused_launch,
     lb_fused_plain,
@@ -11,6 +12,7 @@ from repro_torch.kernels.lb_fused.ref import lb_fused_qbatch_ref
 
 __all__ = [
     "PAD_STAGE",
+    "fused_long",
     "fused_smem_bytes",
     "lb_fused_launch",
     "lb_fused_plain",

@@ -25,7 +25,10 @@ staging its candidate row once and looping over the queries) and
 an output bit.  The kernel has no ``cp.async`` double buffering, so
 ``depth=2`` cannot launch.  A resolved tile too large for shared memory
 at this length is halved until it fits; an explicit one raises
-:class:`~repro_torch.kernels.common.NotRunnable`.
+:class:`~repro_torch.kernels.common.NotRunnable`.  Rows whose one warp's
+buffers overflow shared memory (``fused_long``) take the kernel's
+long-row path at any tile: H and pass 2's buffers in a workspace that
+``lb_fused_prepare`` allocates once, pass 2 K3's own routine.
 
 ``lb_fused_prepare`` is the one host path to the kernel: it checks and
 resolves everything once and returns a launcher that only passes a
@@ -89,9 +92,17 @@ def fused_smem_bytes(n: int, w: int, tile_b: int, grid: str, itemsize: int) -> i
     return itemsize * tile_b * (row + 4 * (n + 2 * w))
 
 
+def fused_long(n: int, w: int, grid: str, itemsize: int) -> bool:
+    """Whether a launch takes K4's long-row path (``csrc/lb_fused.cu``
+    fused_long): one warp's buffers overflow a block's shared memory, so
+    they go to a workspace, at any ``tile_b``."""
+    return fused_smem_bytes(n, w, 1, grid, itemsize) > SMEM_LIMIT_BYTES
+
+
 def _schedule(nb, n, w, itemsize, tile_b, depth, grid) -> tuple[int, str]:
     """(warps per block, grid) of a launch: ``None`` knobs from the tune
-    table, a resolved tile halved until it fits in shared memory."""
+    table, a resolved tile halved until it fits in shared memory.  On the
+    long-row path (``fused_long``) every tile fits."""
     shrink = tile_b is None
     if tile_b is None or depth is None or grid is None:
         cfg = resolve_config("lb_fused", b=nb, n=n, backend="cuda")
@@ -108,6 +119,8 @@ def _schedule(nb, n, w, itemsize, tile_b, depth, grid) -> tuple[int, str]:
     tile_b = int(tile_b)
     if not 1 <= tile_b <= 32:
         raise NotRunnable(f"tile_b={tile_b} warps per block is outside 1..32")
+    if fused_long(n, w, grid, itemsize):
+        return tile_b, grid
     while fused_smem_bytes(n, w, tile_b, grid, itemsize) > SMEM_LIMIT_BYTES:
         if not shrink or tile_b == 1:
             raise NotRunnable(
@@ -163,11 +176,15 @@ def lb_fused_prepare(qs, upper, lower, w: int, bounds, p, block: int, stage=None
     tile_b, grid = _schedule(block, n, w, qs.element_size(), tile_b, depth, grid)
     lb1 = torch.empty((nq, block), dtype=dt, device=dev)
     lb = torch.empty((nq, block), dtype=dt, device=dev)
+    # the long-row path's buffers, allocated once for every launch
+    ws = cuda_lib.workspace("lb_fused", dev, kernel_dtype(qs), nq, block, n, w, tile_b,
+                            int(grid == "bq"))
     fn = cuda_lib.library().repro_lb_fused
     head = (kernel_dtype(qs), p_code(p))
     mid = (qs.data_ptr(), upper.data_ptr(), lower.data_ptr(), bounds.data_ptr(),
            bstride, nq, block, n, w, tile_b, int(grid == "bq"))
-    tail = (lb1.data_ptr(), lb.data_ptr(), cuda_lib.ptr(stage), cuda_lib.stream_of(dev))
+    tail = (lb1.data_ptr(), lb.data_ptr(), cuda_lib.ptr(stage), cuda_lib.ptr(ws),
+            cuda_lib.stream_of(dev))
 
     def run(cands, real=block):
         check_cuda_tensor("cands", cands, dev, dt, (block, n))
@@ -177,7 +194,7 @@ def lb_fused_prepare(qs, upper, lower, w: int, bounds, p, block: int, stage=None
             lb_fused_launch.launches += 1
         return lb1, lb
 
-    run.tensors = (qs, upper, lower, bounds, stage, lb1, lb)  # the pointers it holds
+    run.tensors = (qs, upper, lower, bounds, stage, lb1, lb, ws)  # the pointers it holds
     return run
 
 

@@ -6,7 +6,10 @@ and, as its Q = 1 case, ``lb_improved_pass2_pallas``.  Its input is a
 stack of projection rows H (P, n) with one query row per H row: either
 the dense (Q, B) stack or an explicit (P,) query index, so one entry
 serves the dense stage and the compacted per-pair stage.  The envelope
-of H is padded inside the kernel; no padded copy of H is made.
+of H is padded inside the kernel; no padded copy of H is made.  The
+kernel runs one warp per H row; where a warp's buffers overflow a
+block's shared memory (long rows) it keeps them in a workspace that the
+launch allocates (``cuda_lib.workspace``), so every length runs.
 
 The full bound is lb1 + lb2 (the max of the two at p = inf), where the
 reference op adds them even at p = inf with lb1 = inf from its LB_Keogh
@@ -55,9 +58,10 @@ def lb_improved_pass2_launch(h, qs, w: int, p=1, qidx=None):
         rows, lead, bstride = h.shape[0], (h.shape[0],), 1
         check_cuda_tensor("qidx", qidx, dev, torch.int64, (rows,))
     lb2 = torch.empty(lead, dtype=dt, device=dev)
+    ws = cuda_lib.workspace("lb_improved_pass2", dev, kernel_dtype(h), rows, n, w)
     code = cuda_lib.library().repro_lb_improved_pass2(
         kernel_dtype(h), p_code(p), h.data_ptr(), qs.data_ptr(),
-        cuda_lib.ptr(qidx), rows, bstride, n, w, lb2.data_ptr(),
+        cuda_lib.ptr(qidx), rows, bstride, n, w, lb2.data_ptr(), cuda_lib.ptr(ws),
         cuda_lib.stream_of(dev),
     )
     cuda_lib.check("lb_improved_pass2", code)

@@ -14,7 +14,9 @@ kernels and the plain versions here use the max form of
 ``repro.core.lb.lb_keogh_powered`` instead.
 
 ``tile_b`` is the kernels' warps (pairs) per block; ``None`` resolves it
-from the active tune table (``kernels/tuning``).  It changes no output.
+from the active tune table (``kernels/tuning``).  It changes no output;
+the launcher caps it at what the kernel's registers allow (float64
+blocks of 32 warps cannot launch).
 """
 
 from __future__ import annotations

@@ -21,8 +21,9 @@ space.  The field names and their validation are the reference's, so a
 A family's space lists only the knobs its CUDA kernel honours and that
 leave every per-pair reduction order unchanged: no config may change an
 output bit, and ``autotune`` discards any that does.  K1 ``envelope`` and
-K3 ``lb_improved`` run one 256-thread block per row; those thread counts
-set their reduction order, so their space is the fallback alone.  K5
+K3 ``lb_improved`` choose their own warps per row from the batch and the
+row length (K3 sums in the order of a 256-thread block, whatever its
+launch), so their space is the fallback alone.  K5
 ``dtw`` runs one warp per pair with the band's slots per lane set by w
 (a register or a shared-memory wavefront, the same bits either way), so
 it has no schedule to sweep and its space is the fallback alone too.

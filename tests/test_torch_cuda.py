@@ -21,7 +21,14 @@ the host driver's fused loop runs on the card with two launches per
 block (K4, then K5 with the merge) and no synchronisation.  The envelope
 kernel (K1: a block per row up to ``SMALL_ROWS`` rows, else one warp per
 row, chunked van Herk–Gil–Werman) is bit-equal to its plain version on
-both paths, at the chunk edges of ``envelope_chunk``.
+both paths, at the chunk edges of ``envelope_chunk``.  K3 (one warp per
+row on the same scans) is bit-equal to its stated sum order, that of a
+256-thread block, at p = 1 and inf.  Past their shared-memory forms, K1,
+K3, K4 and K5 take long-row paths by shape; the ``long`` tests hold each
+to its plain version at float32 n = 12,288 and float64 n = 6,144 (w =
+n // 10 and n - 1), K5 also past its register path (n = 32,768) and with
+its diagonals in the workspace, and the device loop with K4 on its
+long-row path.
 """
 
 import math
@@ -568,3 +575,197 @@ def test_fused_block_loop_on_device_without_sync(dev, p, early_abandon):
     assert torch.equal(out[2].cpu(), cpu[2]) and torch.equal(out[3].cpu(), cpu[3])
     got = nn_search_host(q, x, 9, p, 3, 64, early_abandon=early_abandon, device=dev)
     np.testing.assert_array_equal(got.indices, out[1].cpu().numpy())
+
+
+# ------------------------------------------------------------------ long rows
+#
+# Past every kernel's shared-memory form: K1, K3, K4 and K5 take their
+# long-row paths by shape (the buffers, or K5's rows and diagonals, in
+# device memory), K2, K6 and K7 hold no row in shared memory.  Run with
+# ``python -m pytest -q -m cuda tests/test_torch_cuda.py -k long``.
+
+#: (n, dtype) of the long-row checks
+LONG_ROWS = [(12_288, torch.float32), (6_144, torch.float64)]
+BANDS = ["n//10", "n-1"]
+
+
+def long_band(n, band):
+    return n // 10 if band == "n//10" else n - 1
+
+
+def pass2_in_block_order(h, qs, w, p):
+    """K3's lb2 by its stated sum order, for p = 1 or inf (no multiply, so
+    no contraction): element i's term goes to virtual thread i % 256 of a
+    256-thread block in increasing i, each warp of eight is reduced by the
+    xor butterfly and the eight partials are combined in order."""
+    hu, hl = ke.envelope_plain(h, w)
+    d = (qs - hu).clamp(min=0) + (hl - qs).clamp(min=0)
+    rows, n = d.shape
+    d = torch.cat([d, d.new_zeros(rows, -n % 256)], dim=1).reshape(rows, -1, 256)
+    comb = torch.maximum if p == math.inf else torch.add
+    acc = d.new_zeros(rows, 256)
+    for k in range(d.shape[1]):
+        acc = comb(acc, d[:, k])
+    acc = acc.reshape(rows, 8, 32)
+    lanes = torch.arange(32, device=h.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = comb(acc, acc[:, :, lanes ^ off])
+    r = acc[:, 0, 0]
+    for j in range(1, 8):
+        r = comb(r, acc[:, j, 0])
+    return r
+
+
+@pytest.mark.parametrize("band", BANDS)
+@pytest.mark.parametrize("n,dtype", LONG_ROWS)
+def test_long_rows_envelope_kernel(dev, n, dtype, band):
+    """K1 bit-equal at long rows: 3 rows (a block per row where its padded
+    row fits, else a warp per row) and 300 (a warp per row; its buffers in
+    the workspace at w = n - 1)."""
+    w = long_band(n, band)
+    for rows in (3, 300):
+        x = walks(dev, 60, rows + 1, n, dtype)[1:]  # a base off 16-byte alignment
+        u, l = ke.envelope_launch(x, w)
+        pu, pl = ke.envelope_plain(x, w)
+        assert torch.equal(u, pu) and torch.equal(l, pl), rows
+
+
+@pytest.mark.parametrize("band", BANDS)
+@pytest.mark.parametrize("n,dtype", LONG_ROWS)
+def test_long_rows_lb_keogh_and_pass2_kernels(dev, n, dtype, band):
+    """K2 (H bit-equal, lb rtol 1e-4) and K3 at long rows: K3 bit-equal to
+    its stated sum order at p = 1 and inf, within 2e-4 of the plain
+    version at every p, dense and with pair lists."""
+    w = long_band(n, band)
+    cands, qs = walks(dev, 61, 5, n, dtype), walks(dev, 62, 2, n, dtype)
+    u, l = envelopes(qs, w)
+    for p in PS:
+        lb, h = kk.lb_keogh_launch(cands, u, l, p)
+        plb, ph = kk.lb_keogh_plain(cands, u, l, p)
+        torch.testing.assert_close(lb, plb, rtol=1e-4, atol=0)
+        assert torch.equal(h, ph)
+        got = ki.lb_improved_pass2_launch(h, qs, w, p)
+        torch.testing.assert_close(got, ki.lb_improved_pass2_plain(h, qs, w, p),
+                                   rtol=2e-4, atol=0)
+        if p != 2:
+            qrows = qs[:, None, :].expand_as(h).reshape(-1, n)
+            want = pass2_in_block_order(h.reshape(-1, n), qrows, w, p).reshape(got.shape)
+            assert torch.equal(got, want)
+        qi = torch.tensor([1, 0, 1], device=dev)
+        rows = h.reshape(-1, n)[torch.tensor([9, 0, 5], device=dev)].contiguous()
+        assert torch.equal(ki.lb_improved_pass2_launch(rows, qs, w, p, qi),
+                           got.reshape(-1)[torch.tensor([9, 0, 5], device=dev)])
+
+
+@pytest.mark.parametrize("p", [1, math.inf])
+@pytest.mark.parametrize("nq,nb,n,w", [(16, 32, 1000, 100), (3, 7, 257, 0), (2, 5, 300, 299)])
+def test_lb_improved_pass2_kernel_sum_order(dev, p, nq, nb, n, w):
+    """K3 (shared-memory form) bit-equal to its stated sum order."""
+    h = walks(dev, 63, nq * nb, n).reshape(nq, nb, n)
+    qs = walks(dev, 64, nq, n)
+    got = ki.lb_improved_pass2_launch(h, qs, w, p)
+    qrows = qs[:, None, :].expand_as(h).reshape(-1, n)
+    assert torch.equal(got.reshape(-1), pass2_in_block_order(h.reshape(-1, n), qrows, w, p))
+
+
+@pytest.mark.parametrize("band", BANDS)
+@pytest.mark.parametrize("n,dtype", LONG_ROWS)
+def test_long_rows_lb_fused_workspace(dev, n, dtype, band):
+    """K4 on its long-row path (H and pass 2's buffers in the prepared
+    launcher's workspace, pass 2 K3's routine): bit-equal to K2 + K3 with
+    the stage, at several tiles and both grids."""
+    w = long_band(n, band)
+    cands, qs = walks(dev, 65, 9, n, dtype), walks(dev, 66, 3, n, dtype)
+    u, l = envelopes(qs, w)
+    assert kf.fused_long(n, w, "qb", cands.element_size())
+    for p in (1, 2):
+        lb1 = kk.lb_keogh_plain(cands, u, l, p)[0]
+        top = torch.stack([lb1.median(dim=1).values] * 2, dim=1).contiguous()
+        top[0] = 0.0  # query 0: no live lane
+        bounds = top[:, -1]
+        want = fused_reference(cands, qs, u, l, w, bounds, p)
+        real = 7
+        stage_want = kf.lb_fused_stage_plain(*want, bounds, real)
+        for tile_b, grid in ((None, None), (1, "qb"), (8, "qb"), (3, "bq")):
+            got = kf.lb_fused_launch(cands, qs, u, l, w, bounds, p, tile_b,
+                                     None if tile_b is None else 1, grid, stage=True,
+                                     real=real)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), tile_b
+            assert torch.equal(got[2], stage_want), tile_b
+
+
+@pytest.mark.parametrize("band", BANDS)
+@pytest.mark.parametrize("n,dtype", LONG_ROWS)
+def test_long_rows_lb_kim_and_stream_kernels(dev, n, dtype, band):
+    """K6 bit-equal and K7 (windows at an odd hop, so not 16-byte
+    aligned) bit-equal to K2 on the copied windows at long rows."""
+    w = long_band(n, band)
+    cands, qs = walks(dev, 67, 6, n, dtype), walks(dev, 68, 2, n, dtype)
+    mask = torch.tensor([[1, 0, 1, 1, 0, 1], [0, 1, 1, 1, 1, 0]], device=dev).bool()
+    for p in PS:
+        assert torch.equal(km.lb_kim_launch(cands, qs, mask, p),
+                           km.lb_kim_plain(cands, qs, mask, p))
+    seg = walks(dev, 69, 1, 5 * 3 + n, dtype)[0]
+    u, l = envelopes(qs, w)
+    for p in PS:
+        lb, h = kk.lb_keogh_stream_launch(seg, u, l, n, 3, p)
+        klb, kh = kk.lb_keogh_launch(kk.materialize_windows(seg, n, 3), u, l, p)
+        assert torch.equal(lb, klb) and torch.equal(h, kh)
+
+
+@pytest.mark.parametrize("n,w,dtype", [
+    (12_288, 12_287, torch.float32), (6_144, 6_143, torch.float64),  # rows in place
+    (32_768, 500, torch.float32),  # past the register path's two staged rows
+    (16_000, 15_999, torch.float64),  # the diagonals in the workspace too
+])
+def test_long_rows_dtw_kernel(dev, n, w, dtype):
+    """K5's long-row path bit-equal to its wavefront plain version, full
+    and with one lane abandoned; the masked entry with the merge takes the
+    same path, bit-equal to dtw_masked_plain then block_merge_plain."""
+    qs, cands = walks(dev, 70, 2, n, dtype), walks(dev, 71, 2, n, dtype)
+    qi, ci = torch.tensor([0, 1], device=dev), torch.tensor([1, 0], device=dev)
+    want = kd.dtw_wavefront_plain(qs, cands, w, 1, qi, ci)
+    assert torch.equal(kd.dtw_launch(qs, cands, w, 1, qi, ci), want)
+    bounds = torch.stack([want[0] * 2, want[1] * 0.5]).contiguous()
+    assert torch.equal(kd.dtw_launch(qs, cands, w, 1, qi, ci, bounds),
+                       kd.dtw_wavefront_plain(qs, cands, w, 1, qi, ci, bounds))
+    stage = torch.tensor([[0, 2], [2, 1]], dtype=torch.uint8, device=dev)
+    state = [torch.full((2, 1), 1e30, dtype=dtype, device=dev),
+             torch.full((2, 1), -1, dtype=torch.int64, device=dev),
+             torch.zeros((3, 2), dtype=torch.int64, device=dev),
+             torch.zeros(4, dtype=torch.int64, device=dev)]
+    expect = [t.clone() for t in state]
+    out = torch.full((2, 2), math.nan, dtype=dtype, device=dev)
+    out_want = out.clone()
+    kd.dtw_merge_launch(qs, cands, stage, w, 1, None, out, *state, 0, 16)
+    kd.dtw_merge_plain(qs, cands, stage, w, 1, None, out_want, *expect, 0, 16,
+                       dp=kd.dtw_wavefront_plain)
+    live = stage == 2
+    assert torch.equal(out[live], out_want[live])
+    assert all(torch.equal(g, e) for g, e in zip(state, expect))
+
+
+def test_long_rows_fused_block_loop_without_sync(dev):
+    """The host driver's device loop at rows whose K4 takes its long-row
+    path (float64, n = 5,200): two launches per block, no
+    synchronisation, the CPU loop's answers and counters."""
+    from repro_torch.core.cascade import fused_block_loop
+
+    n, w = 5200, 520
+    db, qs = walks(dev, 72, 40, n, torch.float64), walks(dev, 73, 2, n, torch.float64)
+    assert kf.fused_long(n, w, "qb", 8) and not kf.fused_long(4900, w, "qb", 8)
+    u, l = envelopes(qs, w)
+    fused_block_loop(qs, db, u, l, w, 1, 2, 16, 16)  # build, load
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fused_block_loop(qs, db, u, l, w, 1, 2, 16, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = launch_counts()
+    assert counts["lb_fused"] == counts["dtw_merge"] == 3, counts
+    cpu = fused_block_loop(qs.cpu(), db.cpu(), u.cpu(), l.cpu(), w, 1, 2, 16, 16)
+    assert torch.equal(out[1].cpu(), cpu[1])
+    torch.testing.assert_close(out[0].cpu(), cpu[0], rtol=1e-12, atol=0)
+    assert torch.equal(out[2].cpu(), cpu[2]) and torch.equal(out[3].cpu(), cpu[3])

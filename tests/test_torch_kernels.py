@@ -117,14 +117,16 @@ def test_envelope_plain_vs_ref_at_kernel_chunk_edges(b, n, w):
 
 def test_envelope_mirrors_match_csrc():
     """The wrapper's mirrors of the kernel's rules state the constants of
-    ``csrc/envelope.cu``: the largest batch that runs a block per row and
-    the warp per row's chunk rule."""
+    ``csrc/envelope.cu`` and of the warp per row's scans it includes
+    (``csrc/env_scan.cuh``): the largest batch that runs a block per row
+    and the warp per row's chunk rule."""
     import pathlib
     import re
 
     from repro_torch.kernels.envelope import ops
 
-    src = (pathlib.Path(ops.__file__).parent.parent.parent / "csrc" / "envelope.cu").read_text()
+    csrc = pathlib.Path(ops.__file__).parent.parent.parent / "csrc"
+    src = "".join((csrc / name).read_text() for name in ("envelope.cu", "env_scan.cuh"))
     small = re.search(r"constexpr int64_t ENV_SMALL_ROWS = (\d+);", src)
     assert small and int(small.group(1)) == ops.SMALL_ROWS
     assert "const int c = ((n + 2 * w + 31) / 32) | 1;" in src

@@ -53,10 +53,24 @@ def build(label: str, csrc: pathlib.Path):
     done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed on {csrc}:\n{done.stdout}{done.stderr}")
-    fn = ctypes.CDLL(str(lib)).repro_envelope
-    fn.argtypes = [_INT, _P, _P, _P, _I64, _INT, _INT, _P]
+    cdll = ctypes.CDLL(str(lib))
+    fn = cdll.repro_envelope
     fn.restype = _INT
-    return fn
+    if not hasattr(cdll, "repro_envelope_workspace"):  # a tree without the long-row path
+        fn.argtypes = [_INT, _P, _P, _P, _I64, _INT, _INT, _P]
+        return fn
+    fn.argtypes = [_INT, _P, _P, _P, _I64, _INT, _INT, _P, _P]
+    cdll.repro_envelope_workspace.argtypes = [_INT, _I64, _INT, _INT]
+    cdll.repro_envelope_workspace.restype = _I64
+
+    def with_workspace(dtype, x, u, l, rows, n, w, stream):
+        import torch
+
+        nbytes = cdll.repro_envelope_workspace(dtype, rows, n, w)
+        ws = torch.empty(max(nbytes, 1), dtype=torch.uint8, device="cuda")
+        return fn(dtype, x, u, l, rows, n, w, ws.data_ptr() if nbytes else None, stream)
+
+    return with_workspace
 
 
 def main(argv=None) -> int:
