@@ -14,8 +14,15 @@ Phases (any failure raises, exits non-zero and prints no result line):
    (CUDA events around back-to-back calls, the host's launch path
    included), its device time (the kernel's own time under
    torch.profiler), the plain version's time, its lower bound and, where
-   one PyTorch call computes the same function, that call's time.  The
-   DP kernel (K5) must be bit-equal to ``dtw_wavefront_plain`` on every
+   one PyTorch call computes the same function, that call's time.  LB_Kim
+   (K6) must be bit-equal to its plain version at p in {1, 2, inf},
+   float32 and float64, with and without a mask, at B = 1, 37 and 1,024
+   rows of n = 37, 1,000 and 1,001, on rows as allocated and on the same
+   buffer viewed one value further on (at n = 1,000 no row start is
+   16-byte aligned there: the scalar path), at every tile, its feature
+   phase alone too, and is timed at
+   Q=16, B=32 and B=1,024 beside an empty kernel (the floor of a launch's
+   device time).  The DP kernel (K5) must be bit-equal to ``dtw_wavefront_plain`` on every
    lane, finished or abandoned, and is also timed at 5 pairs, at the
    brute force's dense shape and against its dependency-chain bound; its
    masked-dense entry, which ends with the merge (dtw_merge), must be
@@ -29,7 +36,9 @@ Phases (any failure raises, exits non-zero and prints no result line):
    its paths (a block per row for small batches, else a warp per row),
    and is timed at the build's 100,000 rows and at the search's 16.  The fused LB kernel (K4, one warp per
    pair) must be bit-equal to LB_Keogh (K2) plus pass 2 (K3) under every
-   schedule, at edge shapes and at long rows, with its stage output; the
+   schedule, at edge shapes and at long rows, with its stage output, and
+   its kim entry (LB_Kim first, the kim_improved loop) to K6's plain
+   LB_Kim then K2 + K3 on its short and long-row paths, both grids; the
    stream entry (K7) to K2 on the copied windows; every schedule of a
    family's tune space to its fallback; the standalone merge kernel
    (block_merge) to its plain version, ties included.  K2 and K3 are also
@@ -62,10 +71,20 @@ Phases (any failure raises, exits non-zero and prints no result line):
    re-installs the table, ``method="auto"`` and ``method="kim_improved"``
    searches that must answer as the untuned session does, measured costs
    in ``plan().explain()``, and ``python -m repro_torch.launch.tune``.
+   Before it, the untuned session's ``kim_improved`` search: the device
+   loop (one launch of K6's feature phase, then per block K4 with its kim
+   entry and K5 with the merge, no K6 launch), the loop again under sync
+   debug mode, the default session's answers; and its ``kim_webb``
+   search, which keeps the host loop (K6 alone once per block, then K2,
+   LB_Webb and pair-list DP launches): the default session's answers, and
+   LB_Kim and LB_Keogh prune the lanes they pruned in ``kim_improved``'s
+   loop.
 
 Launches are counted per phase (3 build, 3 search, the long-row
 session's build and search on both routes, 4 scan, 4 stream, 5 tuned),
-each from zero; phase 2's comparisons are not counted.  The
+each from zero, and the untuned ``kim_improved`` and ``kim_webb``
+searches; phase 2's
+comparisons are not counted.  The
 last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The standalone merge
 kernel is on no path (its routine runs as dtw_merge's epilogue): its
@@ -113,8 +132,8 @@ MAIN_FULL_DTW = 16_171
 MAIN_TOP1 = [43381, 21115]
 
 TOL = {"envelope": 0.0, "lb_keogh": 1e-4, "lb_improved_pass2": 2e-4, "dtw": 3e-4,
-       "lb_kim": 0.0, "lb_keogh_stream": 1e-4, "lb_fused": 2e-4, "block_merge": 0.0,
-       "dtw_merge": 0.0}
+       "lb_kim": 0.0, "lb_kim_features": 0.0, "lb_keogh_stream": 1e-4, "lb_fused": 2e-4,
+       "block_merge": 0.0, "dtw_merge": 0.0}
 SOURCES = {
     "envelope": ("src/repro_torch/csrc/envelope.cu",
                  "src/repro/kernels/envelope/kernel.py:52"),
@@ -126,6 +145,10 @@ SOURCES = {
     "lb_fused": ("src/repro_torch/csrc/lb_fused.cu",
                  "src/repro/kernels/lb_fused/kernel.py:219"),
     "lb_kim": ("src/repro_torch/csrc/lb_kim.cu", "src/repro/kernels/lb_kim/kernel.py:65"),
+    # K6's feature phase alone (repro_lb_kim_features): the query features of
+    # K4's kim entry on the kim_improved loop
+    "lb_kim_features": ("src/repro_torch/csrc/lb_kim.cu",
+                        "src/repro/kernels/lb_kim/kernel.py:65"),
     "lb_keogh_stream": ("src/repro_torch/csrc/lb_keogh.cu",
                         "src/repro/kernels/lb_keogh/kernel.py:127"),
     # no TPU kernel: it stands for the reference's host merge
@@ -653,6 +676,7 @@ def phase_kernels_lb(dev, rec):
         fused_smem_bytes,
         lb_fused_launch,
         lb_fused_plain,
+        lb_fused_prepare,
         lb_fused_stage_plain,
     )
     from repro_torch.kernels.lb_improved.ops import combine_passes, lb_improved_pass2_launch
@@ -662,7 +686,12 @@ def phase_kernels_lb(dev, rec):
         lb_keogh_stream_plain,
         materialize_windows,
     )
-    from repro_torch.kernels.lb_kim.ops import lb_kim_launch, lb_kim_plain
+    from repro_torch.kernels.lb_kim.ops import (
+        lb_kim_features_launch,
+        lb_kim_features_plain,
+        lb_kim_launch,
+        lb_kim_plain,
+    )
     from repro_torch.kernels.tuning import KernelConfig, search_space
 
     rng = np.random.default_rng(SEED + 3)
@@ -676,28 +705,69 @@ def phase_kernels_lb(dev, rec):
     cands = walks(b, n)
     upper, lower = envelope_launch(qs, w)
 
-    # K6 LB_Kim: bit-equal at every p, mask, dtype and tile
-    mask = torch.as_tensor(rng.random((nq, b)) < 0.6, device=dev)
-    for p in (1, 2, math.inf):
-        for m in (None, mask, mask.float()):
-            got = lb_kim_launch(cands, qs, m, p)
-            check_equal("lb_kim", got, lb_kim_plain(cands, qs, m, p), f"p={p}")
-            for cfg in search_space("lb_kim"):
-                check_equal("lb_kim", lb_kim_launch(cands, qs, m, p, cfg.tile_b), got,
-                            f"tile_b={cfg.tile_b} p={p}")
-    c37, q5 = walks(37, 300, torch.float64), walks(5, 300, torch.float64)
-    m37 = torch.as_tensor(rng.random((5, 37)) < 0.5, device=dev)
-    for p in (1, 2, math.inf):
-        check_equal("lb_kim", lb_kim_launch(c37, q5, m37, p), lb_kim_plain(c37, q5, m37, p),
-                    f"float64 ragged p={p}")
+    # K6 LB_Kim: bit-equal at every p, mask, dtype and tile, at B = 1, 37
+    # and 1,024 rows of n = 37, 1,000 and 1,001, on rows as allocated and on
+    # the same buffer viewed one value further on.  There, at n = 1,000, no
+    # row starts 16-byte aligned: the feature phase's scalar path, in
+    # several batches of 256 values a lane; at n = 37 and 1,001 the vector
+    # and scalar paths alternate between rows.  Its feature phase alone
+    # against lb_kim_features_plain
+    kim_cases = 0
+    for dt in (torch.float32, torch.float64):
+        for nb_k, n_k in ((1, 37), (37, 37), (1, LENGTH), (37, LENGTH), (WIDE_B, LENGTH),
+                          (37, LENGTH + 1)):
+            rows = walks(nb_k + 6, n_k, dt)
+            shifted = rows.reshape(-1)[1:1 + (nb_k + 5) * n_k].view(nb_k + 5, n_k)
+            mk = torch.as_tensor(rng.random((5, nb_k)) < 0.6, device=dev)
+            for label, src in (("", rows), (" one value on", shifted)):
+                ck, qk = src[:nb_k], src[nb_k:nb_k + 5]
+                what = f"B={nb_k} n={n_k} {dt}{label}"
+                for p in (1, 2, math.inf):
+                    for m in (None, mk, mk.to(dt)):
+                        got = lb_kim_launch(ck, qk, m, p)
+                        check_equal("lb_kim", got, lb_kim_plain(ck, qk, m, p), f"p={p} {what}")
+                        for cfg in search_space("lb_kim"):
+                            check_equal("lb_kim", lb_kim_launch(ck, qk, m, p, cfg.tile_b), got,
+                                        f"tile_b={cfg.tile_b} p={p} {what}")
+                        kim_cases += 1
+                for cfg in search_space("lb_kim"):
+                    check_equal("lb_kim_features", lb_kim_features_launch(ck, cfg.tile_b),
+                                lb_kim_features_plain(ck), f"tile_b={cfg.tile_b} {what}")
+    # timed at the main path's Q=16, B=32 and at B=1,024, beside an empty
+    # kernel (torch.cuda._sleep(0): a launch that spins for no cycle), the
+    # floor of any launch's device time
     ms = time_ms(lambda: lb_kim_launch(cands, qs, None, 1))
     dms = device_ms(lambda: lb_kim_launch(cands, qs, None, 1))
     plain = time_ms(lambda: lb_kim_plain(cands, qs, None, 1), iters=10)
+    empty = device_ms(lambda: torch.cuda._sleep(0), what="empty kernel")
+    wide_k = walks(WIDE_B, n)
+    ms_w = time_ms(lambda: lb_kim_launch(wide_k, qs, None, 1))
+    dms_w = device_ms(lambda: lb_kim_launch(wide_k, qs, None, 1))
+    # bytes: each row read once, one value written per pair; operations:
+    # two compares a value, about ten a pair
     bnd, by = bound_ms(4 * (b * n + nq * n + nq * b), 2 * (b + nq) * n + 10 * nq * b)
+    bnd_w, by_w = bound_ms(4 * (WIDE_B * n + nq * n + nq * WIDE_B),
+                           2 * (WIDE_B + nq) * n + 10 * nq * WIDE_B)
     rec["lb_kim"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                         library_ms=None, device_ms=dms, shape=f"Q={nq} B={b} n={n} p=1")
-    log(f"[kernel] lb_kim ok (bit-equal, every tile_b): {ms:.4f} ms vs plain "
-        f"{plain:.3f} ms, bound {bnd:.5f} ms ({by})")
+                         library_ms=None, device_ms=dms, empty_kernel_device_ms=empty,
+                         shape=f"Q={nq} B={b} n={n} p=1", ms_B1024=ms_w,
+                         device_ms_B1024=dms_w, bound_ms_B1024=bnd_w, bound_by_B1024=by_w)
+    log(f"[kernel] lb_kim ok (bit-equal, {kim_cases} cases x every tile_b, the feature "
+        f"phase too): {ms:.4f} ms per call, {dms:.5f} ms on the device vs plain "
+        f"{plain:.3f} ms, bound {bnd:.6f} ms ({by}), an empty kernel {empty:.5f} ms on the "
+        f"device; at B={WIDE_B}: {ms_w:.4f} ms per call, {dms_w:.5f} ms on the device, "
+        f"bound {bnd_w:.5f} ms ({bnd_w / dms_w:.0%} of it)")
+    # the feature phase alone at the search's shape: the 16 queries' features
+    ms = time_ms(lambda: lb_kim_features_launch(qs))
+    dms = device_ms(lambda: lb_kim_features_launch(qs))
+    plain = time_ms(lambda: lb_kim_features_plain(qs), iters=10)
+    bnd, by = bound_ms(4 * (nq * n + 4 * nq), 2 * nq * n)
+    rec["lb_kim_features"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
+                                  bound_by=by, library_ms=None, device_ms=dms,
+                                  shape=f"rows={nq} n={n}")
+    log(f"[kernel] lb_kim_features ok (bit-equal, every tile_b): {ms:.4f} ms per call, "
+        f"{dms:.5f} ms on the device vs plain {plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+    del wide_k
 
     # K7 stream LB_Keogh: B = 32 windows of a flat segment, hop 1 and 3
     err = 0.0
@@ -846,6 +916,67 @@ def phase_kernels_lb(dev, rec):
         f"on the device with no live lane) vs K2 + K3 "
         f"{pair:.4f} ms, plain {plain:.3f} ms, bound {bnd:.5f} ms ({by}); device ms "
         f"by schedule {by_schedule}")
+
+    # K4's kim entry (the kim_improved loop): LB_Kim first, from K6's query
+    # features and the candidate's extrema taken in pass 1's sweep.  Every
+    # other candidate is moved far off, so LB_Kim prunes it; the bound is
+    # each query's 75% quantile of the near candidates' lb1.  lb1, lb and
+    # the stage bit-equal to K6's plain LB_Kim, then K2 + K3, at every
+    # schedule that fits (the long-row path: phase_long_rows)
+    def kim_case(c, q, u, l, ww, p, what):
+        c = c.clone()
+        c[::2] += 100.0 * c.shape[1]
+        ww = min(ww, c.shape[1] - 1)
+        lb1_k2, h = lb_keogh_launch(c, u, l, p)
+        bounds = torch.stack([torch.quantile(lb1_k2[:, 1::2].double(), 0.75, dim=1)
+                              .to(c.dtype)] * 2, dim=1).contiguous()[:, -1]
+        real = c.shape[0] - 1
+        kim = lb_kim_plain(c, q, None, p)
+        live = (kim < bounds[:, None]) & (lb1_k2 < bounds[:, None])
+        lb = torch.where(live, combine_passes(lb1_k2, lb_improved_pass2_launch(h, q, ww, p),
+                                              p), lb1_k2)
+        want = (lb1_k2, lb, lb_fused_stage_plain(lb1_k2, lb, bounds, real, kim))
+        st = want[2][:, :real]
+        if not (bool((st == 0).any()) and bool((st >= 2).any())):
+            fail(f"lb_fused kim entry {what}: the check prunes nothing by LB_Kim or sends "
+                 "nothing to pass 2")
+        ran = 0
+        for tile_b, grid in [(None, None)] + [(cfg.tile_b, cfg.grid)
+                                              for cfg in search_space("lb_fused")]:
+            if tile_b and fused_smem_bytes(c.shape[1], ww, tile_b, grid,
+                                           c.element_size()) > 232_448:
+                continue
+            got = lb_fused_launch(c, q, u, l, ww, bounds, p, tile_b,
+                                  None if tile_b is None else 1, grid, stage=True,
+                                  real=real, kim=True)
+            check_equal("lb_fused", got, want, f"kim entry tile_b={tile_b} grid={grid} {what}")
+            ran += 1
+        return ran
+
+    kim_runs = 0
+    for p in (1, 2):
+        kim_runs += kim_case(cands, qs, upper, lower, w, p, f"p={p}")
+        kim_runs += kim_case(c37, q5, u5, l5, 20, p, f"float64 ragged p={p}")
+        for cc, qq, ww in ((walks(33, 64), walks(3, 64), 0),
+                           (walks(9, 1000), walks(2, 1000), 17)):
+            uu, ll = envelope_op(qq, ww)
+            kim_runs += kim_case(cc, qq, uu, ll, ww, p, f"{tuple(cc.shape)} w={ww} p={p}")
+    # timed on the main path's data (no candidate moved: at p = 1 LB_Kim
+    # prunes none of them) at the 2.5% quantile, as the loop launches it
+    # (prepared once: the query features are computed before the timing),
+    # beside the same launcher without the entry
+    st_k = torch.empty((nq, b), dtype=torch.uint8, device=dev)
+    run_kim = lb_fused_prepare(qs, upper, lower, w, sparse, 1, b, st_k, kim=True)
+    run_nokim = lb_fused_prepare(qs, upper, lower, w, sparse, 1, b, st_k)
+    ms_kim = time_ms(lambda: run_kim(cands))
+    dms_kim = device_ms(lambda: run_kim(cands))
+    dms_nokim = device_ms(lambda: run_nokim(cands))
+    rec["lb_fused"].update(ms_kim_sparse=ms_kim, device_ms_kim_sparse=dms_kim,
+                           device_ms_sparse_same_turn=dms_nokim)
+    log(f"[kernel] lb_fused kim entry ok ({kim_runs} launches bit-equal to K6's plain "
+        f"LB_Kim then K2 + K3, every schedule that fits, both grids): at the 2.5% quantile "
+        f"{ms_kim:.4f} ms per call, {dms_kim:.5f} ms on the device (without the entry "
+        f"{dms_nokim:.5f})")
 
     def merge_state(q_count, k=1, dtype=torch.float32, fill=BIG):
         """An empty top-k and zero counters for the merge."""
@@ -1061,6 +1192,7 @@ def phase_long_rows(dev, rec):
         materialize_windows,
     )
     from repro_torch.kernels.lb_kim.ops import lb_kim_launch, lb_kim_plain
+    from repro_torch.kernels.tuning import search_space
 
     rng = np.random.default_rng(SEED + 5)
     lib = cuda_lib.library()
@@ -1145,8 +1277,14 @@ def phase_long_rows(dev, rec):
                 check_close("lb_improved_pass2", lb_improved_pass2_launch(h, qs, w, p),
                             lb_improved_pass2_plain(h, qs, w, p), TOL["lb_improved_pass2"],
                             f"p={p} {shape}")
-                check_equal("lb_kim", lb_kim_launch(cands, qs, None, p),
-                            lb_kim_plain(cands, qs, None, p), f"p={p} {shape}")
+                # K6 at every tile, also on the candidates' buffer viewed one
+                # value on (no row start 16-byte aligned: the scalar path)
+                for label, ck in (("", cands),
+                                  (" one value on", cands.reshape(-1)[1:1 + 4 * n].view(4, n))):
+                    want = lb_kim_plain(ck, qs, None, p)
+                    for tile in (None, *(cfg.tile_b for cfg in search_space("lb_kim"))):
+                        check_equal("lb_kim", lb_kim_launch(ck, qs, None, p, tile), want,
+                                    f"tile_b={tile} p={p} {shape}{label}")
                 seg = walks(1, 4 * 3 + n, dt)[0]  # windows at hop 3: not 16-byte aligned
                 check_equal("lb_keogh_stream", lb_keogh_stream_launch(seg, upper, lower, n, 3, p),
                             lb_keogh_launch(materialize_windows(seg, n, 3), upper, lower, p),
@@ -1162,7 +1300,7 @@ def phase_long_rows(dev, rec):
                   "warp per row, buffers in shared memory",
                   lambda: lb_improved_pass2_launch(h, qs, w, 1),
                   isz * (rows2 * n + 2 * n + rows2), 11 * rows2 * n)
-            timed("lb_kim", f"Q=2 B=5 {shape}", "warp per pair",
+            timed("lb_kim", f"Q=2 B=5 {shape}", "warp per row, last block's lanes",
                   lambda: lb_kim_launch(cands, qs, None, 1), isz * (7 * n + rows2), 14 * n)
             timed("lb_keogh_stream", f"Q=2 B=5 hop=3 {shape}", "warp per pair",
                   lambda: lb_keogh_stream_launch(seg, upper, lower, n, 3, 1),
@@ -1182,6 +1320,28 @@ def phase_long_rows(dev, rec):
                                           real=4)
                     check_equal("lb_fused", got, (*want, stage_want),
                                 f"vs K2 + K3 tile_b={tile_b} grid={grid} p={p} {shape}")
+                # the kim entry: candidates 0, 2 and 4 far off (LB_Kim prunes
+                # them), the bound at the near ones' larger lb1 (one of them
+                # reaches pass 2)
+                ck = cands.clone()
+                ck[::2] += 100.0 * n
+                klb1k, khk = lb_keogh_launch(ck, upper, lower, p)
+                bk = klb1k[:, 1::2].max(dim=1).values.contiguous()
+                kimk = lb_kim_plain(ck, qs, None, p)
+                livek = (kimk < bk[:, None]) & (klb1k < bk[:, None])
+                lbk = torch.where(livek, combine_passes(
+                    klb1k, lb_improved_pass2_launch(khk, qs, w, p), p), klb1k)
+                want_k = (klb1k, lbk, lb_fused_stage_plain(klb1k, lbk, bk, 4, kimk))
+                if not (bool((want_k[2] == 0).any()) and bool((want_k[2] == 2).any()
+                                                              | (want_k[2] == 3).any())):
+                    fail(f"lb_fused kim entry {shape}: the check prunes nothing by LB_Kim "
+                         "or sends nothing to pass 2")
+                for tile_b, grid in ((None, None), (1, "qb"), (3, "bq")):
+                    got = lb_fused_launch(ck, qs, upper, lower, w, bk, p, tile_b,
+                                          None if tile_b is None else 1, grid, stage=True,
+                                          real=4, kim=True)
+                    check_equal("lb_fused", got, want_k,
+                                f"kim entry tile_b={tile_b} grid={grid} p={p} {shape}")
             nlive = int(live.sum())
             timed("lb_fused", f"Q=2 B=5 {shape}, {nlive} live",
                   "long rows, buffers in the workspace" if fused_long(n, w, "qb", isz)
@@ -1229,12 +1389,13 @@ def device_busy(fn) -> tuple[float, float, dict]:
     return sum(ms for ms, _ in by_kernel.values()), wall[-1], by_kernel
 
 
-def loop_without_sync(dev, db, queries, res) -> tuple[float, float]:
-    """The session's search loop (``fused_block_loop``) on the prepared
-    queries under ``torch.cuda.set_sync_debug_mode("error")``, which
-    raises at any synchronising call; its answers and counters must be
-    the search's.  Returns the host's seconds to enqueue the loop and
-    the loop's wall seconds (enqueue, then one synchronise)."""
+def loop_without_sync(dev, db, queries, res, kim: bool = False) -> tuple[float, float]:
+    """The session's search loop (``fused_block_loop``; with ``kim``, that
+    of ``kim_improved``) on the prepared queries under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    synchronising call; its answers and counters must be the search's
+    ``res``.  Returns the host's seconds to enqueue the loop and the
+    loop's wall seconds (enqueue, then one synchronise)."""
     import numpy as np
     import torch
 
@@ -1251,7 +1412,7 @@ def loop_without_sync(dev, db, queries, res) -> tuple[float, float]:
     torch.cuda.set_sync_debug_mode("error")
     try:
         top_v, top_i, counts, totals = fused_block_loop(
-            qs, db.rows_tensor, upper, lower, db.w, cfg.p, cfg.k, cfg.block, 16)
+            qs, db.rows_tensor, upper, lower, db.w, cfg.p, cfg.k, cfg.block, 16, kim=kim)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     enqueue_s = time.perf_counter() - t0
@@ -1326,7 +1487,8 @@ def phase_main_path(dev, launches):
     got = launches["search"]
     per_block = (got["lb_fused"], got["dtw_merge"])
     others = {name: got[name] for name in ("dtw", "block_merge", "lb_keogh",
-                                           "lb_improved_pass2", "lb_kim", "lb_keogh_stream")}
+                                           "lb_improved_pass2", "lb_kim", "lb_kim_features",
+                                           "lb_keogh_stream")}
     if per_block != (s.blocks_total,) * 2 or any(others.values()):
         fail(f"search: expected two launches per block ({s.blocks_total} blocks), one "
              f"lb_fused and one dtw_merge, and no standalone merge, dtw, lb_keogh or "
@@ -1526,16 +1688,67 @@ def phase_tuned(dev, launches, main):
             fail(f"{what}: answers differ from the untuned session's")
 
     def untuned_kim():
+        t0 = time.perf_counter()
         res = untuned.search(queries, method="kim_improved")
         torch.cuda.synchronize()
-        return res
+        return res, time.perf_counter() - t0
 
-    kim0 = counted(launches, "untuned_kim", untuned_kim)
-    require_launched(launches, "untuned_kim", ("lb_kim", "lb_fused", "dtw"),
+    # kim_improved at p = 1 runs the device loop: K6's feature phase once,
+    # then per block K4 with LB_Kim as its entry and K5 with the merge; no
+    # K6 launch, no synchronisation in the loop
+    kim0, kim_s = counted(launches, "untuned_kim", untuned_kim)
+    got = launches["untuned_kim"]
+    require_launched(launches, "untuned_kim", ("lb_kim_features", "lb_fused", "dtw_merge"),
                      "untuned kim_improved search")
+    s0 = kim0.stats
+    others = {name: got[name] for name in ("lb_kim", "dtw", "block_merge", "lb_keogh",
+                                           "lb_improved_pass2", "lb_keogh_stream")}
+    if (got["lb_fused"], got["dtw_merge"]) != (s0.blocks_total,) * 2 or any(
+            others.values()) or got["lb_kim_features"] != 1:
+        fail(f"untuned kim_improved: expected one feature launch, then two launches per "
+             f"block ({s0.blocks_total} blocks), one lb_fused and one dtw_merge, and no "
+             f"lb_kim, dtw or standalone merge launch, got {got}")
     same(kim0, base, "untuned kim_improved")
-    log(f"[tuned] untuned kim_improved: pruned {kim0.stats.pruned_by}; launches "
-        f"{launches['untuned_kim']}")
+    if s0.full_dtw > base.stats.full_dtw:
+        fail(f"untuned kim_improved: survivors {s0.full_dtw} are no subset of the default "
+             f"session's {base.stats.full_dtw}")
+    enqueue_s, loop_s = loop_without_sync(dev, untuned, queries, kim0, kim=True)
+    log(f"[tuned] untuned kim_improved: {kim_s:.3f} s = {N_QUERIES / kim_s:.2f} qps; pruned "
+        f"{s0.pruned_by}, full_dtw {s0.full_dtw} (default {base.stats.full_dtw}); answers == "
+        f"the default session's; the loop under set_sync_debug_mode('error') {loop_s:.3f} s "
+        f"({enqueue_s / s0.blocks_total * 1e6:.1f} us a block to enqueue), same answers and "
+        f"counters; launches {got}")
+
+    def untuned_kim_webb():
+        t0 = time.perf_counter()
+        res = untuned.search(queries, method="kim_webb")
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # kim_webb keeps the host loop: per block K6 alone, then K2 and LB_Webb
+    # on the lanes LB_Kim left, and the survivors' DP on pair lists.  Each
+    # block meets the same k-th best as in kim_improved's loop (both answer
+    # exactly over the rows before it), so LB_Kim and LB_Keogh prune the
+    # same lanes there as K4's entry did
+    webb, webb_s = counted(launches, "untuned_kim_webb", untuned_kim_webb)
+    got = launches["untuned_kim_webb"]
+    require_launched(launches, "untuned_kim_webb", ("lb_kim", "lb_keogh", "dtw"),
+                     "untuned kim_webb search")
+    sw = webb.stats
+    if got["lb_kim"] != sw.blocks_total or any(
+            got[name] for name in ("lb_kim_features", "lb_fused", "dtw_merge")):
+        fail(f"untuned kim_webb: expected the host loop, one lb_kim launch per block "
+             f"({sw.blocks_total} blocks) and no lb_kim_features, lb_fused or dtw_merge "
+             f"launch, got {got}")
+    same(webb, base, "untuned kim_webb")
+    if (tuple(sw.stage_pruned[:2]) != tuple(s0.stage_pruned[:2])
+            or sw.blocks_lb2 != s0.blocks_lb2):
+        fail(f"untuned kim_webb: LB_Kim and LB_Keogh pruned {sw.stage_pruned[:2]} "
+             f"(blocks_lb2 {sw.blocks_lb2}) on the host loop against "
+             f"{s0.stage_pruned[:2]} ({s0.blocks_lb2}) in kim_improved's device loop")
+    log(f"[tuned] untuned kim_webb (host loop): {webb_s:.3f} s = {N_QUERIES / webb_s:.2f} "
+        f"qps; pruned {sw.pruned_by}, full_dtw {sw.full_dtw}; LB_Kim and LB_Keogh pruned as "
+        f"in kim_improved's loop; answers == the default session's; launches {got}")
 
     with use_table(TuneTable.with_defaults()):
         def tuned():

@@ -13,11 +13,14 @@ top-k and prunes against its own tightening bound.
   the whole query batch pooled into ``dtw_chunk``-sized DP launches, and
   a stable host argsort merge.  At p in {1, 2} an LB_Keogh stage
   followed by LB_Improved runs as one fused launch (K4) per block.  A
-  pipeline that is that fused step alone (``lb_improved``, the default)
-  runs its whole block loop on the tensors' device
-  (``fused_block_loop``): per block K4 writes each pair's stage, then K5
-  runs the survivors in place and, in the same launch, merges them into
-  the top-k and the counters, with no copy back until the loop ends.
+  pipeline that is that fused step alone (``lb_improved``, the default),
+  or LB_Kim then that step (``kim_improved``), runs its whole block loop
+  on the tensors' device (``fused_block_loop``): per block K4, with
+  LB_Kim as its entry for ``kim_improved``, writes each pair's stage,
+  then K5 runs the survivors in place and, in the same launch, merges
+  them into the top-k and the counters, with no copy back until the loop
+  ends.  Every other pipeline (``kim_webb``, ``lb_webb``, ``lb_keogh``,
+  ``full``) and p = inf take the host loop.
 
 Both take numpy arrays or tensors.  They run on the tensors' device, or
 on ``device`` (default: the GPU; ``RuntimeError`` when there is none).
@@ -283,14 +286,17 @@ def _host_steps(names: tuple[str, ...], p: PNorm) -> list[tuple[int, ...]]:
 
 
 def fused_block_loop(qs, db, upper, lower, w: int, p: PNorm, k: int, block: int,
-                     dtw_chunk: int, early_abandon: bool = False):
+                     dtw_chunk: int, early_abandon: bool = False, kim: bool = False):
     """The host driver's block loop for the fused LB_Keogh -> LB_Improved
-    pipeline, resident on the tensors' device.  Per block of ``block``
-    rows, in stream order and with no synchronisation:
+    pipeline (``lb_improved``), or with ``kim`` for LB_Kim -> that pair
+    (``kim_improved``), resident on the tensors' device.  Per block of
+    ``block`` rows, in stream order and with no synchronisation:
 
     1. K4 against each query's k-th best (a view of ``top_v``) writes
        each pair's stage (0 pruned by LB_Keogh, 1 by LB_Improved, 2
-       survivor, 255 a pad row of the tail block);
+       survivor, 255 a pad row of the tail block; with ``kim``, 0 pruned
+       by LB_Kim and the rest one higher, its query features computed by
+       K6's feature phase once before the loop);
     2. K5's masked-dense entry runs the DP on the survivors, abandoning
        against the same k-th best when ``early_abandon`` (an abandoned
        value is >= that bound, so it never enters the top-k), and in the
@@ -300,21 +306,22 @@ def fused_block_loop(qs, db, upper, lower, w: int, p: PNorm, k: int, block: int,
        them into ``dtw_chunk``-sized launches.
 
     Returns device tensors: top_v (Q, k) powered, top_i (Q, k), counts
-    (3, Q) (pruned by LB_Keogh, by LB_Improved, survivors) and totals
-    (blocks_lb2, blocks_dtw, dp_lane_work, dp_lane_useful).  On CPU
-    tensors every step is its kernel's plain version.
+    (n_lb + 1, Q) (pruned by each LB stage, then survivors; n_lb = 2, or
+    3 with ``kim``) and totals (blocks_lb2, blocks_dtw, dp_lane_work,
+    dp_lane_useful).  On CPU tensors every step is its kernel's plain
+    version.
     """
     dev, dt = db.device, db.dtype
     nq, n = qs.shape
     n_db = db.shape[0]
     top_v = torch.full((nq, k), BIG, dtype=dt, device=dev)
     top_i = torch.full((nq, k), -1, dtype=torch.int64, device=dev)
-    counts = torch.zeros((3, nq), dtype=torch.int64, device=dev)
+    counts = torch.zeros((3 + int(kim), nq), dtype=torch.int64, device=dev)
     totals = torch.zeros(4, dtype=torch.int64, device=dev)
     stage = torch.empty((nq, block), dtype=torch.uint8, device=dev)
     dvals = torch.empty((nq, block), dtype=dt, device=dev)
     bound = top_v[:, -1]  # read by each launch: the k-th best so far
-    lbs = lb_fused_prepare(qs, upper, lower, w, bound, p, block, stage)
+    lbs = lb_fused_prepare(qs, upper, lower, w, bound, p, block, stage, kim=kim)
     dp_merge = dtw_masked_prepare(qs, w, p, stage, bound if early_abandon else None, dvals,
                                   merge=(top_v, top_i, counts, totals, dtw_chunk))
     for lo in range(0, n_db, block):
@@ -356,7 +363,8 @@ def nn_search_host(
     pair is one ``lb_fused_qbatch_op`` per block against each query's
     k-th best, copied to the host once: its masks are ``lb1 < bound``,
     then ``lb < bound``, as the two stages would give.  When that fused
-    pair is the whole pipeline, the loop runs on the device instead
+    pair is the whole pipeline (``lb_improved``), or LB_Kim then that
+    pair (``kim_improved``), the loop runs on the device instead
     (``fused_block_loop``) with the same answers and counters.
     ``early_abandon`` additionally stops each DP once its band clears
     the running bound.
@@ -370,12 +378,14 @@ def nn_search_host(
     lb_names = pipe.lb_stage_names(method)
     steps = _host_steps(lb_names, p)
     nb = -(-n_db // block)
-    if steps == [(0, 1)]:
+    kim = steps == [(0,), (1, 2)] and lb_names[0] == "lb_kim"
+    if steps == [(0, 1)] or kim:
         top_v, top_i, counts, totals = _to_host(*fused_block_loop(
-            qs, db_t, upper, lower, w, p, k, block, dtw_chunk, early_abandon
+            qs, db_t, upper, lower, w, p, k, block, dtw_chunk, early_abandon, kim=kim
         ))
+        n_lb = len(lb_names)
         agg, per_query = _batch_stats(
-            n_db, lb_names, counts[:2], counts[2], totals[0], totals[1],
+            n_db, lb_names, counts[:n_lb], counts[n_lb], totals[0], totals[1],
             blocks_total=nb, dp_lane_work=totals[2], dp_lane_useful=totals[3],
         )
         distances = finish_cost(torch.as_tensor(top_v), p).numpy()

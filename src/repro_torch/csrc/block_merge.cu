@@ -31,27 +31,29 @@ __global__ void block_merge_kernel(MergeOut<T> m, const uint8_t* __restrict__ st
 }  // namespace repro
 
 // top_v (Q, k) ascending and top_i (Q, k), updated in place; stage (Q, nb)
-// uint8; dvals (Q, nb); counts (3, Q) and totals (4,) int64, added to;
-// k >= 1, dtw_chunk >= 1.  One block of min(Q, 32) warps.
+// uint8, n_lb (1..3) the survivors' code; dvals (Q, nb); counts
+// (n_lb + 1, Q) and totals (4,) int64, added to; k >= 1, dtw_chunk >= 1.
+// One block of min(Q, 32) warps.
 extern "C" int repro_block_merge(int dtype, void* top_v, int64_t* top_i, int k,
                                  const uint8_t* stage, const void* dvals,
                                  int64_t nq, int64_t nb, int64_t lo, int dtw_chunk,
-                                 int64_t* counts, int64_t* totals, void* stream) {
+                                 int n_lb, int64_t* counts, int64_t* totals,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nq == 0) return (int)cudaGetLastError();
-  if (k < 1 || dtw_chunk < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || dtw_chunk < 1 || n_lb < 1 || n_lb > 3) return (int)cudaErrorInvalidValue;
   const unsigned threads = 32 * (unsigned)(nq < 32 ? nq : 32);
   switch (dtype) {
     case 0:
       repro::block_merge_kernel<float><<<1, threads, 0, s>>>(
           repro::MergeOut<float>{static_cast<float*>(top_v), top_i, counts, totals, k,
-                                 dtw_chunk, lo},
+                                 dtw_chunk, lo, n_lb},
           stage, static_cast<const float*>(dvals), nq, nb);
       break;
     case 1:
       repro::block_merge_kernel<double><<<1, threads, 0, s>>>(
           repro::MergeOut<double>{static_cast<double*>(top_v), top_i, counts, totals, k,
-                                  dtw_chunk, lo},
+                                  dtw_chunk, lo, n_lb},
           stage, static_cast<const double*>(dvals), nq, nb);
       break;
     default:

@@ -3,16 +3,18 @@
 // and of the merge epilogue of K5's masked entry (dtw.cu).
 //
 // For one block of nb candidate rows starting at database row `lo`, with
-// K4's stage (Q, nb) (0 pruned by LB_Keogh, 1 by LB_Improved, 2 survivor,
-// 255 a pad row) and K5's DP values dvals (Q, nb), read only where the
-// stage is 2:
+// K4's stage (Q, nb) and K5's DP values dvals (Q, nb), read only where the
+// stage is `live`, the pipeline's number of LB stages: stage s < live is
+// a pair pruned by LB stage s (2 stages: LB_Keogh, LB_Improved; 3: LB_Kim
+// first), `live` a survivor, 255 a pad row:
 //   * query q's top-k (top_v, top_i, ascending) takes the block's
 //     survivors as a stable sort of [top-k, survivors in row order] would:
 //     on equal values the earlier position wins, so an entry already in
 //     the top-k beats a new one and a lower row beats a higher one;
-//   * counts (3, Q) += the pairs pruned by LB_Keogh, by LB_Improved and
-//     the survivors of each query;
-//   * totals (4,) += [any real pair survived LB_Keogh, ceil(S / dtw_chunk),
+//   * counts (live + 1, Q) += the pairs pruned by each LB stage and the
+//     survivors of each query;
+//   * totals (4,) += [any real pair survived the first LB stage (a stage
+//     from 1 to 254), ceil(S / dtw_chunk),
 //     dtw_chunk * ceil(S / dtw_chunk), S] with S the block's survivors:
 //     blocks_lb2, blocks_dtw, dp_lane_work and dp_lane_useful of the
 //     host loop that pooled the survivors into dtw_chunk-sized launches.
@@ -32,11 +34,12 @@ namespace repro {
 template <typename T> struct MergeOut {
   T* top_v;         // (Q, k), ascending; nullptr: no merge
   int64_t* top_i;   // (Q, k)
-  int64_t* counts;  // (3, Q)
+  int64_t* counts;  // (live + 1, Q)
   int64_t* totals;  // (4,)
   int k;
   int dtw_chunk;
   int64_t lo;       // database row of the block's first candidate
+  int live;         // the survivors' stage: the number of LB stages, 1..3
 };
 
 // Merge query q of nq on one warp (every lane calls it; lane 0 writes).
@@ -50,17 +53,18 @@ __device__ void merge_query(const MergeOut<T>& m, const uint8_t* __restrict__ st
   int64_t* ti = m.top_i + q * m.k;
   const uint8_t* st = stage + q * nb;
   const T* dv = dvals + q * nb;
-  int64_t c0 = 0, c1 = 0, c2 = 0;
+  int64_t pruned[3] = {0, 0, 0}, survivors = 0;
   T kth = tv[m.k - 1];
   for (int64_t b0 = 0; b0 < nb; b0 += 32) {
     const int64_t b = b0 + lane;
     const int s = b < nb ? st[b] : 255;
     const T raw = b < nb ? __ldcg(dv + b) : T(0);  // a dead slot's value is never used
-    c0 += __popc(__ballot_sync(0xffffffffu, s == 0));
-    c1 += __popc(__ballot_sync(0xffffffffu, s == 1));
-    unsigned live = __ballot_sync(0xffffffffu, s == 2);
-    c2 += __popc(live);
-    const T v = s == 2 ? raw : T(0);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (j < m.live) pruned[j] += __popc(__ballot_sync(0xffffffffu, s == j));
+    unsigned live = __ballot_sync(0xffffffffu, s == m.live);
+    survivors += __popc(live);
+    const T v = s == m.live ? raw : T(0);
     while (live) {  // survivors in row order
       const int src = __ffs(live) - 1;
       live &= live - 1;
@@ -85,16 +89,18 @@ __device__ void merge_query(const MergeOut<T>& m, const uint8_t* __restrict__ st
     }
   }
   if (lane == 0) {
-    m.counts[q] += c0;
-    m.counts[nq + q] += c1;
-    m.counts[2 * nq + q] += c2;
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (j < m.live) m.counts[j * nq + q] += pruned[j];
+    m.counts[m.live * nq + q] += survivors;
   }
 }
 
 // The block's totals from its whole stage (nslots = Q * nb values) on
-// one warp: S survivors (stage 2) and whether any real pair reached
-// LB_Improved (stage 1 or 2).  Integers only, so it matters not when or
-// where it runs.  Not inlined, so K5's instances share one copy per T.
+// one warp: S survivors (stage m.live) and whether any real pair reached
+// the second LB stage (a stage from 1 to 254).  Integers only, so it
+// matters not when or where it runs.  Not inlined, so K5's instances
+// share one copy per T.
 template <typename T>
 __device__ __noinline__ void add_block_totals(const MergeOut<T>& m, const uint8_t* __restrict__ stage,
                                  int64_t nslots, int lane) {
@@ -103,8 +109,8 @@ __device__ __noinline__ void add_block_totals(const MergeOut<T>& m, const uint8_
 #pragma unroll 4
   for (int64_t i = lane; i < nslots; i += 32) {
     const int v = stage[i];
-    s += v == 2;
-    reached |= v == 1 || v == 2;
+    s += v == m.live;
+    reached |= v >= 1 && v < 255;
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

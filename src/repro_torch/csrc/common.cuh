@@ -28,6 +28,23 @@ template <> __device__ __forceinline__ double pos_inf<double>() { return CUDART_
 template <typename T> __device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
 template <typename T> __device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
 
+// A sum and a product rounded on their own: no fused multiply-add may
+// join them, so a kernel keeps the bits of its plain PyTorch version.
+template <typename T> __device__ __forceinline__ T add_rn(T a, T b);
+template <> __device__ __forceinline__ float add_rn<float>(float a, float b) {
+  return __fadd_rn(a, b);
+}
+template <> __device__ __forceinline__ double add_rn<double>(double a, double b) {
+  return __dadd_rn(a, b);
+}
+template <typename T> __device__ __forceinline__ T mul_rn(T a, T b);
+template <> __device__ __forceinline__ float mul_rn<float>(float a, float b) {
+  return __fmul_rn(a, b);
+}
+template <> __device__ __forceinline__ double mul_rn<double>(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
 // Elementwise cost of a non-negative difference: d, d*d, or d (p = inf).
 template <typename T, int P> __device__ __forceinline__ T cost_of(T d) {
   return P == 2 ? d * d : d;

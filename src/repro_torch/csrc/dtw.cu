@@ -70,21 +70,6 @@ constexpr int LONG_ROWS = -1;
 // clamp turns into BIG).
 template <typename T> __device__ __forceinline__ T row_pad() { return T(1.0e35); }
 
-template <typename T> __device__ __forceinline__ T add_rn(T a, T b);
-template <> __device__ __forceinline__ float add_rn<float>(float a, float b) {
-  return __fadd_rn(a, b);
-}
-template <> __device__ __forceinline__ double add_rn<double>(double a, double b) {
-  return __dadd_rn(a, b);
-}
-template <typename T> __device__ __forceinline__ T mul_rn(T a, T b);
-template <> __device__ __forceinline__ float mul_rn<float>(float a, float b) {
-  return __fmul_rn(a, b);
-}
-template <> __device__ __forceinline__ double mul_rn<double>(double a, double b) {
-  return __dmul_rn(a, b);
-}
-
 // min and max as one FMNMX / DMNMX each.  They differ from tmin / tmax
 // only on NaN and on the sign of zero, and neither occurs in the DP: every
 // value is +0 or positive (costs are |q - c| or its square, BIG is
@@ -394,8 +379,9 @@ __device__ __noinline__ void merge_epilogue(const MergeOut<T>& m,
 }
 
 // One warp per pair.  With `stage` and merge.top_v (the masked-dense
-// entry) a slot whose stage is not 2 skips the DP before it reads a row,
-// and leaves its out value as it was; every slot then takes its ticket
+// entry) a slot whose stage is not merge.live (a survivor's) skips the DP
+// before it reads a row, and leaves its out value as it was; every slot
+// then takes its ticket
 // for the merge epilogue, and one block past the last slot adds the
 // block's totals from the stage.  The pair-list entry passes neither.
 // The bound of a pair is bounds[pair], or bounds[q * bound_qstride] when
@@ -417,7 +403,7 @@ dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
     return;
   }
   const int64_t q = qidx ? qidx[pair] : pair / bstride;
-  if (!stage || stage[pair] == 2) {
+  if (!stage || stage[pair] == merge.live) {
     const int64_t c = cidx ? cidx[pair] : pair % bstride;
     const bool check = bounds != nullptr;
     const T bound =
@@ -521,13 +507,13 @@ extern "C" int repro_dtw(int dtype, int pcode, const void* qs, const void* cands
 
 // The masked-dense entry of the host driver's device-resident loop: slot
 // s = q * nb + b runs query q against candidate row b of `cands` (nb rows)
-// when stage[s] == 2 (a survivor of K4) and writes out[s]; every other
-// slot's warp skips the DP before it reads a row, and its out[s] is left
-// as it was.  bounds[q * bound_stride] is query q's powered abandon bound,
-// or bounds is nullptr for no abandon test.  The same launch then merges
-// the block starting at database row lo into top_v (Q, k), top_i, counts
-// (3, Q) and totals (4,) as repro_block_merge does (block_merge.cuh), bit
-// for bit; `workspace` holds Q zeros (unsigned 64-bit), left so, then,
+// when stage[s] == n_lb (a survivor of K4's n_lb LB stages, 2 or 3) and
+// writes out[s]; every other slot's warp skips the DP before it reads a
+// row, and its out[s] is left as it was.  bounds[q * bound_stride] is
+// query q's powered abandon bound, or bounds is nullptr for no abandon
+// test.  The same launch then merges the block starting at database row
+// lo into top_v (Q, k), top_i, counts (n_lb + 1, Q) and totals (4,) as
+// repro_block_merge does (block_merge.cuh), bit for bit; `workspace` holds Q zeros (unsigned 64-bit), left so, then,
 // where the long-row path keeps its diagonals there, the
 // repro_dtw_workspace bytes of Q * nb pairs.
 extern "C" int repro_dtw_masked(int dtype, int pcode, const void* qs,
@@ -535,17 +521,17 @@ extern "C" int repro_dtw_masked(int dtype, int pcode, const void* qs,
                                 const void* bounds, int64_t bound_stride,
                                 int64_t nq, int64_t nb, int n, int w, void* out,
                                 void* top_v, int64_t* top_i, int k, int64_t lo,
-                                int dtw_chunk, int64_t* counts, int64_t* totals,
-                                void* workspace, void* stream) {
+                                int dtw_chunk, int n_lb, int64_t* counts,
+                                int64_t* totals, void* workspace, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nq * nb == 0) return (int)cudaGetLastError();
   if (stage == nullptr || (bounds != nullptr && bound_stride < 1) || top_v == nullptr ||
-      top_i == nullptr || k < 1 || dtw_chunk < 1 || counts == nullptr ||
-      totals == nullptr || workspace == nullptr)
+      top_i == nullptr || k < 1 || dtw_chunk < 1 || n_lb < 1 || n_lb > 3 ||
+      counts == nullptr || totals == nullptr || workspace == nullptr)
     return (int)cudaErrorInvalidValue;
   REPRO_DISPATCH(dtype, pcode,
     const repro::MergeOut<T> m{static_cast<T*>(top_v), top_i, counts, totals, k,
-                               dtw_chunk, lo};
+                               dtw_chunk, lo, n_lb};
     cudaError_t err = dtw_dispatch<T, P>(
         static_cast<const T*>(qs), static_cast<const T*>(cands), nullptr, nullptr,
         stage, static_cast<const T*>(bounds), bound_stride, nq * nb, nb, n, w,

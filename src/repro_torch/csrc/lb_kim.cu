@@ -4,92 +4,140 @@
 // lb_kim_qbatch_pallas (_lb_kim_qbatch_kernel).
 //
 // For each (query q, candidate c) pair, from the four features first,
-// last, max and min:
-//   d_first = cost(|c_0 - q_0|),  d_last = cost(|c_{n-1} - q_{n-1}|),
-//   d_max   = cost(|max c - max q|),  d_min = cost(|min c - min q|),
-//   lb = max(d_first + d_last, max(d_max, d_min))   for p in {1, 2},
-//   lb = max(d_first, d_last, d_max, d_min)         for p = inf,
-// with cost(d) = d, or d * d at p = 2.  Lanes whose entry mask is 0 get
-// BIG (1e30), so they stay dead downstream.
+// last, max and min of each row, the powered LB_Kim of kim.cuh
+// (kim_bound); lanes whose entry mask is 0 get BIG (1e30), so they stay
+// dead downstream.
 //
-// Bound on this card: bytes.  Each pair reads its candidate and query rows
-// once and writes one value; the work is two max/min reductions.
-// Design: one warp per pair, `warps` pairs per block (the tune knob
-// tile_b; it changes no result).  Lanes stride both rows and a shuffle
-// reduces the four extrema.  Max, min and abs are exact, and the cost
-// product and the first + last sum are rounded on their own (no fused
-// multiply-add), so the result is bit-equal to the plain version
-// (repro.core.lb.lb_kim_powered_qbatch) whatever the reduction order.
-#include "common.cuh"
+// Bound on this card: bytes.  The work needs each candidate and query row
+// read once, (Q + B) n values, and one value written per pair; the
+// features make the pairs O(1) each.  Design: two phases in one launch.
+// Phase 1 gives each row one warp (`warps` rows per block, the tune knob
+// tile_b; it changes no result): candidates first, then queries, spread
+// over (B + Q) / warps blocks, each row reduced to its features by
+// row_extrema (16-byte loads where the row is aligned, all of a lane's
+// loads in flight at once) into the caller's workspace.  Phase 2 runs in
+// the last block to finish phase 1: each block takes a ticket once its
+// features are written (lane 0 of each warp fences its stores, then
+// thread 0 adds 1 to the ticket with acquire and release semantics, the
+// pattern of K5's merge epilogue), and the block that takes the last
+// ticket resets it, stages the queries' features in shared memory and
+// writes every (q, c) lane, a thread per candidate and query group, the
+// candidate's features read once through L2.  So the op is one launch with
+// no host synchronisation, and reads each row once instead of once per
+// pair.  repro_lb_kim_features runs phase 1 alone: the query features of
+// K4's kim entry.
+#include "kim.cuh"
 
 namespace repro {
 
-template <typename T> __device__ __forceinline__ T mul_rn(T a, T b);
-template <> __device__ __forceinline__ float mul_rn<float>(float a, float b) { return __fmul_rn(a, b); }
-template <> __device__ __forceinline__ double mul_rn<double>(double a, double b) { return __dmul_rn(a, b); }
-template <typename T> __device__ __forceinline__ T add_rn(T a, T b);
-template <> __device__ __forceinline__ float add_rn<float>(float a, float b) { return __fadd_rn(a, b); }
-template <> __device__ __forceinline__ double add_rn<double>(double a, double b) { return __dadd_rn(a, b); }
+// Queries whose features the last block holds in shared memory at a time.
+constexpr int KIM_QTILE = 128;
 
-template <typename T, int P> __device__ __forceinline__ T kim_cost(T a, T b) {
-  const T diff = a - b;
-  const T d = diff < T(0) ? -diff : diff;
-  return P == 2 ? mul_rn(d, d) : d;
-}
-
+// Rows r < nb are cands[r], rows nb <= r < nb + nq are qs[r - nb]; the
+// features of row r go to feats[4 r .. 4 r + 3].  With a ticket (one
+// zeroed counter, left at 0), the last block then writes lb (Q, B).
 template <typename T, int P>
-__global__ void lb_kim_kernel(const T* __restrict__ cands,
-                              const T* __restrict__ qs,
-                              const uint8_t* __restrict__ mask, int64_t nq,
-                              int64_t nb, int n, T* __restrict__ lb) {
+__global__ void lb_kim_kernel(const T* __restrict__ cands, const T* __restrict__ qs,
+                              const uint8_t* __restrict__ mask, int64_t nq, int64_t nb,
+                              int n, T* feats, unsigned long long* ticket,
+                              T* __restrict__ lb) {
   const int lane = threadIdx.x & 31;
-  const int64_t pair = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (pair >= nq * nb) return;
-  if (mask && !mask[pair]) {
-    if (lane == 0) lb[pair] = big<T>();
-    return;
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r < nb + nq) {  // no return: every thread reaches the barriers below
+    const T* row = r < nb ? cands + r * n : qs + (r - nb) * n;
+    T mx, mn;
+    row_extrema(row, n, lane, mx, mn);
+    if (lane == 0) {
+      T* f = feats + 4 * r;
+      f[KIM_FIRST] = row[0];
+      f[KIM_LAST] = row[n - 1];
+      f[KIM_MAX] = mx;
+      f[KIM_MIN] = mn;
+      if (ticket) __threadfence();  // the features before the block's ticket
+    }
   }
-  const T* cr = cands + (pair % nb) * n;
-  const T* qr = qs + (pair / nb) * n;
-  T cmax = -pos_inf<T>(), cmin = pos_inf<T>();
-  T qmax = -pos_inf<T>(), qmin = pos_inf<T>();
-  for (int i = lane; i < n; i += 32) {
-    const T c = cr[i], q = qr[i];
-    cmax = tmax(cmax, c);
-    cmin = tmin(cmin, c);
-    qmax = tmax(qmax, q);
-    qmin = tmin(qmin, q);
+  if (!ticket) return;
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long old;
+    asm volatile("atom.add.acq_rel.gpu.u64 %0, [%1], %2;"
+                 : "=l"(old) : "l"(ticket), "l"(1ull) : "memory");
+    last = old == (unsigned long long)(gridDim.x - 1);
+    if (last) *ticket = 0;  // every block has taken its ticket
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    cmax = tmax(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
-    cmin = tmin(cmin, __shfl_xor_sync(0xffffffffu, cmin, off));
-    qmax = tmax(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
-    qmin = tmin(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+  __syncthreads();
+  if (!last) return;
+  // phase 2: candidate c on `cols` threads' columns, the queries of a tile
+  // split over `groups` rows of threads
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int cols = nb < nthreads ? (int)nb : nthreads;
+  const int groups = nthreads / cols;
+  const int g = tid / cols, c0 = tid % cols;
+  __shared__ T qf[4 * KIM_QTILE];
+  for (int64_t q0 = 0; q0 < nq; q0 += KIM_QTILE) {
+    const int qn = (int)(nq - q0 < KIM_QTILE ? nq - q0 : KIM_QTILE);
+    for (int i = tid; i < 4 * qn; i += nthreads) qf[i] = __ldcg(feats + 4 * (nb + q0) + i);
+    __syncthreads();
+    if (g < groups) {
+      for (int64_t c = c0; c < nb; c += cols) {
+        const T* cf = feats + 4 * c;
+        const T cfirst = __ldcg(cf + KIM_FIRST), clast = __ldcg(cf + KIM_LAST);
+        const T cmax = __ldcg(cf + KIM_MAX), cmin = __ldcg(cf + KIM_MIN);
+        for (int j = g; j < qn; j += groups) {
+          const int64_t pair = (q0 + j) * nb + c;
+          lb[pair] = mask && !mask[pair]
+                         ? big<T>()
+                         : kim_bound<T, P>(cfirst, clast, cmax, cmin, qf + 4 * j);
+        }
+      }
+    }
+    __syncthreads();  // qf is rewritten for the next tile
   }
-  if (lane != 0) return;
-  const T d_first = kim_cost<T, P>(cr[0], qr[0]);
-  const T d_last = kim_cost<T, P>(cr[n - 1], qr[n - 1]);
-  const T d_ext = tmax(kim_cost<T, P>(cmax, qmax), kim_cost<T, P>(cmin, qmin));
-  lb[pair] = P == 0 ? tmax(tmax(d_first, d_last), d_ext)
-                    : tmax(add_rn(d_first, d_last), d_ext);
 }
 
 }  // namespace repro
 
-// cands (B, n); qs (Q, n); mask (Q, B) bytes or nullptr (all live);
-// lb (Q, B).
-extern "C" int repro_lb_kim(int dtype, int pcode, const void* cands,
-                            const void* qs, const uint8_t* mask, int64_t nq,
-                            int64_t nb, int n, int warps, void* lb,
-                            void* stream) {
+// cands (B, n); qs (Q, n); mask (Q, B) bytes or nullptr (all live); feats
+// 4 (B + Q) values of workspace; ticket one unsigned 64-bit zero, left so;
+// lb (Q, B).  warps 1..32 rows per block.
+extern "C" int repro_lb_kim(int dtype, int pcode, const void* cands, const void* qs,
+                            const uint8_t* mask, int64_t nq, int64_t nb, int n, int warps,
+                            void* feats, void* ticket, void* lb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nq * nb == 0) return (int)cudaGetLastError();
-  if (warps < 1 || warps > 32) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((nq * nb + warps - 1) / warps);
+  if (warps < 1 || warps > 32 || n < 1 || feats == nullptr || ticket == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((nq + nb + warps - 1) / warps);
   REPRO_DISPATCH(dtype, pcode,
     repro::lb_kim_kernel<T, P><<<blocks, 32 * warps, 0, s>>>(
-        static_cast<const T*>(cands), static_cast<const T*>(qs), mask, nq, nb,
-        n, static_cast<T*>(lb)));
+        static_cast<const T*>(cands), static_cast<const T*>(qs), mask, nq, nb, n,
+        static_cast<T*>(feats), static_cast<unsigned long long*>(ticket),
+        static_cast<T*>(lb)));
+  return (int)cudaGetLastError();
+}
+
+// rows (R, n) -> feats (R, 4): (first, last, max, min) of each row, K6's
+// phase 1 alone.  warps 1..32 rows per block.
+extern "C" int repro_lb_kim_features(int dtype, const void* rows, int64_t nrows, int n,
+                                     int warps, void* feats, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nrows == 0) return (int)cudaGetLastError();
+  if (warps < 1 || warps > 32 || n < 1) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((nrows + warps - 1) / warps);
+  switch (dtype) {
+    case 0:
+      repro::lb_kim_kernel<float, 1><<<blocks, 32 * warps, 0, s>>>(
+          static_cast<const float*>(rows), nullptr, nullptr, 0, nrows, n,
+          static_cast<float*>(feats), nullptr, nullptr);
+      break;
+    case 1:
+      repro::lb_kim_kernel<double, 1><<<blocks, 32 * warps, 0, s>>>(
+          static_cast<const double*>(rows), nullptr, nullptr, 0, nrows, n,
+          static_cast<double*>(feats), nullptr, nullptr);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

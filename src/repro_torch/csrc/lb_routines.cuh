@@ -27,18 +27,30 @@ constexpr int KEOGH_BATCH = 8;
 // Pass 1 on one warp: lanes stride the row (coalesced), accumulate the
 // powered LB_Keogh terms of candidate row cr against the envelope rows
 // ur, lr, and write the projection H = clip(c, L, U) to hr.  Returns the
-// warp-reduced bound in every lane.
-template <typename T, int P>
+// warp-reduced bound in every lane.  With EXT the same sweep also takes
+// the row's max and min into mx and mn (every lane; K4's kim entry),
+// which changes no term of the bound.
+template <typename T, int P, bool EXT = false>
 __device__ __forceinline__ T keogh_pair(const T* __restrict__ cr,
                                         const T* __restrict__ ur,
                                         const T* __restrict__ lr,
-                                        T* __restrict__ hr, int n, int lane) {
+                                        T* __restrict__ hr, int n, int lane,
+                                        T* mx = nullptr, T* mn = nullptr) {
   T acc = T(0);
+  T hi = -pos_inf<T>(), lo = pos_inf<T>();
   for (int i = lane; i < n; i += 32) {
     const T v = cr[i], uu = ur[i], ll = lr[i];
     const T d = tmax(v - uu, T(0)) + tmax(ll - v, T(0));
     acc = combine<T, P>(acc, cost_of<T, P>(d));
     hr[i] = tmin(tmax(v, ll), uu);
+    if constexpr (EXT) {
+      hi = tmax(hi, v);
+      lo = tmin(lo, v);
+    }
+  }
+  if constexpr (EXT) {
+    *mx = warp_reduce<T, 0>(hi);
+    *mn = warp_min(lo);
   }
   return warp_reduce<T, P>(acc);
 }

@@ -5,7 +5,8 @@ projection H) and its stream form ``lb_keogh_stream`` (K7),
 ``lb_improved_pass2`` (K3, pass 2 over H), ``lb_fused`` (K4, both passes
 one warp per pair, pass 2 predicated on the bound), ``dtw`` (K5, the
 banded DP with per-lane abandoning, also in a masked-dense form),
-``lb_kim`` (K6) and ``block_merge`` (the host driver's top-k merge and
+``lb_kim`` (K6; ``lb_kim_features`` counts the launches of its feature
+phase alone, the query features of K4's kim entry) and ``block_merge`` (the host driver's top-k merge and
 counters on the device, no TPU counterpart).  ``dtw_merge`` counts the
 launches of K5's masked entry with the merge as its epilogue, the host
 driver's loop's second launch per block.  Each package holds
@@ -23,7 +24,7 @@ from repro_torch.kernels.envelope.ops import envelope_launch
 from repro_torch.kernels.lb_fused.ops import lb_fused_launch
 from repro_torch.kernels.lb_improved.ops import lb_improved_pass2_launch
 from repro_torch.kernels.lb_keogh.ops import lb_keogh_launch, lb_keogh_stream_launch
-from repro_torch.kernels.lb_kim.ops import lb_kim_launch
+from repro_torch.kernels.lb_kim.ops import lb_kim_features_launch, lb_kim_launch
 
 #: kernel name -> its launch function (which carries ``.launches``)
 LAUNCHERS = {
@@ -33,6 +34,7 @@ LAUNCHERS = {
     "dtw": dtw_launch,
     "lb_fused": lb_fused_launch,
     "lb_kim": lb_kim_launch,
+    "lb_kim_features": lb_kim_features_launch,
     "lb_keogh_stream": lb_keogh_stream_launch,
     "block_merge": block_merge_launch,
     "dtw_merge": dtw_merge_launch,

@@ -7,16 +7,18 @@ for the reference's host merge, ``repro/core/cascade.py::nn_search_host``
 values of its survivors).  It keeps the device-resident block loop of
 ``repro_torch.core.cascade`` on the card.  For one block of B candidate
 rows starting at database row ``lo``, given K4's ``stage`` (Q, B) and
-K5's DP values ``dvals`` (Q, B), read only where the stage is 2, it
-updates in place:
+K5's DP values ``dvals`` (Q, B), read only where the stage is the
+survivors' code, it updates in place:
 
 * ``top_v``/``top_i`` (Q, k): the stable top-k of [top-k, survivors in
   row order], so an equal value never displaces an entry and a lower row
   wins a tie;
-* ``counts`` (3, Q) int64: pairs pruned by LB_Keogh, by LB_Improved, and
-  survivors, per query;
-* ``totals`` (4,) int64: blocks_lb2 (1 if any real pair survived
-  LB_Keogh), blocks_dtw (ceil(S / dtw_chunk) for S survivors),
+* ``counts`` (n_lb + 1, Q) int64: per query, the pairs pruned by each of
+  the pipeline's n_lb LB stages (2: LB_Keogh, LB_Improved; 3: LB_Kim
+  first), then the survivors.  Its rows give n_lb: stage s < n_lb is a
+  pair pruned by LB stage s, stage n_lb a survivor, 255 a pad row;
+* ``totals`` (4,) int64: blocks_lb2 (1 if any real pair survived the
+  first LB stage), blocks_dtw (ceil(S / dtw_chunk) for S survivors),
   dp_lane_work (dtw_chunk times that) and dp_lane_useful (S).
 
 The plain version is a torch stable sort; the kernel is bit-equal to it.
@@ -41,7 +43,8 @@ def block_merge_plain(top_v, top_i, counts, totals, stage, dvals, lo: int,
     in place (no host synchronisation)."""
     nq, k = top_v.shape
     nb = stage.shape[1]
-    live = stage == 2
+    n_lb = counts.shape[0] - 1
+    live = stage == n_lb
     cand = torch.where(live, dvals.reshape(nq, nb), math.inf)
     rows = torch.arange(lo, lo + nb, dtype=torch.int64, device=top_i.device)
     all_v = torch.cat([top_v, cand.to(top_v.dtype)], dim=1)
@@ -49,12 +52,11 @@ def block_merge_plain(top_v, top_i, counts, totals, stage, dvals, lo: int,
     sel = torch.argsort(all_v, dim=1, stable=True)[:, :k]
     top_v.copy_(torch.gather(all_v, 1, sel))
     top_i.copy_(torch.gather(all_i, 1, sel))
-    per_query = torch.stack([(stage == 0).sum(dim=1), (stage == 1).sum(dim=1),
-                             live.sum(dim=1)])
+    per_query = torch.stack([(stage == j).sum(dim=1) for j in range(n_lb + 1)])
     counts += per_query
-    s = per_query[2].sum()
+    s = per_query[n_lb].sum()
     chunks = (s + dtw_chunk - 1) // dtw_chunk
-    any_lb2 = (per_query[1] + per_query[2]).sum().gt(0).to(torch.int64)
+    any_lb2 = per_query[1:].sum().gt(0).to(torch.int64)
     totals += torch.stack([any_lb2, chunks, chunks * dtw_chunk, s])
 
 
@@ -65,7 +67,10 @@ def check_merge_buffers(top_v, top_i, counts, totals, nq: int, dtype, device,
     k = top_v.shape[-1]
     check_cuda_tensor("top_v", top_v, device, dtype, (nq, k))
     check_cuda_tensor("top_i", top_i, device, torch.int64, (nq, k))
-    check_cuda_tensor("counts", counts, device, torch.int64, (3, nq))
+    if counts.dim() != 2 or counts.shape[0] not in (3, 4):
+        raise ValueError(f"counts must be (n_lb + 1, {nq}) with 2 or 3 LB stages, "
+                         f"got {tuple(counts.shape)}")
+    check_cuda_tensor("counts", counts, device, torch.int64, (counts.shape[0], nq))
     check_cuda_tensor("totals", totals, device, torch.int64, (4,))
     if k < 1 or int(dtw_chunk) < 1:
         raise ValueError(f"k={k} and dtw_chunk={dtw_chunk} must be >= 1")
@@ -90,7 +95,7 @@ def block_merge_prepare(top_v, top_i, counts, totals, stage, dvals,
     fn = cuda_lib.library().repro_block_merge
     head = (kernel_dtype(top_v), top_v.data_ptr(), top_i.data_ptr(), k,
             stage.data_ptr(), dvals.data_ptr(), nq, nb)
-    tail = (int(dtw_chunk), counts.data_ptr(), totals.data_ptr(),
+    tail = (int(dtw_chunk), counts.shape[0] - 1, counts.data_ptr(), totals.data_ptr(),
             cuda_lib.stream_of(dev))
 
     def run(lo):

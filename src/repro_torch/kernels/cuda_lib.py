@@ -43,21 +43,25 @@ SIGNATURES = {
     "repro_lb_keogh_stream": [_INT, _INT, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P, _P, _P],
     # dtype, p, h, qs, qidx, rows, bstride, n, w, lb2, workspace, stream
     "repro_lb_improved_pass2": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
-    # dtype, p, cands, qs, upper, lower, bounds, bound_stride, nq, nb, n, w, tile_b,
-    # grid_bq, real, lb1, lb, stage, workspace, stream
-    "repro_lb_fused": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _INT,
-                       _INT, _I64, _P, _P, _P, _P, _P],
-    # dtype, p, cands, qs, mask, nq, nb, n, warps, lb, stream
-    "repro_lb_kim": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
+    # dtype, p, cands, qs, upper, lower, bounds, bound_stride, qfeat, nq, nb, n, w,
+    # tile_b, grid_bq, real, lb1, lb, stage, workspace, stream
+    "repro_lb_fused": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _INT, _INT,
+                       _INT, _INT, _I64, _P, _P, _P, _P, _P],
+    # dtype, p, cands, qs, mask, nq, nb, n, warps, feats, ticket, lb, stream
+    "repro_lb_kim": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P, _P],
+    # dtype, rows, nrows, n, warps, feats, stream
+    "repro_lb_kim_features": [_INT, _P, _I64, _INT, _INT, _P, _P],
     # dtype, p, qs, cands, qidx, cidx, bounds, npairs, bstride, n, w, out, workspace,
     # stream
     "repro_dtw": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
     # dtype, p, qs, cands, stage, bounds, bound_stride, nq, nb, n, w, out,
-    # top_v, top_i, k, lo, dtw_chunk, counts, totals, workspace, stream
+    # top_v, top_i, k, lo, dtw_chunk, n_lb, counts, totals, workspace, stream
     "repro_dtw_masked": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P,
-                         _P, _P, _INT, _I64, _INT, _P, _P, _P, _P],
-    # dtype, top_v, top_i, k, stage, dvals, nq, nb, lo, dtw_chunk, counts, totals, stream
-    "repro_block_merge": [_INT, _P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _P, _P, _P],
+                         _P, _P, _INT, _I64, _INT, _INT, _P, _P, _P, _P],
+    # dtype, top_v, top_i, k, stage, dvals, nq, nb, lo, dtw_chunk, n_lb, counts, totals,
+    # stream
+    "repro_block_merge": [_INT, _P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _INT, _P, _P,
+                          _P],
     # dtype, n, w -> K5's path: slots per lane, 0 shared memory, -1 long rows
     "repro_dtw_slots": [_INT, _INT, _INT],
 }

@@ -14,7 +14,9 @@ every lane runs the full DP.  p in {1, 2, inf}, float32 and float64.
 
 A masked-dense entry serves the host driver's device-resident block
 loop: slot (q, b) of a (Q, B) grid runs query q against candidate row b
-only where K4's stage is 2, with query q's bound read from a strided
+only where K4's stage is the survivors' code (the pipeline's number of
+LB stages, 2 or 3; the rows of the merge's counts give it), with query
+q's bound read from a strided
 column (the running k-th best); the other slots are neither read nor
 written.  The same launch ends with the block's merge into the loop's
 top-k and counters (``csrc/block_merge.cuh``, the routine of the
@@ -158,16 +160,16 @@ dtw_launch.launches = 0
 
 
 def dtw_masked_plain(qs, cands, stage, w: int, p=1, bounds=None, out=None,
-                     dp=dtw_plain):
+                     dp=dtw_plain, live: int = 2):
     """Plain version of the masked-dense entry: out[q, b] = ``dp`` of
-    query q against cands[b] where stage[q, b] == 2, with bound
+    query q against cands[b] where stage[q, b] == ``live``, with bound
     bounds[q] (a (Q,) tensor, any stride); other slots of ``out`` (Q, B)
     keep their values.  ``dp`` is ``dtw_plain`` (the CPU route) or
     ``dtw_wavefront_plain`` (the kernel's own arithmetic)."""
     nq, nb = stage.shape
     if out is None:
         out = torch.empty((nq, nb), dtype=qs.dtype, device=qs.device)
-    qi, ci = (stage == 2).nonzero(as_tuple=True)
+    qi, ci = (stage == live).nonzero(as_tuple=True)
     if qi.numel():
         b = None if bounds is None else bounds.reshape(-1)[qi]
         out[qi, ci] = dp(qs, cands, w, p, qi, ci, b)
@@ -177,9 +179,10 @@ def dtw_masked_plain(qs, cands, stage, w: int, p=1, bounds=None, out=None,
 def dtw_merge_plain(qs, cands, stage, w: int, p, bounds, out, top_v, top_i, counts,
                     totals, lo: int, dtw_chunk: int, dp=dtw_plain):
     """Plain version of the masked-dense entry with the merge:
-    ``dtw_masked_plain`` into ``out``, then ``block_merge_plain`` of the
+    ``dtw_masked_plain`` into ``out`` on the survivors' code that the
+    rows of ``counts`` give (n_lb + 1), then ``block_merge_plain`` of the
     block starting at database row ``lo``, all in place."""
-    dtw_masked_plain(qs, cands, stage, w, p, bounds, out, dp)
+    dtw_masked_plain(qs, cands, stage, w, p, bounds, out, dp, counts.shape[0] - 1)
     block_merge_plain(top_v, top_i, counts, totals, stage, out, lo, dtw_chunk)
     return out
 
@@ -189,7 +192,8 @@ def dtw_masked_prepare(qs, w: int, p, stage, bounds, out, merge):
     candidate rows: checks the queries, the ``stage`` and ``out`` buffers
     (Q, B), ``bounds`` (a (Q,) tensor of any stride read at each launch,
     or None) and ``merge`` = ``(top_v, top_i, counts, totals,
-    dtw_chunk)``, the buffers of ``block_merge_plain``, once and returns
+    dtw_chunk)``, the buffers of ``block_merge_plain`` (counts (n_lb + 1,
+    Q): the survivors' stage is n_lb), once and returns
     ``run(cands, lo=0)`` -> ``out``.  Each launch runs the DP of the live
     slots into ``out``, then merges the block, whose first candidate is
     database row ``lo``, into the merge buffers (bounds may be a column
@@ -224,8 +228,8 @@ def dtw_masked_prepare(qs, w: int, p, stage, bounds, out, merge):
     head = (kernel_dtype(qs), p_code(p), qs.data_ptr())
     mid = (stage.data_ptr(), cuda_lib.ptr(bounds), bstride, nq, nb, n, w, out.data_ptr(),
            top_v.data_ptr(), top_i.data_ptr(), top_v.shape[1])
-    tail = (int(dtw_chunk), counts.data_ptr(), totals.data_ptr(), workspace.data_ptr(),
-            cuda_lib.stream_of(dev))
+    tail = (int(dtw_chunk), counts.shape[0] - 1, counts.data_ptr(), totals.data_ptr(),
+            workspace.data_ptr(), cuda_lib.stream_of(dev))
 
     def run(cands, lo=0):
         check_cuda_tensor("cands", cands, dev, dt, (nb, n))

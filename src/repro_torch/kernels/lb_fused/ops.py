@@ -9,6 +9,11 @@ LB_Keogh for every lane, and the full LB_Improved where lb1 < bound
 (lb == lb1 elsewhere), and optionally each pair's cascade ``stage``
 (``lb_fused_stage_plain``).  It runs one warp per (query, candidate)
 pair: pass 2 of every live pair runs at once, and a dead pair skips it.
+Its kim entry (``kim=True``) puts LB_Kim first, the cascade
+``kim_improved`` at p in {1, 2}: the queries' features come from K6's
+feature phase once per prepared launcher, the candidate's max and min
+from pass 1's own sweep; a pair whose LB_Kim is >= the bound gets stage
+0 and skips pass 2 (lb == lb1), and the other stages move up by one.
 The projections H stay in shared memory.  lb1 is bit-equal to K2's
 LB_Keogh and lb to K2's plus K3's pass 2, the two kernels the host
 driver would otherwise launch (``csrc/lb_routines.cuh``).
@@ -51,6 +56,7 @@ from repro_torch.kernels.common import (
 )
 from repro_torch.kernels.lb_improved.ops import combine_passes, lb_improved_pass2_plain
 from repro_torch.kernels.lb_keogh.ops import lb_keogh_plain
+from repro_torch.kernels.lb_kim.ops import lb_kim_features_launch, lb_kim_plain
 from repro_torch.kernels.tuning.space import GRID_LAYOUTS
 from repro_torch.kernels.tuning.table import resolve_config
 
@@ -63,23 +69,31 @@ def _check_p(p):
         raise ValueError("kernel fast path supports p in {1, 2}")
 
 
-def lb_fused_plain(cands, qs, upper, lower, w: int, bounds, p=1):
+def lb_fused_plain(cands, qs, upper, lower, w: int, bounds, p=1, kim=None):
     """Plain PyTorch version: K2's and K3's plain versions, pass 2 kept
-    where lb1 < bound -> (lb1 (Q, B), lb (Q, B))."""
+    where lb1 < bound -> (lb1 (Q, B), lb (Q, B)).  ``kim`` (Q, B), the
+    pairs' LB_Kim of the kim entry, keeps pass 2 only where it is < bound
+    too."""
     _check_p(p)
     w = int(min(w, cands.shape[-1] - 1))
     lb1, h = lb_keogh_plain(cands, upper, lower, p)
     lb2 = lb_improved_pass2_plain(h, qs, w, p)
-    alive = lb1 < bounds.reshape(-1, 1)
+    b = bounds.reshape(-1, 1)
+    alive = lb1 < b if kim is None else (kim < b) & (lb1 < b)
     return lb1, torch.where(alive, combine_passes(lb1, lb2, p), lb1)
 
 
-def lb_fused_stage_plain(lb1, lb, bounds, real: int | None = None):
+def lb_fused_stage_plain(lb1, lb, bounds, real: int | None = None, kim=None):
     """Each pair's cascade stage (Q, B) uint8 from K4's outputs: 0 pruned
     by LB_Keogh (lb1 >= bound), 1 pruned by LB_Improved (lb >= bound), 2
-    a survivor; candidates at or past ``real`` get ``PAD_STAGE``."""
+    a survivor; candidates at or past ``real`` get ``PAD_STAGE``.  With
+    ``kim`` (Q, B), the pairs' LB_Kim, LB_Kim comes first: 0 pruned by
+    it (kim >= bound), then 1, 2 and 3 for the stages above."""
     b = bounds.reshape(-1, 1)
-    stage = torch.where(lb1 < b, torch.where(lb < b, 2, 1), 0).to(torch.uint8)
+    stage = torch.where(lb1 < b, torch.where(lb < b, 2, 1), 0)
+    if kim is not None:
+        stage = torch.where(kim < b, stage + 1, 0)
+    stage = stage.to(torch.uint8)
     if real is not None and real < stage.shape[1]:
         stage[:, real:] = PAD_STAGE
     return stage
@@ -144,14 +158,17 @@ def _check_bounds(bounds, dev, dt, nq):
 
 
 def lb_fused_prepare(qs, upper, lower, w: int, bounds, p, block: int, stage=None,
-                     tile_b=None, depth=None, grid=None):
+                     tile_b=None, depth=None, grid=None, kim: bool = False):
     """K4 for launches on blocks of ``block`` candidate rows: checks the
     queries, envelopes, ``bounds`` (a (Q,) tensor of any stride, read at
     each launch) and the optional ``stage`` buffer (Q, block) uint8 once,
     resolves the schedule once, and returns ``run(cands, real=block)`` ->
     (lb1, lb), two (Q, block) buffers it reuses; ``run`` also writes the
-    block's stage (rows past ``real`` are pad rows).  On CPU tensors
-    ``run`` is the plain version."""
+    block's stage (rows past ``real`` are pad rows).  ``kim`` takes the
+    kim entry, whose query features K6's feature phase computes here,
+    once.  On CPU tensors ``run`` is the plain version
+    (``lb_kim_plain``, then ``lb_fused_plain`` and
+    ``lb_fused_stage_plain``)."""
     _check_p(p)
     dev, dt = qs.device, qs.dtype
     nq, n = qs.shape
@@ -160,9 +177,10 @@ def lb_fused_prepare(qs, upper, lower, w: int, bounds, p, block: int, stage=None
         bounds = bounds.reshape(-1)
     if dev.type == "cpu":
         def run_plain(cands, real=block):
-            lb1, lb = lb_fused_plain(cands, qs, upper, lower, w, bounds, p)
+            kim_lb = lb_kim_plain(cands, qs, None, p) if kim else None
+            lb1, lb = lb_fused_plain(cands, qs, upper, lower, w, bounds, p, kim_lb)
             if stage is not None:
-                stage.copy_(lb_fused_stage_plain(lb1, lb, bounds, real))
+                stage.copy_(lb_fused_stage_plain(lb1, lb, bounds, real, kim_lb))
             return lb1, lb
 
         return run_plain
@@ -176,13 +194,14 @@ def lb_fused_prepare(qs, upper, lower, w: int, bounds, p, block: int, stage=None
     tile_b, grid = _schedule(block, n, w, qs.element_size(), tile_b, depth, grid)
     lb1 = torch.empty((nq, block), dtype=dt, device=dev)
     lb = torch.empty((nq, block), dtype=dt, device=dev)
+    qfeat = lb_kim_features_launch(qs) if kim else None
     # the long-row path's buffers, allocated once for every launch
     ws = cuda_lib.workspace("lb_fused", dev, kernel_dtype(qs), nq, block, n, w, tile_b,
                             int(grid == "bq"))
     fn = cuda_lib.library().repro_lb_fused
     head = (kernel_dtype(qs), p_code(p))
     mid = (qs.data_ptr(), upper.data_ptr(), lower.data_ptr(), bounds.data_ptr(),
-           bstride, nq, block, n, w, tile_b, int(grid == "bq"))
+           bstride, cuda_lib.ptr(qfeat), nq, block, n, w, tile_b, int(grid == "bq"))
     tail = (lb1.data_ptr(), lb.data_ptr(), cuda_lib.ptr(stage), cuda_lib.ptr(ws),
             cuda_lib.stream_of(dev))
 
@@ -194,21 +213,22 @@ def lb_fused_prepare(qs, upper, lower, w: int, bounds, p, block: int, stage=None
             lb_fused_launch.launches += 1
         return lb1, lb
 
-    run.tensors = (qs, upper, lower, bounds, stage, lb1, lb, ws)  # the pointers it holds
+    run.tensors = (qs, upper, lower, bounds, stage, lb1, lb, ws, qfeat)  # the pointers it holds
     return run
 
 
 def lb_fused_launch(cands, qs, upper, lower, w: int, bounds, p=1, tile_b=None,
                     depth=None, grid=None, *, stage: bool = False,
-                    real: int | None = None):
+                    real: int | None = None, kim: bool = False):
     """Launch K4 once on CUDA tensors, through ``lb_fused_prepare``;
     shapes follow lb_fused_plain.  With ``stage`` it returns (lb1, lb,
     stage) as ``lb_fused_stage_plain`` derives it; ``real`` (default B)
-    marks the rows past it as pad rows."""
+    marks the rows past it as pad rows; ``kim`` takes the kim entry."""
     check_cuda_tensor("qs", qs, cands.device, cands.dtype)
     nq, nb = qs.shape[0], cands.shape[0]
     st = torch.empty((nq, nb), dtype=torch.uint8, device=qs.device) if stage else None
-    run = lb_fused_prepare(qs, upper, lower, w, bounds, p, nb, st, tile_b, depth, grid)
+    run = lb_fused_prepare(qs, upper, lower, w, bounds, p, nb, st, tile_b, depth, grid,
+                           kim)
     lb1, lb = run(cands, nb if real is None else int(real))
     return (lb1, lb, st) if stage else (lb1, lb)
 

@@ -1,4 +1,4 @@
-"""LB_Kim: the K6 CUDA kernel's wrapper and plain version.
+"""LB_Kim: the K6 CUDA kernel's wrappers and plain versions.
 
 The kernel (``csrc/lb_kim.cu``) replaces the TPU kernel
 ``repro/kernels/lb_kim/kernel.py::lb_kim_qbatch_pallas``: the powered
@@ -7,9 +7,15 @@ features, for p in {1, 2, inf}, with an optional (Q, B) entry mask whose
 dead lanes (falsy, or <= 0 for a float mask) give BIG.  The kernel's
 result is bit-equal to the plain version's.
 
-``tile_b`` is the kernel's warps (pairs) per block; ``None`` resolves it
-from the active tune table.  A ragged B needs no padding: each warp masks
-its own pair.
+It runs in two phases in one launch: one warp per row reduces every
+candidate and query row to its four features, once, into a workspace;
+the last block to finish (a ticket, one zeroed counter per device and
+stream that each launch leaves at 0) then writes the (Q, B) lanes.
+``lb_kim_features_launch`` runs the first phase alone, rows (R, n) ->
+(R, 4): the query features of K4's kim entry (``kernels/lb_fused``).
+
+``tile_b`` is the kernel's warps (rows) per block; ``None`` resolves it
+from the active tune table.  It changes no bit.
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ from repro_torch.kernels.common import (
 )
 from repro_torch.kernels.tuning.table import resolve_config
 
+#: the ticket of each (device, stream): K6's last block finds itself by it
+_TICKETS: dict = {}
+
 
 def _live(mask):
     return mask if mask.dtype == torch.bool else mask > 0
@@ -38,6 +47,25 @@ def lb_kim_plain(cands, qs, mask=None, p=1):
     if mask is None:
         return lb
     return torch.where(_live(mask), lb, torch.full((), BIG, dtype=lb.dtype, device=lb.device))
+
+
+def lb_kim_features_plain(rows):
+    """Plain version of the feature phase: rows (R, n) -> (R, 4), each
+    row's first, last, max and min value."""
+    return torch.stack([rows[:, 0], rows[:, -1], rows.amax(dim=1), rows.amin(dim=1)], dim=1)
+
+
+def _warps(nb, n, tile_b):
+    if tile_b is None:
+        tile_b = resolve_config("lb_kim", b=nb, n=n, backend="cuda").tile_b
+    return warps_per_block(tile_b)
+
+
+def _ticket(dev):
+    key = (dev, cuda_lib.stream_of(dev))
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return _TICKETS[key]
 
 
 def lb_kim_launch(cands, qs, mask=None, p=1, tile_b=None):
@@ -53,13 +81,13 @@ def lb_kim_launch(cands, qs, mask=None, p=1, tile_b=None):
             raise ValueError(f"mask has shape {tuple(mask.shape)}, expected {(nq, nb)}")
         live = _live(mask).contiguous()
         check_cuda_tensor("mask", live, dev, torch.bool, (nq, nb))
-    if tile_b is None:
-        tile_b = resolve_config("lb_kim", b=nb, n=n, backend="cuda").tile_b
-    warps = warps_per_block(tile_b)
+    warps = _warps(nb, n, tile_b)
     lb = torch.empty((nq, nb), dtype=dt, device=dev)
+    feats = torch.empty((nb + nq, 4), dtype=dt, device=dev)
     code = cuda_lib.library().repro_lb_kim(
         kernel_dtype(cands), p_code(p), cands.data_ptr(), qs.data_ptr(),
-        cuda_lib.ptr(live), nq, nb, n, warps, lb.data_ptr(), cuda_lib.stream_of(dev),
+        cuda_lib.ptr(live), nq, nb, n, warps, feats.data_ptr(), _ticket(dev).data_ptr(),
+        lb.data_ptr(), cuda_lib.stream_of(dev),
     )
     cuda_lib.check("lb_kim", code)
     if nq * nb:
@@ -68,6 +96,25 @@ def lb_kim_launch(cands, qs, mask=None, p=1, tile_b=None):
 
 
 lb_kim_launch.launches = 0
+
+
+def lb_kim_features_launch(rows, tile_b=None):
+    """Launch K6's feature phase alone on a CUDA tensor (R, n) -> (R, 4)."""
+    dev = rows.device
+    nrows, n = rows.shape
+    check_cuda_tensor("rows", rows, dev, rows.dtype)
+    feats = torch.empty((nrows, 4), dtype=rows.dtype, device=dev)
+    code = cuda_lib.library().repro_lb_kim_features(
+        kernel_dtype(rows), rows.data_ptr(), nrows, n, _warps(nrows, n, tile_b),
+        feats.data_ptr(), cuda_lib.stream_of(dev),
+    )
+    cuda_lib.check("lb_kim_features", code)
+    if nrows:
+        lb_kim_features_launch.launches += 1
+    return feats
+
+
+lb_kim_features_launch.launches = 0
 
 
 def lb_kim_qbatch_op(cands, qs, mask=None, p=1, tile_b=None):

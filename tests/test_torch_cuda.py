@@ -8,7 +8,10 @@ envelope and H bit-equal, LB_Keogh rtol 1e-4, LB_Improved 2e-4, DP 3e-4
 against the reference's row DP.  The DP kernel (K5) is bit-equal to its
 wavefront plain version on every lane, finished or abandoned, and to
 ``core.dtw.dtw_banded_diag`` on finished ones.
-LB_Kim (K6) is bit-equal by design (exact max/min, no fused multiply-add);
+LB_Kim (K6: a warp per row for the features, then the last block's
+lanes) is bit-equal by design (exact max/min, no fused multiply-add), at
+any row alignment and every tile, as is K4's kim entry to LB_Kim, then K2
+plus K3 on the lanes LB_Kim leaves;
 the fused kernel (K4, one warp per pair) is bit-equal to LB_Keogh (K2)
 plus pass 2 (K3), because its pass-2 routine adds K3's terms in K3's
 order, and the stream entry (K7) to K2 on the copied windows; every
@@ -246,17 +249,32 @@ def envelopes(qs, w):
 
 @pytest.mark.parametrize("p", PS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_lb_kim_kernel_bit_equal(dev, p, dtype):
-    cands, qs = walks(dev, 30, 37, 300, dtype), walks(dev, 31, 6, 300, dtype)
-    assert torch.equal(km.lb_kim_launch(cands, qs, None, p), km.lb_kim_plain(cands, qs, None, p))
-    mask = torch.as_tensor(np.random.default_rng(32).random((6, 37)) < 0.6, device=dev)
-    got = km.lb_kim_launch(cands, qs, mask, p)
-    assert torch.equal(got, km.lb_kim_plain(cands, qs, mask, p))
-    assert bool((got[~mask] == 1e30).all())
-    fmask = mask.to(dtype)
-    assert torch.equal(km.lb_kim_launch(cands, qs, fmask, p), got)
-    for cfg in search_space("lb_kim"):
-        assert torch.equal(km.lb_kim_launch(cands, qs, mask, p, cfg.tile_b), got)
+@pytest.mark.parametrize("nb,n", [(37, 300), (1, 37), (37, 37), (1, 1000), (37, 1000),
+                                  (1024, 1000), (37, 1001)])
+def test_lb_kim_kernel_bit_equal(dev, p, dtype, nb, n):
+    """K6 against its plain version with and without a mask (bool and
+    float), at every tile, on rows as allocated and on the same buffer
+    viewed one value further on: there, at n = 300 and 1,000, no row
+    starts 16-byte aligned, so the feature phase takes its scalar path
+    (at n = 1,000 in several batches of 256 values a lane); at n = 37 and
+    1,001 the vector and scalar paths alternate between rows.  Its feature
+    phase alone against lb_kim_features_plain."""
+    rows = walks(dev, 30, nb + 7, n, dtype)
+    shifted = rows.reshape(-1)[1:1 + (nb + 6) * n].view(nb + 6, n)
+    assert shifted.data_ptr() % 16 != 0
+    mask = torch.as_tensor(np.random.default_rng(32).random((6, nb)) < 0.6, device=dev)
+    for label, src in (("as allocated", rows), ("one value on", shifted)):
+        cands, qs = src[:nb], src[nb:nb + 6]
+        assert torch.equal(km.lb_kim_launch(cands, qs, None, p),
+                           km.lb_kim_plain(cands, qs, None, p)), label
+        got = km.lb_kim_launch(cands, qs, mask, p)
+        assert torch.equal(got, km.lb_kim_plain(cands, qs, mask, p)), label
+        assert bool((got[~mask] == 1e30).all())
+        assert torch.equal(km.lb_kim_launch(cands, qs, mask.to(dtype), p), got)
+        for cfg in search_space("lb_kim"):
+            assert torch.equal(km.lb_kim_launch(cands, qs, mask, p, cfg.tile_b), got), cfg
+            assert torch.equal(km.lb_kim_features_launch(cands, cfg.tile_b),
+                               km.lb_kim_features_plain(cands)), cfg
 
 
 @pytest.mark.parametrize("p", PS)
@@ -350,26 +368,42 @@ def test_lb_fused_refuses_what_cannot_launch(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("method", ["lb_improved", "kim_improved"])
-def test_host_driver_fused_route(dev, method):
+@pytest.mark.parametrize("method,p", [
+    ("lb_improved", 1), ("kim_improved", 1), ("kim_improved", 2), ("kim_improved", math.inf),
+    ("kim_webb", 1),
+], ids=["lb_improved", "kim_improved", "kim_improved-p2", "kim_improved-pinf", "kim_webb"])
+def test_host_driver_fused_route(dev, method, p):
     """The host driver runs LB_Keogh -> LB_Improved as one K4 launch per
-    block: no K2 or K3 launch, and the CPU route's answers and counters."""
+    block (for kim_improved at p in {1, 2} with LB_Kim as K4's entry) on
+    the device-resident loop; kim_webb and p = inf keep the host loop, K6
+    alone once per block.  Both give the CPU route's answers and
+    counters."""
     from repro_torch.core.cascade import nn_search_host
 
     rng = np.random.default_rng(39)
     x = rng.normal(size=(300, 96)).cumsum(axis=1).astype(np.float32)
+    x[64:128] += 400.0  # two blocks far from every query: LB_Kim prunes them whole
     q = rng.normal(size=(6, 96)).cumsum(axis=1).astype(np.float32)
     reset_launch_counts()
-    got = nn_search_host(q, x, 9, 1, 3, 32, method=method, device=dev)
+    got = nn_search_host(q, x, 9, p, 3, 32, method=method, device=dev)
     counts = launch_counts()
-    want = nn_search_host(q, x, 9, 1, 3, 32, method=method, device="cpu")
+    want = nn_search_host(q, x, 9, p, 3, 32, method=method, device="cpu")
     s = got.stats
-    assert counts["lb_fused"] == (s.blocks_total if method == "lb_improved" else s.blocks_lb2)
-    assert counts["lb_keogh"] == 0 and counts["lb_improved_pass2"] == 0
-    if method == "lb_improved":  # the device-resident loop: K4, K5 with the merge
-        assert counts["dtw_merge"] == s.blocks_total
-        assert counts["dtw"] == counts["block_merge"] == 0
-    assert counts["lb_kim"] == (s.blocks_total if method == "kim_improved" else 0)
+    if p in (1, 2) and method != "kim_webb":
+        # the device-resident loop: K4 (for kim_improved with LB_Kim as its
+        # entry, the query features once), K5 with the merge
+        assert counts["lb_fused"] == counts["dtw_merge"] == s.blocks_total
+        assert counts["lb_keogh"] == counts["lb_improved_pass2"] == 0
+        assert counts["dtw"] == counts["block_merge"] == counts["lb_kim"] == 0
+        assert counts["lb_kim_features"] == (1 if method == "kim_improved" else 0)
+    else:
+        # the host loop: K6 on every block, K2 on each block with lanes
+        # left (blocks_lb2; at p = inf K3's stage adds more), the
+        # survivors' DP on pair lists
+        assert counts["lb_kim"] == s.blocks_total
+        assert counts["lb_kim_features"] == counts["lb_fused"] == counts["dtw_merge"] == 0
+        assert counts["lb_keogh"] >= s.blocks_lb2 > 0 and counts["dtw"] > 0
+        assert s.blocks_lb2 < s.blocks_total
     np.testing.assert_array_equal(got.indices, want.indices)
     np.testing.assert_allclose(got.distances, want.distances, rtol=2e-4)
     assert got.stats == want.stats
@@ -430,6 +464,57 @@ def test_lb_fused_long_rows_one_warp(dev, p):
         kf.lb_fused_launch(cands, qs, u, l, w, bounds, p, 2, 1, "qb")
 
 
+def kim_reference(cands, qs, u, l, w, bounds, p, real):
+    """K4's kim entry from K2, K3 and K6's plain version: lb1 from K2 on
+    every lane, pass 2 kept where LB_Kim and lb1 are below the bound, and
+    the stage with LB_Kim first."""
+    kim = km.lb_kim_plain(cands, qs, None, p)
+    klb1, h = kk.lb_keogh_launch(cands, u, l, p)
+    lb2 = ki.lb_improved_pass2_launch(h, qs, w, p)
+    b = bounds.reshape(-1, 1)
+    live = (kim < b) & (klb1 < b)
+    lb = torch.where(live, ki.combine_passes(klb1, lb2, p), klb1)
+    return klb1, lb, kf.lb_fused_stage_plain(klb1, lb, bounds, real, kim)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("nq,nb,n,w,dtype", [
+    (16, 32, 1000, 100, torch.float32), (3, 33, 64, 0, torch.float32),
+    (2, 5, 300, 299, torch.float64), (3, 9, 257, 40, torch.float64),
+    (2, 5, 12_288, 1_228, torch.float32), (2, 5, 6_144, 6_143, torch.float64),
+])
+def test_lb_fused_kim_entry_bit_equal(dev, p, nq, nb, n, w, dtype):
+    """K4's kim entry on its short and long-row paths, under both grids
+    and every schedule that fits: lb1, lb and the stage bit-equal to K6's
+    plain LB_Kim, then K2 + K3; LB_Kim prunes some pairs, pass 2 runs on
+    others; and K4 without the entry keeps its bits."""
+    cands, qs = walks(dev, 90, nb, n, dtype), walks(dev, 91, nq, n, dtype)
+    cands[::2] += 100.0 * n  # far at their ends and extrema: LB_Kim prunes them
+    u, l = envelopes(qs, w)
+    lb1 = kk.lb_keogh_plain(cands, u, l, p)[0]
+    # most of the near candidates reach pass 2
+    top = torch.stack([torch.quantile(lb1[:, 1::2], 0.75, dim=1)] * 2, dim=1).contiguous()
+    bounds = top[:, -1]  # stride 2
+    real = nb - 1
+    want = kim_reference(cands, qs, u, l, w, bounds, p, real)
+    assert bool((want[2] == 0).any()) and bool(((want[2] >= 2) & (want[2] < 255)).any())
+    plain = fused_reference(cands, qs, u, l, w, bounds, p)
+    long = kf.fused_long(n, w, "qb", cands.element_size())
+    schedules = [(None, None)] + [(cfg.tile_b, cfg.grid) for cfg in search_space("lb_fused")
+                                  if long or kf.fused_smem_bytes(
+                                      n, w, cfg.tile_b, cfg.grid,
+                                      cands.element_size()) <= 232_448]
+    for tile_b, grid in schedules:
+        depth = None if tile_b is None else 1
+        got = kf.lb_fused_launch(cands, qs, u, l, w, bounds, p, tile_b, depth, grid,
+                                 stage=True, real=real, kim=True)
+        assert all(torch.equal(g, e) for g, e in zip(got, want)), (tile_b, grid)
+        got = kf.lb_fused_launch(cands, qs, u, l, w, bounds, p, tile_b, depth, grid,
+                                 stage=True, real=real)
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        assert torch.equal(got[2], kf.lb_fused_stage_plain(*plain, bounds, real))
+
+
 @pytest.mark.parametrize("p", PS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("w", [0, 7, 40, 600])
@@ -460,17 +545,18 @@ def test_dtw_masked_kernel(dev, p, dtype, w):
         assert bool(got[stage != 2].isnan().all())
 
 
-def merge_inputs(dev, seed, nq, k, nb, dtype):
+def merge_inputs(dev, seed, nq, k, nb, dtype, n_lb=2):
+    """Stages s < n_lb pruned by LB stage s, n_lb a survivor, 255 a pad."""
     rng = np.random.default_rng(seed)
     top_v = torch.as_tensor(np.sort(rng.integers(0, 4, (nq, k)) * 0.5, axis=1),
                             dtype=dtype, device=dev)
     top_v[0] = 1e30  # one query with an empty top-k
     top_i = torch.as_tensor(rng.integers(0, 1000, (nq, k)), device=dev)
-    stage = torch.as_tensor(rng.choice(np.array([0, 1, 2, 2, 255], np.uint8),
-                                       size=(nq, nb)), device=dev)
+    codes = np.array([*range(n_lb), n_lb, n_lb, 255], np.uint8)
+    stage = torch.as_tensor(rng.choice(codes, size=(nq, nb)), device=dev)
     dvals = torch.as_tensor(rng.integers(0, 5, (nq, nb)) * 0.5, dtype=dtype, device=dev)
-    dvals[stage != 2] = math.nan
-    counts = torch.as_tensor(rng.integers(0, 9, (3, nq)), device=dev)
+    dvals[stage != n_lb] = math.nan
+    counts = torch.as_tensor(rng.integers(0, 9, (n_lb + 1, nq)), device=dev)
     totals = torch.as_tensor(rng.integers(0, 9, 4), device=dev)
     return top_v, top_i, counts, totals, stage, dvals
 
@@ -490,20 +576,20 @@ def test_block_merge_kernel_bit_equal(dev, nq, k, dtype):
         assert torch.equal(g, w_)
 
 
-def merge_blocks(dev, seed, nq, nb, n, dtype):
-    """Four blocks of candidates and stages: random stages, an all-dead
-    block, a ragged tail (pad slots 255); rows repeat within and across
-    blocks and queries are database rows, so DP values tie with each
-    other and with entries already in the top-k."""
+def merge_blocks(dev, seed, nq, nb, n, dtype, n_lb=2):
+    """Four blocks of candidates and stages (survivors at n_lb): random
+    stages, an all-dead block, a ragged tail (pad slots 255); rows repeat
+    within and across blocks and queries are database rows, so DP values
+    tie with each other and with entries already in the top-k."""
     rng = np.random.default_rng(seed)
     base = walks(dev, seed, 6, n, dtype)
     qs = base[rng.integers(0, 6, nq)].contiguous()
     blocks = []
     for t in range(4):
         cands = base[rng.integers(0, 6, nb)].contiguous()
-        stage = rng.choice(np.array([0, 1, 2, 2], np.uint8), size=(nq, nb))
+        stage = rng.choice(np.array([*range(n_lb), n_lb, n_lb], np.uint8), size=(nq, nb))
         if t == 1:
-            stage = rng.choice(np.array([0, 1], np.uint8), size=(nq, nb))
+            stage = rng.choice(np.arange(n_lb, dtype=np.uint8), size=(nq, nb))
         if t == 3:
             stage[:, nb - 5:] = 255
         blocks.append((t * nb, cands, torch.as_tensor(stage, device=dev)))
@@ -544,37 +630,81 @@ def test_dtw_merge_epilogue_bit_equal(dev, nq, k, dtype, p, bounded):
     assert int(state[2][2].sum()) > 0 and int(state[3][1]) > 0
 
 
+@pytest.mark.parametrize("kim", [False, True])
 @pytest.mark.parametrize("early_abandon", [False, True])
 @pytest.mark.parametrize("p", [1, 2])
-def test_fused_block_loop_on_device_without_sync(dev, p, early_abandon):
+def test_fused_block_loop_on_device_without_sync(dev, p, early_abandon, kim):
     """The loop launches K4 and K5 with the merge once per block and never
-    synchronises; its answers and counters equal the CPU loop's."""
+    synchronises (with ``kim``, one feature launch of K6 before it); its
+    answers and counters equal the CPU loop's.  Some rows lie far off, so
+    LB_Kim prunes pairs."""
     from repro_torch.core.cascade import fused_block_loop, nn_search_host
 
     rng = np.random.default_rng(48)
     x = rng.normal(size=(530, 96)).cumsum(axis=1).astype(np.float32)
+    x[100:200] += 1.0e4
     q = rng.normal(size=(6, 96)).cumsum(axis=1).astype(np.float32)
     db, qs = torch.as_tensor(x, device=dev), torch.as_tensor(q, device=dev)
     u, l = envelopes(qs, 9)
-    fused_block_loop(qs, db, u, l, 9, p, 3, 64, 16, early_abandon)  # build, load
+    fused_block_loop(qs, db, u, l, 9, p, 3, 64, 16, early_abandon, kim)  # build, load
     torch.cuda.synchronize()
     reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = fused_block_loop(qs, db, u, l, 9, p, 3, 64, 16, early_abandon)
+        out = fused_block_loop(qs, db, u, l, 9, p, 3, 64, 16, early_abandon, kim)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     counts = launch_counts()
     blocks = -(-530 // 64)
     assert counts["lb_fused"] == counts["dtw_merge"] == blocks, counts
-    assert counts["dtw"] == counts["block_merge"] == 0, counts
+    assert counts["dtw"] == counts["block_merge"] == counts["lb_kim"] == 0, counts
+    assert counts["lb_kim_features"] == int(kim), counts
     cpu = fused_block_loop(qs.cpu(), db.cpu(), u.cpu(), l.cpu(), 9, p, 3, 64, 16,
-                           early_abandon)
+                           early_abandon, kim)
     assert torch.equal(out[1].cpu(), cpu[1])
     torch.testing.assert_close(out[0].cpu(), cpu[0], rtol=2e-4, atol=0)
     assert torch.equal(out[2].cpu(), cpu[2]) and torch.equal(out[3].cpu(), cpu[3])
-    got = nn_search_host(q, x, 9, p, 3, 64, early_abandon=early_abandon, device=dev)
+    if kim:
+        assert int(out[2][0].sum()) > 0  # pruned by LB_Kim
+    method = "kim_improved" if kim else "lb_improved"
+    got = nn_search_host(q, x, 9, p, 3, 64, method=method, early_abandon=early_abandon,
+                         device=dev)
     np.testing.assert_array_equal(got.indices, out[1].cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("nq", [1, 16, 33])
+def test_merge_with_lb_kim_first_bit_equal(dev, nq, k, dtype):
+    """``kim_improved``'s three LB stages (counts (4, Q), survivors at
+    stage 3): the standalone merge kernel and K5's masked entry with the
+    merge bit-equal to their plain versions, block after block."""
+    got = merge_inputs(dev, 80 + nq + k, nq, k, 37, dtype, n_lb=3)
+    want = tuple(t.clone() for t in got)
+    for lo in (0, 37, 74):
+        kb.block_merge_launch(*got[:4], got[4], got[5], lo, 5)
+        kb.block_merge_plain(*want[:4], want[4], want[5], lo, 5)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got[:4], want[:4]))
+    nb, n, w = 37, 48, 5
+    qs, blocks = merge_blocks(dev, 85 + nq + k, nq, nb, n, dtype, n_lb=3)
+    state = [torch.full((nq, k), 1e30, dtype=dtype, device=dev),
+             torch.full((nq, k), -1, dtype=torch.int64, device=dev),
+             torch.zeros((4, nq), dtype=torch.int64, device=dev),
+             torch.zeros(4, dtype=torch.int64, device=dev)]
+    want = [t.clone() for t in state]
+    out = torch.full((nq, nb), math.nan, dtype=dtype, device=dev)
+    out_want = out.clone()
+    st = torch.empty((nq, nb), dtype=torch.uint8, device=dev)
+    run = kd.dtw_masked_prepare(qs, w, 1, st, state[0][:, -1], out, merge=(*state, 16))
+    for lo, cands, stage in blocks:
+        st.copy_(stage)
+        run(cands, lo)
+        kd.dtw_merge_plain(qs, cands, stage, w, 1, want[0][:, -1], out_want, *want, lo, 16,
+                           dp=kd.dtw_wavefront_plain)
+        live = stage == 3
+        assert torch.equal(out[live], out_want[live])
+        assert all(torch.equal(g, w_) for g, w_ in zip(state, want))
+    assert int(state[2][3].sum()) > 0 and int(state[3][1]) > 0
 
 
 # ------------------------------------------------------------------ long rows
@@ -697,14 +827,23 @@ def test_long_rows_lb_fused_workspace(dev, n, dtype, band):
 @pytest.mark.parametrize("band", BANDS)
 @pytest.mark.parametrize("n,dtype", LONG_ROWS)
 def test_long_rows_lb_kim_and_stream_kernels(dev, n, dtype, band):
-    """K6 bit-equal and K7 (windows at an odd hop, so not 16-byte
-    aligned) bit-equal to K2 on the copied windows at long rows."""
+    """K6 bit-equal at long rows, at every tile, on rows as allocated and
+    on the same buffer viewed one value further on (no row start 16-byte
+    aligned: the scalar path), and K7 (windows at an odd hop, so not
+    16-byte aligned) bit-equal to K2 on the copied windows."""
     w = long_band(n, band)
-    cands, qs = walks(dev, 67, 6, n, dtype), walks(dev, 68, 2, n, dtype)
+    rows = walks(dev, 67, 9, n, dtype)
+    shifted = rows.reshape(-1)[1:1 + 8 * n].view(8, n)
     mask = torch.tensor([[1, 0, 1, 1, 0, 1], [0, 1, 1, 1, 1, 0]], device=dev).bool()
-    for p in PS:
-        assert torch.equal(km.lb_kim_launch(cands, qs, mask, p),
-                           km.lb_kim_plain(cands, qs, mask, p))
+    for src in (rows, shifted):
+        cands, qs = src[:6], src[6:8]
+        for p in PS:
+            want = km.lb_kim_plain(cands, qs, mask, p)
+            assert torch.equal(km.lb_kim_launch(cands, qs, mask, p), want)
+            for cfg in search_space("lb_kim"):
+                assert torch.equal(km.lb_kim_launch(cands, qs, mask, p, cfg.tile_b), want), cfg
+        assert torch.equal(km.lb_kim_features_launch(src), km.lb_kim_features_plain(src))
+    qs = rows[6:8]
     seg = walks(dev, 69, 1, 5 * 3 + n, dtype)[0]
     u, l = envelopes(qs, w)
     for p in PS:

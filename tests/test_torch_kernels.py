@@ -295,14 +295,16 @@ def test_cpu_wrappers_never_launch():
     top_v = torch.full((2, 3), 1e30, dtype=xs.dtype)
     top_i = torch.full((2, 3), -1, dtype=torch.int64)
     lf_prepare(xs[:2], xs[:2], xs[:2], 3, top_v[:, -1], 1, xs.shape[0], stage)(xs, 3)
+    lf_prepare(xs[:2], xs[:2], xs[:2], 3, top_v[:, -1], 1, xs.shape[0], stage,
+               kim=True)(xs, 3)
     counters = (torch.zeros((3, 2), dtype=torch.int64), torch.zeros(4, dtype=torch.int64))
     block_merge_prepare(top_v, top_i, *counters, stage, dvals, 16)(0)
     tdtw.dtw_masked_prepare(xs[:2], 3, 1, stage, top_v[:, -1], dvals,
                             merge=(top_v, top_i, *counters, 16))(xs, 20)
     assert launch_counts() == {
         "envelope": 0, "lb_keogh": 0, "lb_improved_pass2": 0, "dtw": 0,
-        "lb_fused": 0, "lb_kim": 0, "lb_keogh_stream": 0, "block_merge": 0,
-        "dtw_merge": 0,
+        "lb_fused": 0, "lb_kim": 0, "lb_kim_features": 0, "lb_keogh_stream": 0,
+        "block_merge": 0, "dtw_merge": 0,
     }
 
 
@@ -316,11 +318,14 @@ def test_cuda_launchers_refuse_cpu_tensors():
     """The launch functions take CUDA tensors only; the wrappers route CPU
     tensors to the plain version instead (no fallback the other way)."""
     from repro_torch.kernels.block_merge import block_merge_launch
+    from repro_torch.kernels.lb_kim import lb_kim_features_launch, lb_kim_launch
 
     xs = t(walks(22, 2, 10))
     stage = torch.full((2, 2), 2, dtype=torch.uint8)
     for launch, args in (
         (tenv.envelope_launch, (xs, 2)),
+        (lb_kim_launch, (xs, xs, None, 1)),
+        (lb_kim_features_launch, (xs,)),
         (tlk.lb_keogh_launch, (xs, xs, xs, 1)),
         (tli.lb_improved_pass2_launch, (xs[None], xs[:1], 2, 1)),
         (tdtw.dtw_launch, (xs, xs, 2, 1)),

@@ -1,22 +1,24 @@
-"""A/B of K2 (LB_Keogh and H, with K7, its stream entry) and K3 (LB_Improved
-pass 2) from several source trees on one card.
+"""A/B of K2 (LB_Keogh and H, with K7, its stream entry), K3 (LB_Improved
+pass 2) and K6 (LB_Kim) from several source trees on one card.
 
 Each ``--csrc LABEL=DIR`` names a ``csrc`` directory (this checkout's
 ``src/repro_torch/csrc``, or another checkout's unpacked into the
-git-ignored ``build/``).  Its ``lb_keogh.cu`` and ``lb_improved.cu`` are
-compiled with nvcc into ``build/lb_pass_ab/LABEL/`` and their entries
-loaded (a tree whose K3 takes a workspace pointer is recognised by its
-``repro_lb_improved_pass2_workspace`` entry).
+git-ignored ``build/``).  Its ``lb_keogh.cu``, ``lb_improved.cu`` and
+``lb_kim.cu`` are compiled with nvcc into ``build/lb_pass_ab/LABEL/`` and
+their entries loaded (a tree whose K3 takes a workspace pointer is
+recognised by its ``repro_lb_improved_pass2_workspace`` entry, one whose
+K6 takes a feature workspace and a ticket by its
+``repro_lb_kim_features`` entry).
 
 Checks: at each of ``CHECKS`` (the shapes ``chip_smoke.py`` phase 2 holds
 K2 and K3 to, and Q=16, B=1,024) every tree's K2 lb and H, K7 lb and H,
-and K3 lb2 must equal the first tree's bit for bit.  Times: at each of
-``TIMED`` the trees run in turns A B ... B A; each turn gives the device
-time per call (the kernels' self time under torch.profiler over ``ITERS``
-calls) and the time per call (CUDA events around as many back-to-back
-calls).  One JSON line per check and per timed shape, with the bytes
-bound (each input read once, each output written once, at 3.35 TB/s) and
-the card's name and power limit.
+K3 lb2 and K6 lb (with an entry mask) must equal the first tree's bit for
+bit.  Times: at each of ``TIMED`` the trees run in turns A B ... B A;
+each turn gives the device time per call (the kernels' self time under
+torch.profiler over ``ITERS`` calls) and the time per call (CUDA events
+around as many back-to-back calls).  One JSON line per check and per
+timed shape, with the bytes bound (each input read once, each output
+written once, at 3.35 TB/s) and the card's name and power limit.
 
     git archive <commit> src | tar -x -C build/parent
     python tools/ab_lb_pass.py --csrc parent=build/parent/src/repro_torch/csrc \\
@@ -72,7 +74,8 @@ def build(label: str, csrc: pathlib.Path):
     out.mkdir(parents=True, exist_ok=True)
     lib = out / "liblbpass.so"
     cmd = [cuda_lib.find_nvcc(), *cuda_lib.NVCC_FLAGS, "-shared",
-           str(csrc / "lb_keogh.cu"), str(csrc / "lb_improved.cu"), "-o", str(lib)]
+           str(csrc / "lb_keogh.cu"), str(csrc / "lb_improved.cu"), str(csrc / "lb_kim.cu"),
+           "-o", str(lib)]
     done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed on {csrc}:\n{done.stdout}{done.stderr}")
@@ -87,9 +90,13 @@ def build(label: str, csrc: pathlib.Path):
     if ws:
         cdll.repro_lb_improved_pass2_workspace.argtypes = [_INT, _I64, _INT, _INT]
         cdll.repro_lb_improved_pass2_workspace.restype = _I64
-    for fn in (cdll.repro_lb_keogh, cdll.repro_lb_keogh_stream, cdll.repro_lb_improved_pass2):
+    kim_ws = hasattr(cdll, "repro_lb_kim_features")
+    cdll.repro_lb_kim.argtypes = ([_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT]
+                                  + ([_P, _P] if kim_ws else []) + [_P, _P])
+    for fn in (cdll.repro_lb_keogh, cdll.repro_lb_keogh_stream, cdll.repro_lb_improved_pass2,
+               cdll.repro_lb_kim):
         fn.restype = _INT
-    return cdll, ws
+    return cdll, ws, kim_ws
 
 
 class Tree:
@@ -97,7 +104,8 @@ class Tree:
 
     def __init__(self, label, csrc):
         self.label = label
-        self.lib, self.has_ws = build(label, csrc)
+        self.lib, self.has_ws, self.kim_ws = build(label, csrc)
+        self.ticket = None
 
     def _check(self, name, code):
         if code != 0:
@@ -155,6 +163,27 @@ class Tree:
         self._check("lb_improved_pass2",
                     self.lib.repro_lb_improved_pass2(*args, cuda_lib.stream_of(h.device)))
         return lb2
+
+
+    def kim(self, cands, qs, p, mask=None, out=None):
+        import torch
+
+        from repro_torch.kernels import cuda_lib
+        from repro_torch.kernels.common import kernel_dtype, p_code
+
+        nq, nb, n = qs.shape[0], cands.shape[0], cands.shape[1]
+        lb = out if out is not None else torch.empty((nq, nb), dtype=cands.dtype,
+                                                     device=cands.device)
+        args = [kernel_dtype(cands), p_code(p), cands.data_ptr(), qs.data_ptr(),
+                cuda_lib.ptr(mask), nq, nb, n, 8]
+        if self.kim_ws:
+            if self.ticket is None:
+                self.ticket = torch.zeros(1, dtype=torch.int64, device=cands.device)
+            feats = torch.empty((nb + nq, 4), dtype=cands.dtype, device=cands.device)
+            args += [feats.data_ptr(), self.ticket.data_ptr()]
+        self._check("lb_kim", self.lib.repro_lb_kim(*args, lb.data_ptr(),
+                                                    cuda_lib.stream_of(cands.device)))
+        return lb
 
 
 def timed(fn):
@@ -217,12 +246,14 @@ def main(argv=None) -> int:
         qs, cands = walks(nq, n, dtype), walks(nb, n, dtype)
         u, l = (t.contiguous() for t in envelope_plain(qs, max(w, 1)))
         seg = walks(1, (nb - 1) * 3 + n, dtype)[0]
+        mask = torch.as_tensor(rng.random((nq, nb)) < 0.6, device=dev)
         qi = torch.as_tensor(rng.integers(0, nq, pairs), device=dev) if pairs else None
         ci = torch.as_tensor(rng.integers(0, nb, pairs), device=dev) if pairs else None
         outs = []
         for tree in trees:
             lb, h = tree.keogh(cands, u, l, p)
-            got = {"K2 lb": lb, "K2 H": h, "K3": tree.pass2(h, qs, w, p)}
+            got = {"K2 lb": lb, "K2 H": h, "K3": tree.pass2(h, qs, w, p),
+                   "K6": tree.kim(cands, qs, p), "K6 masked": tree.kim(cands, qs, p, mask)}
             for hop in (1, 3):
                 slb, sh = tree.stream(seg, u, l, n, hop, (seg.numel() - n) // hop + 1, p)
                 got[f"K7 hop={hop} lb"], got[f"K7 hop={hop} H"] = slb, sh
@@ -246,6 +277,7 @@ def main(argv=None) -> int:
         lb = torch.empty((nq, nb), device=dev)
         h = torch.empty((nq, nb, n), device=dev)
         lb2 = torch.empty((nq, nb), device=dev)
+        lbk = torch.empty((nq, nb), device=dev)
         turns = []
         for tree in trees + trees[::-1]:
             if hop:
@@ -253,7 +285,8 @@ def main(argv=None) -> int:
             else:
                 tree.keogh(cands, u, l, 1, out=(lb, h))
                 calls = {"K2": lambda t=tree: t.keogh(cands, u, l, 1, out=(lb, h)),
-                         "K3": lambda t=tree: t.pass2(h, qs, w, 1, out=lb2)}
+                         "K3": lambda t=tree: t.pass2(h, qs, w, 1, out=lb2),
+                         "K6": lambda t=tree: t.kim(cands, qs, 1, out=lbk)}
             turn = {"label": tree.label}
             for name, fn in calls.items():
                 turn[f"{name} device_ms"], turn[f"{name} ms"] = timed(fn)
@@ -264,6 +297,7 @@ def main(argv=None) -> int:
                  / HBM_BYTES_PER_S * 1e3}
         if not hop:
             bound["K3 bound_ms"] = 4 * (rows * n + nq * n + rows) / HBM_BYTES_PER_S * 1e3
+            bound["K6 bound_ms"] = 4 * (nb * n + nq * n + rows) / HBM_BYTES_PER_S * 1e3
         print(json.dumps({"timed": label, "n": n, "w": w, "hop": hop, **bound, "card": card,
                           "turns": turns}), flush=True)
     return 0 if ok else 1

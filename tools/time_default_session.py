@@ -13,7 +13,10 @@ the kernel it launched are not counted twice.  Then ``--searches``
 searches of the same queries with ``method="lb_webb"`` (the host loop,
 one envelope launch per block) are timed, and one more profiled: their
 seconds, device time by kernel, and whether they return the default
-search's indices.
+search's indices; the same for ``method="kim_improved"`` (LB_Kim first:
+since K4 took LB_Kim as its entry, the device loop; before, the host
+loop), with its launches and pruning counts and whether its distances
+are the default search's bits.
 
 ``--src`` points at the ``src`` directory of the checkout to time, so two
 commits can be compared on one card in one process tree, in turns:
@@ -120,6 +123,21 @@ def main(argv=None) -> int:
         db.search(queries, method="lb_webb")
         torch.cuda.synchronize()
     webb_kernels = device_by_kernel(prof)
+    # kim_improved: whichever loop this tree runs it on
+    kim_s, kim_launches = [], None
+    for _ in range(args.searches):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        kim = db.search(queries, method="kim_improved")
+        torch.cuda.synchronize()
+        kim_s.append(time.perf_counter() - t0)
+        kim_launches = kim_launches or launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        db.search(queries, method="kim_improved")
+        torch.cuda.synchronize()
+        kim_wall_ms = (time.perf_counter() - t0) * 1e3
+    kim_kernels = device_by_kernel(prof)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
@@ -148,6 +166,17 @@ def main(argv=None) -> int:
             "search_s": webb_s, "busy_ms": sum(ms for ms, _ in webb_kernels.values()),
             "same_indices_as_default": bool(np.array_equal(webb.indices, res.indices)),
             "device_ms_by_kernel": webb_kernels,
+        },
+        "kim_improved": {
+            "search_s": kim_s, "qps": args.queries / min(kim_s),
+            "profiled_wall_ms": kim_wall_ms,
+            "busy_ms": sum(ms for ms, _ in kim_kernels.values()),
+            "pruned": kim.stats.pruned_by, "full_dtw": kim.stats.full_dtw,
+            "launches": kim_launches,
+            "same_indices_as_default": bool(np.array_equal(kim.indices, res.indices)),
+            "same_distance_bits_as_default":
+                kim.distances.tobytes() == res.distances.tobytes(),
+            "device_ms_by_kernel": kim_kernels,
         },
     }), flush=True)
     return 0
