@@ -79,9 +79,22 @@ Phases (any failure raises, exits non-zero and prints no result line):
    LB_Webb and pair-list DP launches): the default session's answers, and
    LB_Kim and LB_Keogh prune the lanes they pruned in ``kim_improved``'s
    loop.
+6. The indexed session on phase 3's rows: ``Database.build(..., index=True,
+   n_refs=16)`` at p = inf (Theorem 1's c = 1, where stage 0 prunes) and
+   at p = 1 (c = 201), its build split into the session and the index,
+   16 queries through the indexed driver (the plan must say so), its
+   stage-0 and per-stage counts and its device ms by kernel; two queries'
+   top-1 against a K5 brute force at each p, and every answer against an
+   unindexed session at the same p on its own route (phase 3's at p = 1,
+   the host loop at p = inf): the same indices, the same distance bits.
+   Then ``python -m repro_torch.launch.search`` as a subprocess, with
+   ``--index --p inf --n-refs 16`` and with its defaults, each query's
+   ``nn`` against a direct ``db.search``, and ``python
+   examples/quickstart_torch.py`` at its full 2,000 x 512.
 
 Launches are counted per phase (3 build, 3 search, the long-row
-session's build and search on both routes, 4 scan, 4 stream, 5 tuned),
+session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
+6 index build and indexed search, each summed over both p),
 each from zero, and the untuned ``kim_improved`` and ``kim_webb``
 searches; phase 2's
 comparisons are not counted.  The
@@ -316,13 +329,14 @@ def check_equal(name, got, want, what):
 
 
 def counted(launches: dict, phase: str, fn):
-    """Run ``fn`` with every kernel's launch count set to 0 first; keep
-    the counts it leaves under ``launches[phase]``."""
+    """Run ``fn`` with every kernel's launch count set to 0 first; add the
+    counts it leaves to ``launches[phase]``."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     reset_launch_counts()
     out = fn()
-    launches[phase] = launch_counts()
+    before = launches.get(phase, {})
+    launches[phase] = {k: before.get(k, 0) + v for k, v in launch_counts().items()}
     reset_launch_counts()
     return out
 
@@ -1809,6 +1823,172 @@ def phase_tuned(dev, launches, main):
         fail("the default tune table was not restored")
 
 
+# ------------------------------------------------------------- phase 6
+
+#: references of the indexed session (the CLI's --n-refs default)
+N_REFS = 16
+
+
+def run_cli(args, what):
+    """``python -m repro_torch.launch.search`` with ``args``; its output and
+    the per-query (nn, line) pairs, each line required to parse."""
+    import re
+
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.search", *args],
+        capture_output=True, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    if cli.returncode != 0:
+        fail(f"{what}: exit {cli.returncode}\n{cli.stdout}\n{cli.stderr}")
+    lines = [ln for ln in cli.stdout.splitlines() if ln.startswith("query ")]
+    rows = []
+    for ln in lines:
+        m = re.match(r"query (\d+): nn=(\d+) dist=([0-9.]+) .*dtw=(\d+)", ln)
+        if not m:
+            fail(f"{what}: unparsable line {ln!r}")
+        rows.append(int(m.group(2)))
+    return cli.stdout, rows, lines
+
+
+def phase_indexed(dev, launches, main):
+    """The indexed session (stage 0 through the triangle index) on phase
+    3's rows at p = inf and p = 1, gated on exactness."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Database, SearchConfig
+    from repro_torch.index import build_index
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.dtw.ops import dtw_qbatch_op
+
+    x, queries = main["x"], main["queries"]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for p in (math.inf, 1):
+        tag = f"[index p={p}]"
+        cfg = SearchConfig(p=p)
+        before = {ph: dict(c) for ph, c in launches.items()}
+        db, build_s = counted(launches, "index build", lambda: timed(
+            lambda: Database.build(x, cfg, index=True, n_refs=N_REFS)))
+        # the index alone, built again from the session's rows: its time and
+        # its K5 launches (not counted in a phase), and the same references
+        reset_launch_counts()
+        again, index_s = timed(lambda: build_index(db.rows_tensor, db.w, p, n_refs=N_REFS))
+        index_k5 = launch_counts()["dtw"]
+        reset_launch_counts()
+        if not np.array_equal(again.ref_idx, db.index.ref_idx):
+            fail(f"{tag} a second build chose other references")
+        plan = db.plan(queries).explain()
+        if not plan.startswith("driver: indexed"):
+            fail(f"{tag} the indexed session did not route to the indexed driver:\n{plan}")
+        res, search_s = counted(launches, "indexed search", lambda: timed(
+            lambda: db.search(queries)))
+        busy_ms, wall_ms, by_kernel = device_busy(lambda: db.search(queries))
+        s = res.stats
+        got = {ph: {k: v - before.get(ph, {}).get(k, 0) for k, v in c.items() if v}
+               for ph, c in launches.items() if ph in ("index build", "indexed search")}
+        log(f"{tag} {db!r}: build {build_s:.2f} s (the index alone {index_s:.2f} s, "
+            f"{index_k5} K5 launches; the session {build_s - index_s:.2f} s); "
+            f"theorem 1 constant {db.index.constant:.4g}")
+        log(f"{tag} plan: " + " | ".join(plan.splitlines()[:2]))
+        log(f"{tag} search of {len(queries)} queries {search_s:.3f} s = "
+            f"{len(queries) / search_s:.2f} qps; stage 0 pruned {s.lb0_pruned} of "
+            f"{s.n_candidates} ({100 * s.stage0_ratio:.2f}%), clusters {s.clusters_pruned} "
+            f"of {s.clusters_total}; pruned {s.pruned_by}, full_dtw {s.full_dtw}; blocks "
+            f"{s.blocks_total} (of them with pass 2 {s.blocks_lb2}, with the DP "
+            f"{s.blocks_dtw}), DP lanes {s.dp_lane_useful}/{s.dp_lane_work}")
+        log(f"{tag} launches: {got}")
+        if busy_ms > 0:
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+            log(f"{tag} profiled search: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
+                f"wall = idle share {1 - busy_ms / wall_ms:.3f}; device ms by kernel: "
+                + "; ".join(f"{k[:40]} {ms:.2f} ms / {c}" for k, (ms, c) in top))
+        else:
+            log(f"{tag} profiled search: the profiler saw no device time")
+        require_launched(launches, "index build", ("dtw",), f"{tag} index build")
+        require_launched(launches, "indexed search",
+                         ("envelope", "lb_keogh", "lb_improved_pass2", "dtw"),
+                         f"{tag} indexed search")
+        for phase, names in (("index build", ("dtw",)),
+                             ("indexed search", ("envelope", "lb_keogh", "lb_improved_pass2",
+                                                 "dtw"))):
+            for name in names:
+                if got[phase].get(name, 0) <= 0:
+                    fail(f"{tag} {phase} launched no {name}: {got}")
+        if s.lb0_pruned + sum(s.stage_pruned) + s.full_dtw != s.n_candidates:
+            fail(f"{tag} counts do not add up to the candidates: {s}")
+
+        # exactness: two queries' top-1 against a K5 brute force over every row
+        qs = torch.as_tensor(db.prepare_queries(queries[:2]), device=dev)
+        best = dtw_qbatch_op(qs, db.rows_tensor, db.w, p).argmin(dim=1).cpu().numpy()
+        if not np.array_equal(best, res.indices[:2, 0]):
+            fail(f"{tag} top-1 {res.indices[:2, 0]} != brute force {best}")
+        # and every answer against an unindexed session at the same p
+        if p == 1:
+            plain, plain_s, route = main["res"], main["search_s"], "host driver, device loop"
+        else:
+            plain_db = Database.build(x, cfg)
+            route = f"{plain_db.plan(queries).driver} driver, host loop"
+            plain, plain_s = timed(lambda: plain_db.search(queries))
+            del plain_db
+        if not np.array_equal(res.indices, plain.indices):
+            fail(f"{tag} indices differ from the unindexed session's")
+        if np.array_equal(res.distances, plain.distances):
+            same = "the same distance bits"
+        else:
+            err = float(np.max(np.abs(res.distances - plain.distances) / plain.distances))
+            if err > 2e-4:
+                fail(f"{tag} distances differ from the unindexed session's by {err:.3g}")
+            same = f"distances within rtol {err:.3g} (not bit-equal)"
+        log(f"{tag} brute force top-1 {best.tolist()} == indexed top-1; the unindexed "
+            f"session ({route}, {plain_s:.3f} s = {len(queries) / plain_s:.2f} qps): the "
+            f"same indices, {same}")
+        del db, again, res
+
+
+def phase_cli():
+    """``python -m repro_torch.launch.search`` and the quickstart twin as
+    subprocesses on the card."""
+    import numpy as np
+
+    from repro_torch.api import Database, SearchConfig
+    from repro_torch.data.synthetic import random_walks
+
+    # the search CLI, with the index at p = inf and with its defaults, each
+    # query's nn against a direct db.search of the same rows and queries
+    for args, cfg, index in ((["--index", "--p", "inf", "--n-refs", str(N_REFS)],
+                              SearchConfig(p=math.inf), True), ([], SearchConfig(), False)):
+        t0 = time.perf_counter()
+        out, nn, lines = run_cli(args, f"launch.search {' '.join(args)}")
+        cli_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)  # the CLI's --seed default
+        data = random_walks(rng, 4096, 512)  # its --db-size, --length
+        qs = random_walks(rng, 4, 512)  # its --queries
+        direct = Database.build(data, cfg, index=index, n_refs=N_REFS).search(qs)
+        if nn != direct.indices[:, 0].tolist():
+            fail(f"launch.search {args}: nn {nn} != direct db.search {direct.indices[:, 0]}")
+        served = [ln for ln in out.splitlines() if ln.startswith(("served", "mesh="))]
+        log(f"[index cli] launch.search {' '.join(args) or '(defaults)'}: exit 0 in "
+            f"{cli_s:.1f} s, nn {nn} == direct db.search; {lines[0]} | {' | '.join(served)}")
+    t0 = time.perf_counter()
+    quick = subprocess.run(
+        [sys.executable, "examples/quickstart_torch.py"], capture_output=True, text=True,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    if quick.returncode != 0:
+        fail(f"examples/quickstart_torch.py: exit {quick.returncode}\n{quick.stdout}\n"
+             f"{quick.stderr}")
+    head = [ln for ln in quick.stdout.splitlines() if ln.startswith(("lb_improved", "batched"))]
+    log(f"[index cli] examples/quickstart_torch.py (2,000 x 512): exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(head))
+
+
 def main() -> int:
     try:
         import torch
@@ -1836,6 +2016,8 @@ def main() -> int:
     phase_scan_sessions(dev, launches)
     phase_stream(dev, launches)
     phase_tuned(dev, launches, main_out)
+    phase_indexed(dev, launches, main_out)
+    phase_cli()
     kernels = []
     for name, r in rec.items():
         source, replaces = SOURCES[name]

@@ -3,16 +3,18 @@
 
     db = Database.build(data, SearchConfig())   # rows + envelopes on the GPU
     db.plan(queries).explain()                  # see the routing
-    res = db.search(queries)                    # scan or host driver
+    res = db.search(queries)                    # scan, host or indexed driver
     db.save("session.npz"); Database.load(...)  # the reference's bundle
     Database.build(data, tune=True)             # + the kernel tune sweep
+    Database.build(data, index=True)            # + the stage-0 triangle index
 
 ``build`` computes every database-side artifact once: the (z-normalized,
 precision-cast) rows on the device, their warping envelopes (envelope
-kernel), the float64 powered row norms and the planner's calibration
-probe.  Bundles keep the reference's ``.npz`` keys and format version,
-so a bundle written by ``repro.api.Database.save`` loads here and
-answers the same (``load`` / ``from_arrays``).  The session runs on
+kernel), the float64 powered row norms, the planner's calibration probe
+and, with ``index=True``, the stage-0 triangle index.  Bundles keep the
+reference's ``.npz`` keys and format version, so a bundle written by
+``repro.api.Database.save`` loads here and answers the same (``load`` /
+``from_arrays``).  The session runs on
 ``device`` (default: the GPU; ``RuntimeError`` when there is none).
 """
 
@@ -38,9 +40,12 @@ from repro_torch.core.cascade import (
     BatchSearchResult,
     SearchResult,
     nn_search_host,
+    nn_search_indexed,
     nn_search_scan,
 )
 from repro_torch.core.pipeline import not_ported
+from repro_torch.index.build import TriangleIndex, build_index
+from repro_torch.index.store import index_arrays, index_from_arrays
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.envelope.ops import envelope_op
 from repro_torch.kernels.tuning import TuneTable, autotune_session, install
@@ -52,7 +57,6 @@ STD_EPS = 1e-8
 
 #: bundle key prefixes of tiers a later slice ports -> ROADMAP.md item
 _UNPORTED_BUNDLE_KEYS = {
-    "idx_": "6 (stage-0 triangle index)",
     "any_": "10 (anytime tier)",
 }
 
@@ -87,6 +91,7 @@ class Database:
         self, *, raw, data: torch.Tensor, config: SearchConfig, w: int,
         upper: torch.Tensor, lower: torch.Tensor, row_sums, row_sumsq,
         calibration: Calibration | None = None, tune_table: TuneTable | None = None,
+        index: TriangleIndex | None = None,
     ):
         self.raw = raw  # as given (precision-cast numpy), what save() persists
         self._data = data  # (N, n) rows on the device, znormed when configured
@@ -96,6 +101,7 @@ class Database:
         self._lower = lower
         self.row_sums = row_sums  # (N,) float64 sum x of the raw rows
         self.row_sumsq = row_sumsq  # (N,) float64 sum x^2
+        self.index = index  # the stage-0 triangle index, or None
         # measured schedules and stage costs of build(tune=...), persisted
         # as tune_* bundle keys; installing makes them what every kernel
         # wrapper resolves.  None on untuned sessions: the defaults hold.
@@ -110,11 +116,21 @@ class Database:
 
     @classmethod
     def build(
-        cls, data, config: SearchConfig | None = None, *, index=False,
-        anytime=False, tune=False, device=None,
+        cls, data, config: SearchConfig | None = None, *,
+        index: bool | TriangleIndex = False, n_refs: int = 8,
+        n_clusters: int | None = None, seed: int = 0, anytime=False, tune=False,
+        device=None,
     ) -> "Database":
         """Precompute every database-side artifact for ``data`` (N, n) on
         ``device``.
+
+        ``index=True`` also builds the stage-0 triangle index (``n_refs``
+        references by farthest-first traversal, the first ``n_clusters``
+        of them cluster representatives, ``seed`` for the random draws:
+        2R banded-DTW sweeps over the rows), and the planner then routes
+        searches through it; pass a prebuilt
+        :class:`~repro_torch.index.TriangleIndex` to attach one instead (it
+        is validated against the data and config).
 
         ``tune=True`` runs the deterministic kernel tune sweep
         (``kernels.tuning.autotune_session``) on the session's device at
@@ -123,9 +139,8 @@ class Database:
         the session's ``tune_table``, installed process-wide, saved in the
         bundle, and read by the planner for ``method="auto"``.  A dict
         customizes the sweep, e.g. ``tune=dict(iters=1, families=("lb_kim",
-        "pipeline"))``.  The reference's ``index`` and ``anytime`` tiers
-        are not ported yet and raise ``NotImplementedError``."""
-        _not_ported_option("index", index, _UNPORTED_BUNDLE_KEYS["idx_"])
+        "pipeline"))``.  The reference's ``anytime`` tier is not ported yet
+        and raises ``NotImplementedError``."""
         _not_ported_option("anytime", anytime, _UNPORTED_BUNDLE_KEYS["any_"])
         config = config if config is not None else SearchConfig()
         dev = resolve_device(device)
@@ -150,26 +165,40 @@ class Database:
         del raw64
         data_t = torch.as_tensor(rows, device=dev).contiguous()
         upper, lower = envelope_op(data_t, w)
+        tri = None
+        if index is True:
+            tri = build_index(
+                data_t, w=w, p=config.p, n_refs=n_refs, n_clusters=n_clusters, seed=seed,
+            )
+        elif isinstance(index, TriangleIndex):
+            tri = index
+            tri.validate(n_db, n, w, config.p)
+            tri.validate_data(rows)
+        elif index is not False:
+            raise TypeError(
+                f"index must be a bool or a prebuilt TriangleIndex, got "
+                f"{type(index).__name__}"
+            )
         table = None
         if tune:
             opts = dict(tune) if isinstance(tune, dict) else {}
             table = autotune_session(
                 n=n, b=opts.pop("b", min(config.block, n_db)), w=w, p=config.p,
-                device=dev, **opts,
+                seed=opts.pop("seed", seed), device=dev, **opts,
             )
         cal = calibrate(data_t, w, config.p)
         return cls(
             raw=raw, data=data_t, config=config, w=w, upper=upper, lower=lower,
             row_sums=row_sums, row_sumsq=row_sumsq, calibration=cal,
-            tune_table=table,
+            tune_table=table, index=tri,
         )
 
     @classmethod
     def from_arrays(cls, arrays: Mapping[str, np.ndarray], device=None) -> "Database":
         """A session from the reference's bundle arrays (``.npz`` keys:
         ``config_json``, ``resolved_w``, ``data``, ``upper``, ``lower``,
-        ``row_sums``, ``row_sumsq`` and the optional ``cal_*`` and
-        ``tune_*``).  Saved artifacts are uploaded, not recomputed; a
+        ``row_sums``, ``row_sumsq`` and the optional ``idx_*``, ``cal_*``
+        and ``tune_*``).  Saved artifacts are uploaded, not recomputed; a
         tune table is installed."""
         for prefix, item in _UNPORTED_BUNDLE_KEYS.items():
             if any(k.startswith(prefix) for k in arrays):
@@ -186,6 +215,11 @@ class Database:
         config = SearchConfig.from_json(str(arrays["config_json"]))
         raw = np.asarray(arrays["data"], dtype=config.precision)
         rows = _znorm_rows(raw, dtype=config.precision) if config.znorm else raw
+        tri = None
+        if "idx_meta" in arrays:
+            tri = index_from_arrays(
+                {k[len("idx_"):]: arrays[k] for k in arrays if k.startswith("idx_")}
+            )
         cal = None
         if "cal_stage_names" in arrays:
             cal = Calibration.from_arrays(
@@ -208,12 +242,14 @@ class Database:
             row_sumsq=np.asarray(arrays["row_sumsq"]),
             calibration=cal,
             tune_table=table,
+            index=tri,
         )
 
     # ------------------------------------------------------- persistence
 
     def save(self, path: str) -> str:
-        """Persist the session to one ``.npz`` bundle (the reference's keys)."""
+        """Persist the session to one ``.npz`` bundle (the reference's keys),
+        the stage-0 index included."""
         path = str(path) if str(path).endswith(".npz") else f"{path}.npz"
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         arrays: dict[str, np.ndarray] = {
@@ -226,6 +262,8 @@ class Database:
             "row_sums": self.row_sums,
             "row_sumsq": self.row_sumsq,
         }
+        if self.index is not None:
+            arrays.update({f"idx_{k}": v for k, v in index_arrays(self.index).items()})
         if self._calibration is not None:
             arrays.update(
                 {f"cal_{k}": v for k, v in self._calibration.to_arrays().items()}
@@ -306,6 +344,7 @@ class Database:
         return (
             f"Database({self.n_rows} x {self.length}, w={self.w}, "
             f"p={self.config.p}, method={self.config.method!r}, "
+            f"index={'R=%d' % self.index.n_refs if self.index else 'none'}, "
             f"device={self.device})"
         )
 
@@ -381,7 +420,8 @@ class Database:
             n_queries = 1 if arr.ndim == 1 else int(arr.shape[0])
         cfg, cascade = self._resolve_method(self._config_for(method), k)
         return plan_search(
-            cfg, self.n_rows, n_queries, driver=driver, cascade=cascade, mode=mode
+            cfg, self.n_rows, n_queries, has_index=self.index is not None,
+            driver=driver, cascade=cascade, mode=mode,
         )
 
     def search(self, queries, *, k: int | None = None, driver: str | None = None,
@@ -392,6 +432,10 @@ class Database:
         k = self.config.validate_k(self.config.k if k is None else k, self.n_rows)
         plan = self.plan(qs, driver=driver, method=method, k=k, mode=mode)
         cfg = plan.config
+        if plan.driver == "indexed":
+            return nn_search_indexed(
+                qs, self._data, self.index, k=k, block=cfg.block, method=cfg.method,
+            )
         fn = nn_search_scan if plan.driver == "scan" else nn_search_host
         return fn(
             qs, self._data, w=self.w, p=cfg.p, k=k, block=cfg.block,

@@ -1,13 +1,14 @@
 """Planner: pick a driver and a stage order, explainably (port of
-``repro.api.planner``, the scan/host part).
+``repro.api.planner``, the scan/host/indexed part).
 
 ``Database.search`` routes every query batch through ``plan_search``: the
+indexed driver when the session has a stage-0 triangle index, else the
 scan driver below ``SMALL_DB_ROWS`` rows (and for ``method="full"``), the
 host driver otherwise.  ``calibrate`` measures every registered bound on a
 small probe sample at build time and ``choose_cascade`` picks the cheapest
 predicted pipeline for ``method="auto"``; every pipeline returns the same
-answers, only cost differs.  The indexed, sharded and anytime routes of
-the reference are queued in ROADMAP.md.  A tuned session
+answers, only cost differs.  The sharded and anytime routes of the
+reference are queued in ROADMAP.md.  A tuned session
 (``Database.build(tune=...)``) plans with its measured stage costs.
 """
 
@@ -25,11 +26,11 @@ from repro_torch.core.pipeline import PIPELINES, not_ported
 DRIVERS = {
     "scan": "repro_torch.core.cascade.nn_search_scan",
     "host": "repro_torch.core.cascade.nn_search_host",
+    "indexed": "repro_torch.core.cascade.nn_search_indexed",
 }
 
 #: the reference's other drivers and the ROADMAP.md queue-1 item porting each
 UNPORTED_DRIVERS = {
-    "indexed": "6 (stage-0 triangle index)",
     "sharded": "11 (sharded driver)",
     "anytime": "10 (anytime tier)",
     "subsequence": "10 (anytime tier)",
@@ -288,14 +289,16 @@ def plan_search(
     n_rows: int,
     n_queries: int,
     *,
+    has_index: bool = False,
     driver: str | None = None,
     cascade: CascadePlan | None = None,
     mode: str = "exact",
 ) -> Plan:
     """Choose the driver for a query batch against one database session:
-    an explicit ``driver`` override wins; then ``method="full"`` and
-    databases below ``SMALL_DB_ROWS`` rows go to the scan driver, the rest
-    to the host driver."""
+    an explicit ``driver`` override wins; then the stage-0 index (the most
+    specific prebuilt artifact); then ``method="full"`` and databases below
+    ``SMALL_DB_ROWS`` rows go to the scan driver, the rest to the host
+    driver."""
     if mode == "anytime":
         raise not_ported("mode='anytime'", UNPORTED_DRIVERS["anytime"])
     if mode != "exact":
@@ -317,8 +320,25 @@ def plan_search(
             raise ValueError(
                 f"driver={driver!r} unknown; available: {sorted(DRIVERS)}"
             )
+        if driver == "indexed":
+            if not has_index:
+                raise ValueError(
+                    "driver='indexed' but no stage-0 index is built: pass "
+                    "index=True to Database.build (or load a bundle saved "
+                    "with one)"
+                )
+            stages = ("lb_tri",) + stages
         return Plan(driver, stages, ("caller override",) + because,
                     n_queries, config, cascade)
+    if has_index:
+        return Plan(
+            "indexed", ("lb_tri",) + stages,
+            ("stage-0 triangle index built for this database: O(R) "
+             "arithmetic per candidate kills most lanes before any "
+             "envelope work, and the reference distances seed the "
+             "top-k exactly",) + because,
+            n_queries, config, cascade,
+        )
     if config.method == "full":
         return Plan(
             "scan", stages,

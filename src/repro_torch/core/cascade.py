@@ -1,6 +1,6 @@
 """Two-pass pruned nearest-neighbour search — the paper's Algorithms 2/3.
 
-Port of ``repro.core.cascade`` (scan and host drivers).  Candidates are
+Port of ``repro.core.cascade`` (scan, host and indexed drivers).  Candidates are
 processed in blocks and queries in batches: each query lane keeps its own
 top-k and prunes against its own tightening bound.
 
@@ -21,6 +21,11 @@ top-k and prunes against its own tightening bound.
   them into the top-k and the counters, with no copy back until the loop
   ends.  Every other pipeline (``kim_webb``, ``lb_webb``, ``lb_keogh``,
   ``full``) and p = inf take the host loop.
+* ``nn_search_indexed`` — stage 0 through the triangle index
+  (``repro_torch.index``): the reference DPs of the query batch, cluster
+  and per-candidate LB_tri, then the scan driver's block body over the
+  compacted survivors with a per-query entry mask, its top-k seeded with
+  the exact reference distances.
 
 Both take numpy arrays or tensors.  They run on the tensors' device, or
 on ``device`` (default: the GPU; ``RuntimeError`` when there is none).
@@ -29,6 +34,7 @@ on ``device`` (default: the GPU; ``RuntimeError`` when there is none).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Iterator
 
 import numpy as np
@@ -36,8 +42,9 @@ import torch
 
 from repro_torch.core import pipeline as pipe
 from repro_torch.core.dtw import BIG, PNorm, finish_cost
+from repro_torch.index.triangle_lb import lb_triangle_batch, lb_triangle_clusters, powered
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.dtw.ops import dtw_masked_prepare, dtw_pairs_op
+from repro_torch.kernels.dtw.ops import dtw_masked_prepare, dtw_pairs_op, dtw_qbatch_op
 from repro_torch.kernels.envelope.ops import envelope_op
 from repro_torch.kernels.lb_fused.ops import lb_fused_prepare, lb_fused_qbatch_op
 
@@ -47,6 +54,7 @@ __all__ = [
     "SearchStats",
     "fused_block_loop",
     "nn_search_host",
+    "nn_search_indexed",
     "nn_search_scan",
 ]
 
@@ -57,8 +65,10 @@ class SearchStats:
 
     ``stage_pruned`` has one pruned count per LB stage of the method's
     pipeline (``stage_names``, cascade order), and
-    ``sum(stage_pruned) + full_dtw == n_candidates``.  ``blocks_*`` and
-    the DP lane counters are batch-level execution counts.
+    ``sum(stage_pruned) + full_dtw (+ lb0_pruned) == n_candidates`` on
+    every search path.  ``lb1_pruned`` is the first stage's count and
+    ``lb2_pruned`` the sum of every later stage's.  ``blocks_*`` and the
+    DP lane counters are batch-level execution counts.
     """
 
     n_candidates: int
@@ -70,11 +80,47 @@ class SearchStats:
     blocks_dtw: int = 0  # blocks (scan) or DP chunks (host) that ran the DP
     dp_lane_work: int = 0  # DP lanes executed, chunk-padded
     dp_lane_useful: int = 0  # alive DP lanes among them
+    # stage-0 triangle-index counters (nn_search_indexed only)
+    lb0_pruned: int = 0  # discarded by LB_tri before any envelope work
+    ref_dtw: int = 0  # exact reference DPs at query time (2R: band w and 2w)
+    clusters_total: int = 0
+    clusters_pruned: int = 0  # clusters discarded wholesale at stage 0
+
+    @property
+    def lb1_pruned(self) -> int:
+        """Candidates discarded by the first LB stage."""
+        return int(self.stage_pruned[0]) if self.stage_pruned else 0
+
+    @property
+    def lb2_pruned(self) -> int:
+        """Candidates discarded by every later LB stage."""
+        return int(sum(self.stage_pruned[1:]))
 
     @property
     def pruned_by(self) -> dict[str, int]:
         """Per-stage pruned counts keyed by registry stage name."""
         return dict(zip(self.stage_names, self.stage_pruned))
+
+    @property
+    def pruning_ratio(self) -> float:
+        if self.n_candidates == 0:
+            return 0.0
+        return 1.0 - self.full_dtw / self.n_candidates
+
+    @property
+    def stage0_ratio(self) -> float:
+        """Fraction of candidates killed before any per-candidate LB work."""
+        if self.n_candidates == 0:
+            return 0.0
+        return self.lb0_pruned / self.n_candidates
+
+    @property
+    def dp_lane_efficiency(self) -> float:
+        """useful / work of the DP lanes executed (1.0 when the DP never
+        ran): how much of the dispatched DP was not padding."""
+        if self.dp_lane_work == 0:
+            return 1.0
+        return self.dp_lane_useful / self.dp_lane_work
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,30 +185,43 @@ def _pad_db(db: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
     return db, n_pad
 
 
-def init_carry(k: int, nq: int, n_lb: int, dtype, device):
+def init_carry(k: int, nq: int, n_lb: int, dtype, device, top_v=None, top_i=None):
     """Fresh query-major carry: (top_v (Q, k), top_i (Q, k),
     stage_pruned (S, Q), dtw_count (Q,), lb2_blocks, dtw_blocks,
-    dp_lane_work, dp_lane_useful)."""
+    dp_lane_work, dp_lane_useful); optionally seeded with an already
+    known (Q, k) top-k (the indexed search seeds it with the exact
+    reference distances)."""
     return (
-        torch.full((nq, k), BIG, dtype=dtype, device=device),
-        torch.full((nq, k), -1, dtype=torch.int64, device=device),
+        torch.full((nq, k), BIG, dtype=dtype, device=device) if top_v is None
+        else torch.as_tensor(top_v, dtype=dtype, device=device),
+        torch.full((nq, k), -1, dtype=torch.int64, device=device) if top_i is None
+        else torch.as_tensor(top_i, dtype=torch.int64, device=device),
         torch.zeros((n_lb, nq), dtype=torch.int64, device=device),
         torch.zeros((nq,), dtype=torch.int64, device=device),
         0, 0, 0, 0,
     )
 
 
-def make_block_step(ctx: pipe.PipeContext, k: int, block: int, method: str, n_real: int):
-    """The per-block body of the scan driver: run the block's stages
-    against each query's k-th best, merge into the top-k by a stable
-    sort, and count.  Lanes with ``cand_i >= n_real`` (database pad rows)
-    are masked off on entry, never evaluated or counted."""
+def make_block_step(ctx: pipe.PipeContext, k: int, block: int, method: str,
+                    n_real: int | None = None):
+    """The per-block body of the scan and indexed drivers: run the
+    block's stages against each query's k-th best, merge into the top-k
+    by a stable sort, and count.
+
+    ``body(carry, blk, cand_i, mask0=None)``: ``cand_i`` is the (block,)
+    vector of candidate ids (a contiguous range for the plain scan, a
+    compacted survivor gather for ``nn_search_indexed``), and ``mask0`` a
+    (Q, block) bool of the lanes alive on entry (each query's stage-0
+    survivors).  Without ``mask0``, lanes with ``cand_i >= n_real``
+    (database pad rows) are masked off.  Masked lanes are neither
+    evaluated nor counted."""
     nq = ctx.qs.shape[0]
     n_lb = len(pipe.lb_stage_names(method))
 
-    def body(carry, blk, cand_i):
+    def body(carry, blk, cand_i, mask0=None):
         top_v, top_i, c_stage, c_dtw, b_lb2, b_dtw, w_dp, u_dp = carry
-        mask0 = (cand_i < n_real)[None, :].expand(nq, block)
+        if mask0 is None:
+            mask0 = (cand_i < n_real)[None, :].expand(nq, block)
         bound = top_v[:, -1]
         st = pipe.run_block_stages(
             ctx.qs, ctx.upper, ctx.lower, ctx.w, ctx.p, method, blk, bound,
@@ -189,12 +248,16 @@ def make_block_step(ctx: pipe.PipeContext, k: int, block: int, method: str, n_re
 
 def _batch_stats(
     n_db, stage_names, stage_pruned, c3, b2, b3, blocks_total,
-    dp_lane_work=0, dp_lane_useful=0,
+    dp_lane_work=0, dp_lane_useful=0, per_query_stage0=None,
 ):
     """Per-query and aggregated stats from the per-stage counter vectors
-    (``stage_pruned`` is (S, Q) in ``stage_names`` order)."""
+    (``stage_pruned`` is (S, Q) in ``stage_names`` order).
+    ``per_query_stage0`` optionally carries each query's stage-0 counters
+    (lb0_pruned, ref_dtw, clusters_*) from the indexed path; the
+    aggregate sums them over the queries."""
     nq = len(c3)
     stage_pruned = np.asarray(stage_pruned).reshape(len(stage_names), nq)
+    s0_per = per_query_stage0 if per_query_stage0 is not None else [{}] * nq
     per_query = tuple(
         SearchStats(
             n_candidates=n_db,
@@ -206,6 +269,7 @@ def _batch_stats(
             blocks_dtw=int(b3),
             dp_lane_work=int(dp_lane_work),
             dp_lane_useful=int(dp_lane_useful),
+            **s0_per[i],
         )
         for i in range(nq)
     )
@@ -219,6 +283,10 @@ def _batch_stats(
         blocks_dtw=int(b3),
         dp_lane_work=int(dp_lane_work),
         dp_lane_useful=int(dp_lane_useful),
+        lb0_pruned=sum(s.lb0_pruned for s in per_query),
+        ref_dtw=sum(s.ref_dtw for s in per_query),
+        clusters_total=sum(s.clusters_total for s in per_query),
+        clusters_pruned=sum(s.clusters_pruned for s in per_query),
     )
     return agg, per_query
 
@@ -462,3 +530,150 @@ def nn_search_host(
     )
     distances = finish_cost(torch.as_tensor(top_v, dtype=db_t.dtype), p).numpy()
     return _result(distances, top_i, single, agg, per_query)
+
+
+# --------------------------------------------------------------- indexed
+
+
+def nn_search_indexed(
+    q, db, index, k: int = 1, block: int = 32, method: str = "lb_improved",
+    device=None,
+) -> SearchResult | BatchSearchResult:
+    """Four-stage search: LB_tri -> LB_Keogh -> LB_Improved -> DTW.
+
+    ``index`` is a prebuilt ``repro_torch.index.TriangleIndex`` over
+    ``db``; ``w`` and ``p`` come from the index (Theorem 1's constant
+    depends on both).  ``q`` is one series (n,) -> ``SearchResult`` or a
+    batch (Q, n) -> ``BatchSearchResult``.
+
+    Stage 0 spends 2R exact DPs per query on the references (band w and
+    the composed band 2w), two launches of the DP kernel for the whole
+    batch.  References are database rows, so the band-w distances seed
+    the top-k with true distances; then whole clusters and single
+    candidates die with O(R) arithmetic per candidate, on the device.
+    The survivors of every query are compacted into one candidate list
+    and swept by the scan driver's block body (``make_block_step``) with
+    a (Q, block) entry mask per block, so each query lane evaluates and
+    counts only its own survivors.  The reference pads that list to a
+    power-of-two number of blocks (its jit specialisations); the port
+    reports the same ``blocks_total`` but launches nothing for the
+    padding blocks, whose lanes are masked for every query (such a block
+    moves no counter in the reference either).
+
+    Stats specific to this path: ``lb0_pruned`` (killed at stage 0),
+    ``ref_dtw`` (2R), ``clusters_total`` / ``clusters_pruned``; and
+    ``full_dtw`` includes the R band-w reference DPs, so
+    ``lb0 + sum(stage_pruned) + full_dtw == n_candidates`` per query.
+    """
+    qs, db_t, single = _as_inputs(q, db, device, int(getattr(index, "d", 1)))
+    pipe.check_method(method)
+    nq, n = qs.shape
+    n_db = db_t.shape[0]
+    dev = db_t.device
+    w, p = index.w, (math.inf if math.isinf(index.p) else index.p)
+    if p != math.inf and float(p) == int(p):
+        p = int(p)
+    index.validate(n_db, n, w, p)
+    cl = index.clustering
+    c_w = index.constant
+    n_refs = index.n_refs
+    arrs = index.device_arrays(dev, qs.dtype)  # build-time constants, uploaded once
+    ref_idx = np.asarray(index.ref_idx, np.int64)
+    ref_idx_t = torch.as_tensor(ref_idx, device=dev)
+
+    # cheap guard against serving a different database of the same shape
+    # (a stale index would silently prune true neighbours): the R
+    # reference rows are read back, not the database
+    ref_rows = db_t[ref_idx_t].cpu().numpy().astype(np.float32)
+    if not np.array_equal(ref_rows, np.asarray(index.ref_series, np.float32)):
+        raise ValueError(
+            "database rows at ref_idx do not match the index's reference "
+            "series — the index belongs to a different database"
+        )
+
+    # ---- stage 0a: exact DTW to the references at both bands, rooted
+    refs = arrs["ref_series"].to(qs.dtype).contiguous()
+    d_q_refs = finish_cost(dtw_qbatch_op(qs, refs, w, p), p)  # (Q, R)
+    d_q_refs_wide = finish_cost(dtw_qbatch_op(qs, refs, index.w_wide, p), p)
+    ref_pow = powered(d_q_refs.cpu().numpy(), p)
+    order = np.argsort(ref_pow, axis=1, kind="stable")
+    top_v = np.full((nq, k), BIG)  # float64 on the host, as the reference's
+    top_i = np.full((nq, k), -1, np.int64)
+    m = min(k, n_refs)
+    top_v[:, :m] = np.take_along_axis(ref_pow, order[:, :m], axis=1)
+    top_i[:, :m] = ref_idx[order[:, :m]]
+    # powered k-th best so far; the float32 bounds below are compared
+    # against it in float64, the reference's promotion
+    bound = torch.as_tensor(top_v[:, -1], device=dev)[:, None]
+
+    # ---- stage 0b: cluster-granularity pruning (O(C) work per query)
+    reps = torch.as_tensor(cl.rep_rows, device=dev)
+    cl_lb = lb_triangle_clusters(
+        d_q_refs[:, reps], d_q_refs_wide[:, reps], arrs["radii"], arrs["min_radii_wide"], c_w
+    )
+    cl_alive = powered(cl_lb, p) < bound  # (Q, C)
+    alive = cl_alive[:, torch.as_tensor(cl.assign, device=dev)]  # (Q, N)
+
+    # ---- stage 0c: per-candidate LB_tri over all references (O(R) each)
+    lb0 = lb_triangle_batch(
+        d_q_refs, d_q_refs_wide, arrs["d_ref_db"], arrs["d_ref_db_wide"], c_w
+    )
+    alive &= powered(lb0, p) < bound
+    alive[:, ref_idx_t] = False  # references were evaluated exactly above
+    alive, cl_alive = _to_host(alive, cl_alive)
+    per_q_survivors = alive.sum(axis=1)
+    lb0_pruned = n_db - n_refs - per_q_survivors
+    # stages 1-3 sweep the union of the per-query survivor sets once
+    survivors = np.nonzero(alive.any(axis=0))[0]
+    stage0_per = [
+        dict(
+            lb0_pruned=int(lb0_pruned[i]),
+            ref_dtw=2 * n_refs,
+            clusters_total=cl.n_clusters,
+            clusters_pruned=int((~cl_alive[i]).sum()),
+        )
+        for i in range(nq)
+    ]
+    lb_names = pipe.lb_stage_names(method)
+    if len(survivors) == 0:
+        agg, per_query = _batch_stats(
+            n_db, lb_names, np.zeros((len(lb_names), nq), np.int64),
+            np.full(nq, n_refs, np.int64), 0, 0, blocks_total=0,
+            per_query_stage0=stage0_per,
+        )
+        distances = finish_cost(torch.as_tensor(top_v, dtype=qs.dtype), p).numpy()
+        return _result(distances, top_i, single, agg, per_query)
+
+    # ---- stages 1-3: the masked, seeded block scan over the survivors
+    nb = -(-len(survivors) // block)
+    nb_pad = 1 << (nb - 1).bit_length()  # the reference's power-of-two count
+    total = nb * block
+    idx = np.concatenate([survivors, np.full(total - len(survivors), -1, np.int64)])
+    # (Q, total) entry mask: each lane alive only for the queries that
+    # still need it; the filler lanes of the last block are dead for all
+    mask = np.zeros((nq, total), bool)
+    mask[:, : len(survivors)] = alive[:, survivors]
+    idx_t = torch.as_tensor(idx, device=dev)
+    mask_t = torch.as_tensor(mask, device=dev)
+    w_scan = int(min(w, n - 1))
+    upper, lower = envelope_op(qs, w_scan)
+    ctx = pipe.make_context(qs, upper, lower, w_scan, p, method)
+    body = make_block_step(ctx, int(k), int(block), method)
+    carry = init_carry(int(k), nq, len(lb_names), qs.dtype, dev, top_v, top_i)
+    for t in range(nb):
+        lanes = slice(t * block, (t + 1) * block)
+        real = min(block, len(survivors) - t * block)
+        blk = db_t.index_select(0, idx_t[t * block : t * block + real])
+        if real < block:  # filler rows never win: masked off on entry
+            blk = torch.cat([blk, blk.new_full((block - real, n), 0.5 * BIG ** 0.25)])
+        carry = body(carry, blk, idx_t[lanes], mask_t[:, lanes])
+    top_v_t, top_i_t, cs, c3, b2, b3, w_dp, u_dp = carry
+    # the R band-w reference DPs count as full_dtw: they seed the top-k
+    # with true distances
+    agg, per_query = _batch_stats(
+        n_db, lb_names, cs.cpu().numpy(), c3.cpu().numpy() + n_refs, b2, b3,
+        blocks_total=nb_pad, dp_lane_work=w_dp, dp_lane_useful=u_dp,
+        per_query_stage0=stage0_per,
+    )
+    distances = finish_cost(top_v_t, p).cpu().numpy()
+    return _result(distances, top_i_t.cpu().numpy(), single, agg, per_query)

@@ -1,0 +1,135 @@
+"""repro_torch's search CLI and quickstart against repro's (CPU).
+
+``repro_torch.launch.search.main`` with ``--device cpu`` and
+``repro.launch.search.main`` run on the same small flags; their
+``query i:`` lines are parsed and compared.  With ``--index`` both serve
+through the stage-0 triangle index: the same ``nn``, ``stage0=``,
+``clusters=``, ``pruned_*`` and ``dtw=`` counts, and ``dist`` within rtol
+2e-4 (plus half of the line's 3-decimal rounding).  Without ``--index``
+the reference serves through its host mesh (the sharded driver, which
+syncs its bounds across shards), so only ``nn`` and ``dist`` are held:
+the port has no sharded driver yet and serves through its planner.  The
+quickstart twin runs small, its exactness asserts included.
+"""
+
+import importlib.util
+import math
+import pathlib
+import re
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from repro.launch import search as j_cli  # noqa: E402
+from repro_torch.api.planner import SMALL_DB_ROWS  # noqa: E402
+from repro_torch.launch import search as t_cli  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SMALL = ["--db-size", "200", "--length", "64", "--queries", "3"]
+INDEXED = ["--index", "--p", "inf", "--n-refs", "6"]
+QUERY_LINE = re.compile(r"^query (\d+): nn=(\d+) dist=([0-9.]+) (.*)$")
+
+
+def parse(out: str) -> list[dict]:
+    """The ``query i:`` lines: nn, dist and every ``key=value`` count."""
+    rows = []
+    for line in out.splitlines():
+        m = QUERY_LINE.match(line)
+        if m:
+            counts = dict(re.findall(r"(\w+)=(\d+(?:/\d+)?)", m.group(4)))
+            rows.append(dict(i=int(m.group(1)), nn=int(m.group(2)),
+                             dist=float(m.group(3)), **counts))
+    return rows
+
+
+def run_port(capsys, args):
+    t_cli.main(["--device", "cpu", *args])
+    return capsys.readouterr().out
+
+
+def run_reference(capsys, monkeypatch, args):
+    monkeypatch.setattr(sys, "argv", ["repro.launch.search", *args])
+    j_cli.main()
+    return capsys.readouterr().out
+
+
+def close(a: float, b: float) -> bool:
+    # rtol 2e-4, plus half a unit of the line's third decimal
+    return abs(a - b) <= 2e-4 * abs(b) + 5e-4
+
+
+@pytest.mark.parametrize("indexed", [True, False], ids=["index", "no_index"])
+def test_cli_lines_match_reference(capsys, monkeypatch, indexed):
+    args = SMALL + (INDEXED if indexed else [])
+    port_out = run_port(capsys, args)
+    ref_out = run_reference(capsys, monkeypatch, args)
+    port, ref = parse(port_out), parse(ref_out)
+    assert len(port) == len(ref) == 3
+    for a, b in zip(port, ref):
+        assert a["nn"] == b["nn"] and close(a["dist"], b["dist"]), (a, b)
+        if indexed:
+            keys = ("stage0", "clusters", "pruned_lb_keogh", "pruned_lb_improved", "dtw")
+            assert {k: a[k] for k in keys} == {k: b[k] for k in keys}
+    if indexed:
+        assert "driver: indexed (repro_torch.core.cascade.nn_search_indexed)" in port_out
+        assert "mesh=" not in port_out
+    else:
+        assert "mesh=none (sharded driver: ROADMAP item 11; --sync-every=4" in port_out
+        assert "driver: scan" in port_out  # 200 rows < SMALL_DB_ROWS
+    assert "served 3 queries" in port_out
+
+
+def test_cli_bundle_and_index_paths(capsys, monkeypatch, tmp_path):
+    """--index-path builds then loads the index with the same answers;
+    --db-path builds and saves the session bundle, and a second run serves
+    it (its queries then start the seed's stream, as the reference's do),
+    answering as the reference's CLI does on the same bundle."""
+    idx, bundle = str(tmp_path / "idx"), str(tmp_path / "session")
+    first = parse(run_port(capsys, SMALL + INDEXED + ["--index-path", idx]))
+    out = run_port(capsys, SMALL + INDEXED + ["--index-path", idx])
+    assert "loaded index from" in out and parse(out) == first
+    built = run_port(capsys, SMALL + INDEXED + ["--db-path", bundle])
+    assert "saved session bundle to" in built and parse(built) == first
+    loaded = run_port(capsys, SMALL + ["--db-path", bundle])
+    assert "loaded session bundle from" in loaded and "--index: bundle=has" in loaded
+    ref = run_reference(capsys, monkeypatch, SMALL + ["--db-path", bundle])
+    port, want = parse(loaded), parse(ref)
+    assert [r["nn"] for r in port] == [r["nn"] for r in want]
+    assert [{k: v for k, v in r.items() if k != "dist"} for r in port] == [
+        {k: v for k, v in r.items() if k != "dist"} for r in want]
+    assert all(close(a["dist"], b["dist"]) for a, b in zip(port, want))
+
+
+@pytest.mark.parametrize("flags", [["--anytime", "32"], ["--mode", "anytime"],
+                                   ["--query-length", "32"]], ids=lambda f: f[0])
+def test_cli_anytime_flags_raise(capsys, flags):
+    with pytest.raises(NotImplementedError, match="item 10"):
+        run_port(capsys, SMALL + flags)
+
+
+def test_cli_parse_p():
+    assert t_cli._parse_p("inf") == math.inf and t_cli._parse_p("2") == 2
+    assert t_cli._parse_p("Infinity") == j_cli._parse_p("Infinity")
+    with pytest.raises(ValueError, match="positive norm order"):
+        t_cli._parse_p("-1")
+
+
+def test_quickstart_twin_runs_on_cpu(capsys):
+    """examples/quickstart_torch.py end to end at 1,100 x 64: above
+    SMALL_DB_ROWS, so its batched search takes the host driver as at
+    the full 2,000 rows; its exactness asserts run."""
+    assert 1100 >= SMALL_DB_ROWS
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(1100, 64, "cpu")
+    out = capsys.readouterr().out
+    assert "all three methods agree" in out
+    assert "driver: host" in out
+    assert "facade results identical" in out and "zero rebuild" in out

@@ -110,12 +110,6 @@ def test_bundle_cross_load_and_round_trip(tmp_path):
 
 def test_bundles_of_unported_tiers_raise(tmp_path):
     x = walks(7, 60, 24)
-    jdb = JDatabase.build(x, JConfig(), index=True, n_refs=4)
-    path = jdb.save(str(tmp_path / "indexed"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Database.load(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Database.build(x, index=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         Database.build(x, anytime=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -129,8 +123,78 @@ def test_bundles_of_unported_tiers_raise(tmp_path):
         db.stream(threshold=1.0)
     with pytest.raises(NotImplementedError, match="item 10"):
         db.search(x[:2], mode="anytime")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        db.search(x[:2], driver="indexed")
+    jdb = JDatabase.build(x, JConfig(), anytime=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Database.load(jdb.save(str(tmp_path / "anytime")), device="cpu")
+
+
+def test_indexed_session_matches_repro(tmp_path):
+    """Database.build(index=True) in both packages: the same references,
+    the indexed plan, the same answers and counters; each package's
+    indexed bundle loads in the other and answers the same."""
+    x, q = walks(15, 150, 40), walks(16, 4, 40)
+    cfg = dict(k=2, p="inf")
+    jdb = JDatabase.build(x, JConfig(**cfg), index=True, n_refs=6, n_clusters=4, seed=3)
+    tdb = Database.build(x, SearchConfig(**cfg), index=True, n_refs=6, n_clusters=4,
+                         seed=3, device="cpu")
+    np.testing.assert_array_equal(tdb.index.ref_idx, jdb.index.ref_idx)
+    np.testing.assert_array_equal(tdb.index.clustering.assign, jdb.index.clustering.assign)
+    assert "index=R=6" in repr(tdb)
+    jp, tp = jdb.plan(q), tdb.plan(q)
+    assert (tp.driver, tp.stages) == (jp.driver, jp.stages) == (
+        "indexed", ("lb_tri", "lb_keogh", "lb_improved", "full"))
+    explain = tp.explain()
+    assert explain.startswith("driver: indexed (repro_torch.core.cascade.nn_search_indexed)")
+    assert "stages: lb_tri -> lb_keogh" in explain and jp.reasons == tp.reasons
+    jres = jdb.search(q)
+    same_answers(jres, tdb.search(q))
+    assert tdb.search(q).stats.lb0_pruned == jres.stats.lb0_pruned > 0
+    same_answers(jdb.search(q[0]), tdb.search(q[0]))
+    # a caller override of the driver still answers the same
+    same_answers(jdb.search(q, driver="host"), tdb.search(q, driver="host"))
+    # bundles with idx_* keys pass both ways
+    from_ref = Database.load(jdb.save(str(tmp_path / "ref")), device="cpu")
+    assert from_ref.plan(q).driver == "indexed"
+    same_answers(jres, from_ref.search(q))
+    from_port = JDatabase.load(tdb.save(str(tmp_path / "port")))
+    np.testing.assert_array_equal(from_port.index.ref_idx, tdb.index.ref_idx)
+    same_answers(from_port.search(q), tdb.search(q))
+    # a prebuilt index attaches after validation; a foreign one is refused
+    same_answers(jres, Database.build(x, SearchConfig(**cfg), index=from_ref.index,
+                                      device="cpu").search(q))
+    with pytest.raises(ValueError, match="different database"):
+        Database.build(x + 1.0, SearchConfig(**cfg), index=from_ref.index, device="cpu")
+    with pytest.raises(TypeError, match="index must be"):
+        Database.build(x, index="yes", device="cpu")
+    # the indexed driver on a session without an index: the reference's error
+    plain = Database.build(x, SearchConfig(**cfg), device="cpu")
+    with pytest.raises(ValueError) as te:
+        plain.search(q, driver="indexed")
+    with pytest.raises(ValueError) as je:
+        JDatabase.build(x, JConfig(**cfg)).search(q, driver="indexed")
+    assert str(te.value) == str(je.value)
+
+
+STATS_PROPERTIES = ("lb1_pruned", "lb2_pruned", "pruning_ratio", "stage0_ratio",
+                    "dp_lane_efficiency", "lb0_pruned", "ref_dtw", "clusters_total",
+                    "clusters_pruned")
+
+
+@pytest.mark.parametrize("route", ["scan", "host", "indexed"])
+def test_search_stats_properties_match_repro(route):
+    """SearchStats carries the reference's stage-0 fields and properties,
+    per query and aggregated, on every ported route."""
+    rows = SMALL_DB_ROWS + 40 if route == "host" else 120
+    x, q = walks(17, rows, 32), walks(18, 3, 32)
+    index = route == "indexed"
+    jdb = JDatabase.build(x, JConfig(k=2), index=index, n_refs=5)
+    tdb = Database.build(x, SearchConfig(k=2), index=index, n_refs=5, device="cpu")
+    assert tdb.plan(q).driver == jdb.plan(q).driver == route
+    jres, tres = jdb.search(q), tdb.search(q)
+    same_answers(jres, tres)
+    for a, b in zip((jres.stats, *jres.per_query), (tres.stats, *tres.per_query)):
+        assert {f: getattr(b, f) for f in STATS_PROPERTIES} == {
+            f: getattr(a, f) for f in STATS_PROPERTIES}
 
 
 def test_validation_messages_match_reference():
