@@ -91,10 +91,40 @@ Phases (any failure raises, exits non-zero and prints no result line):
    ``--index --p inf --n-refs 16`` and with its defaults, each query's
    ``nn`` against a direct ``db.search``, and ``python
    examples/quickstart_torch.py`` at its full 2,000 x 512.
+7. The stream session: ``Database.build`` of four templates of 128
+   (``SearchConfig(w=12, p=2, block=64)``) and ``db.stream(hop=4)`` over a
+   planted stream of 1,048,576 samples pushed in 4,096-sample chunks and
+   polled after each, thresholds calibrated over its first 4,096 samples;
+   znorm off (S1 by K7 over each block's flat segment, once a block, no
+   dense S1 stage) and on (S1 by K2's dense form, no K7).  Each run's
+   matches must equal the offline ``windowed_matches`` and a K5 brute
+   force over every window (the same pairs and distance bits; the brute
+   force's first chunk against ``dtw_wavefront_plain`` and ``dtw_plain``),
+   and env + stages + dtw must equal the windows for each template.  On a
+   few of the run's blocks (the first two, the first two whose DP ran and
+   the flushed tail) every kernel of the path is held against its plain
+   version at the session's shapes: K7 on the block's flat segment (and
+   against K2 on the tile and the S1 values the stages used), K2, K3 and
+   K5 on the tile and on its S0 survivors' pairs.  Then
+   StreamState's online envelope against K1 on rows with subnormals, a
+   breakdown of the session's time on a quarter of the stream with one
+   profiled run, and ``examples/motion_segmentation_torch.py`` at 6,000
+   samples.
+8. The serve phase: a ``QueryEngine`` (max_batch 16) over phase 3's
+   session serves 64 requests of the serve CLI's mixed workload from 4
+   client threads while a stream session (16 rows as templates, hop 16)
+   takes 262,144 samples of a random walk in its own thread; every answer
+   must equal a direct ``db.search`` of the workload (indices and
+   distance bits), the stream's matches a direct ``db.stream`` matcher's,
+   and the stream session's kernels on a few of its blocks against their
+   plain versions as in phase 7.  Then ``python -m repro_torch.launch.stream`` at its defaults and with
+   ``--znorm`` and ``python -m repro_torch.launch.serve --stream-samples
+   4096`` as subprocesses, each printing the reference's lines.
 
 Launches are counted per phase (3 build, 3 search, the long-row
 session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
-6 index build and indexed search, each summed over both p),
+6 index build and indexed search, each summed over both p, 7 stream
+session, stream offline and stream example, 8 serve),
 each from zero, and the untuned ``kim_improved`` and ``kim_webb``
 searches; phase 2's
 comparisons are not counted.  The
@@ -106,6 +136,7 @@ entry in the kernels record says so and shows 0 launches.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -113,6 +144,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -224,7 +256,7 @@ PROFILER_ATTEMPTS = 3
 PROFILER_MISSES: list[str] = []
 
 
-def profiled_kernels(run, what: str, cpu: bool = False) -> dict[str, tuple[float, int]]:
+def profiled_kernels(run, what: str) -> dict[str, tuple[float, int]]:
     """``kernel_self_us`` of ``run()`` under torch.profiler.  A profiler
     session now and then returns no device events at all, so a session
     that saw none is run again, up to ``PROFILER_ATTEMPTS`` sessions; {}
@@ -232,9 +264,8 @@ def profiled_kernels(run, what: str, cpu: bool = False) -> dict[str, tuple[float
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
     for attempt in range(PROFILER_ATTEMPTS):
-        with profile(activities=acts) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
         got = kernel_self_us(prof)
@@ -1398,7 +1429,7 @@ def device_busy(fn) -> tuple[float, float, dict]:
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
 
-    got = profiled_kernels(run, "profiled search", cpu=True)
+    got = profiled_kernels(run, "profiled search")
     by_kernel = {k: (us / 1e3, c) for k, (us, c) in got.items()}
     return sum(ms for ms, _ in by_kernel.values()), wall[-1], by_kernel
 
@@ -1989,6 +2020,523 @@ def phase_cli():
         f"{time.perf_counter() - t0:.1f} s; " + " | ".join(head))
 
 
+# ------------------------------------------------------------- phase 7
+
+#: the stream session: samples (about 2.9 h of a 100 Hz signal), push
+#: chunk, hop, planted occurrences, template length; the calibration head
+STREAM_SESSION = (1_048_576, 4096, 4, 512, 128)
+STREAM_HEAD = 4096
+#: windows per K5 launch of the stream's brute force
+BRUTE_CHUNK = 65_536
+#: the motion-segmentation example's samples
+MOTION_SAMPLES = 6000
+
+
+def stream_brute_force(dev, stream, templates, w, p, hop, znorm, thr, exclusion):
+    """Every window against every template through K5 on the card (chunks
+    of BRUTE_CHUNK windows), then the threshold and ``greedy_suppress``:
+    the matches a scan without bounds gives.  The first chunk's K5 output
+    is held against ``dtw_wavefront_plain`` (bit-equal) and ``dtw_plain``
+    (rtol 3e-4)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.dtw.ops import dtw_plain, dtw_qbatch_op, dtw_wavefront_plain
+    from repro_torch.stream import (
+        Match,
+        greedy_suppress,
+        prefix_sums,
+        window_mean_std_from_prefix,
+        znorm_series,
+        znorm_windows,
+    )
+    from repro_torch.stream.subsequence import finish_np, powered_threshold
+
+    n = templates.shape[1]
+    starts = np.arange(0, stream.size - n + 1, hop)
+    qs = np.stack([znorm_series(t) for t in templates]) if znorm else templates
+    qs_t = torch.as_tensor(qs, device=dev)
+    sw = np.lib.stride_tricks.sliding_window_view(stream, n)[::hop]
+    c1 = c2 = None
+    if znorm:
+        c1, c2 = prefix_sums(stream)
+    thr_pow = powered_threshold(thr, p)
+    hits = []
+    for lo in range(0, starts.size, BRUTE_CHUNK):
+        st = starts[lo : lo + BRUTE_CHUNK]
+        wins = sw[lo : lo + BRUTE_CHUNK]
+        if znorm:
+            wins = znorm_windows(wins, *window_mean_std_from_prefix(c1, c2, st, n))
+        wins_t = torch.as_tensor(np.ascontiguousarray(wins), device=dev)
+        d_t = dtw_qbatch_op(qs_t, wins_t, w, p)
+        if lo == 0:  # K5 at this session's shapes against its plain versions
+            what = f"brute force chunk Q={qs_t.shape[0]} B={wins_t.shape[0]} n={n} w={w} p={p}"
+            check_equal("dtw", d_t, dtw_wavefront_plain(qs_t, wins_t, w, p),
+                        f"{what} vs wavefront plain")
+            check_close("dtw", d_t, dtw_plain(qs_t, wins_t, w, p), TOL["dtw"],
+                        f"{what} vs dtw_plain")
+        d = d_t.cpu().numpy()
+        hit = d <= thr_pow[:, None]
+        rooted = finish_np(d.astype(np.float64), p)
+        hits += [Match(int(q), int(st[b]), float(rooted[q, b])) for q, b in zip(*np.nonzero(hit))]
+    return greedy_suppress(hits, exclusion), len(hits)
+
+
+@contextlib.contextmanager
+def captured_blocks(keep_first: int = 2, keep_dtw: int = 2):
+    """Keep a few of the blocks the stream scanners run while the context
+    is open: the first ``keep_first``, the first ``keep_dtw`` whose DP ran
+    and the last one (a flushed tail), each with its window tile, its S0
+    mask and, where K7 ran, the flat segment it read and the values the
+    stages took from it.  Yields the list, filled when the context ends."""
+    from repro_torch.stream import subsequence as sub
+
+    stages, k7 = sub.run_block_stages, sub.lb_keogh_stream_qbatch_op
+    segs = {}  # thread -> the segment of K7's latest launch
+    kept, last, seen = [], [], [0, 0]  # seen: blocks, kept blocks whose DP ran
+    lock = threading.Lock()
+
+    def k7_op(seg, *a, **kw):
+        segs[threading.get_ident()] = seg
+        return k7(seg, *a, **kw)
+
+    def run_stages(*a, first=None, **kw):
+        res = stages(*a, first=first, **kw)
+        blk = dict(blk=a[6], mask0=a[8], first=first,
+                   seg=segs.pop(threading.get_ident(), None) if first is not None else None)
+        with lock:
+            blk["index"] = seen[0]
+            seen[0] += 1
+            if blk["index"] < keep_first:
+                kept.append(blk)
+            elif res.need_dtw and seen[1] < keep_dtw:
+                seen[1] += 1
+                kept.append(blk)
+            else:
+                last[:] = [blk]
+        return res
+
+    sub.run_block_stages, sub.lb_keogh_stream_qbatch_op = run_stages, k7_op
+    try:
+        yield kept
+    finally:
+        sub.run_block_stages, sub.lb_keogh_stream_qbatch_op = stages, k7
+        kept += last
+
+
+def check_stream_blocks(tag, scanner, blocks):
+    """A stream session's kernels held against their plain versions on
+    blocks the session ran, at its own shapes: K7 on the block's flat
+    segment (lb rtol 1e-4, H bit-equal; bit-equal to K2 on the tile and to
+    the values the stages used), K2 dense and on the S0 survivors' pairs,
+    K3 (rtol 2e-4) on both, and K5 dense (bit-equal to
+    ``dtw_wavefront_plain``, rtol 3e-4 to ``dtw_plain``) and on the
+    survivors' pairs with the gate as each lane's bound (bit-equal)."""
+    import torch
+
+    from repro_torch.kernels.dtw.ops import dtw_launch, dtw_plain, dtw_wavefront_plain
+    from repro_torch.kernels.lb_improved.ops import (
+        lb_improved_pass2_launch,
+        lb_improved_pass2_plain,
+    )
+    from repro_torch.kernels.lb_keogh.ops import (
+        lb_keogh_launch,
+        lb_keogh_plain,
+        lb_keogh_stream_launch,
+        lb_keogh_stream_plain,
+    )
+
+    sc = scanner
+    qs, upper, lower, w, p, n, hop = sc._qs, sc._upper, sc._lower, sc.w, sc.p, sc.n, sc.hop
+    gate = sc._gate
+    if not blocks:
+        fail(f"{tag} no block was captured")
+    for b in blocks:
+        blk = b["blk"]
+        what = (f"{tag} block {b['index']} (Q={qs.shape[0]} B={blk.shape[0]} n={n} "
+                f"hop={hop} w={w} p={p})")
+        lb, h = lb_keogh_launch(blk, upper, lower, p)
+        lbp, hp = lb_keogh_plain(blk, upper, lower, p)
+        check_close("lb_keogh", lb, lbp, TOL["lb_keogh"], what)
+        check_close("lb_keogh", h, hp, 0.0, f"{what} H")
+        if sc.stream_first:
+            if b["seg"] is None:
+                fail(f"{what}: S1 did not come from K7")
+            slb, sh = lb_keogh_stream_launch(b["seg"], upper, lower, n, hop, p)
+            plb, ph = lb_keogh_stream_plain(b["seg"], upper, lower, n, hop, p)
+            check_close("lb_keogh_stream", slb, plb, TOL["lb_keogh_stream"], what)
+            check_equal("lb_keogh_stream", sh, ph, f"{what} H")
+            check_equal("lb_keogh_stream", (slb, sh), (lb, h), f"{what} vs K2 on the tile")
+            check_equal("lb_keogh_stream", b["first"], slb, f"{what} vs the stages' S1")
+        elif b["seg"] is not None:
+            fail(f"{what}: K7 ran where S1 is K2's")
+        check_close("lb_improved_pass2", lb_improved_pass2_launch(h, qs, w, p),
+                    lb_improved_pass2_plain(h, qs, w, p), TOL["lb_improved_pass2"], what)
+        d = dtw_launch(qs, blk, w, p)
+        check_equal("dtw", d, dtw_wavefront_plain(qs, blk, w, p), f"{what} vs wavefront plain")
+        check_close("dtw", d, dtw_plain(qs, blk, w, p), TOL["dtw"], f"{what} vs dtw_plain")
+        qi, ci = b["mask0"].nonzero(as_tuple=True)
+        if qi.numel():
+            what = f"{what}, {qi.numel()} S0 survivors"
+            lb, h = lb_keogh_launch(blk, upper, lower, p, qi, ci)
+            lbp, hp = lb_keogh_plain(blk, upper, lower, p, qi, ci)
+            check_close("lb_keogh", lb, lbp, TOL["lb_keogh"], f"{what} pairs")
+            check_close("lb_keogh", h, hp, 0.0, f"{what} pairs H")
+            check_close("lb_improved_pass2", lb_improved_pass2_launch(h, qs, w, p, qi),
+                        lb_improved_pass2_plain(h, qs, w, p, qi),
+                        TOL["lb_improved_pass2"], f"{what} pairs")
+            bounds = gate[qi].contiguous()
+            check_equal("dtw", dtw_launch(qs, blk, w, p, qi, ci, bounds),
+                        dtw_wavefront_plain(qs, blk, w, p, qi, ci, bounds),
+                        f"{what} pairs with the gate as bound")
+    log(f"{tag} {len(blocks)} of the session's blocks (Q={qs.shape[0]} B={sc.block} n={n} "
+        f"hop={hop} w={w} p={p}): "
+        + ("K7 == plain == K2 on the tile == the stages' S1; " if sc.stream_first else "")
+        + "K2, K3 and K5, dense and on the S0 survivors' pairs, == their plain versions")
+
+
+def subnormal_envelope_check(dev):
+    """StreamState's online envelope of rows that hold float32 subnormals
+    equals K1's on the card, bit for bit (the port keeps subnormals)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.envelope.ops import envelope_op
+    from repro_torch.stream import StreamState
+
+    rng = np.random.default_rng(SEED + 9)
+    mixed = rng.standard_normal(1000).astype(np.float32)
+    mixed[::3] *= np.float32(1e-39)  # every third value a subnormal
+    rows = [(np.array([0.0, 1.0118855e-38], np.float32), 1), (mixed, 12), (mixed, 100)]
+    for xs, w in rows:
+        st = StreamState(len(xs) + 2 * w + 2, w)
+        st.push(xs)
+        u, l = st.envelope_view(0, len(xs))
+        ku, kl = envelope_op(torch.as_tensor(xs, device=dev)[None].contiguous(), w)
+        if not (np.array_equal(u, ku[0].cpu().numpy())
+                and np.array_equal(l, kl[0].cpu().numpy())):
+            fail(f"online envelope != K1 on a row with subnormals (n={len(xs)}, w={w})")
+    subs = int(np.sum((mixed != 0) & (np.abs(mixed) < np.finfo(np.float32).tiny)))
+    log(f"[stream] subnormals kept: StreamState's online envelope == K1 on the card, bit "
+        f"for bit, on [0, 1.0118855e-38] (w=1) and on 1,000 values with {subs} "
+        f"subnormals (w=12, 100)")
+
+
+def phase_stream_session(dev, launches):
+    """The stream session: ``db.stream`` over a template bank, a planted
+    stream pushed in chunks and polled, znorm off (S1 by K7 over each
+    block's flat segment) and on (S1 by K2 on the copied tile); each run
+    against the offline ``windowed_matches`` and a K5 brute force."""
+    import dataclasses
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Database, SearchConfig
+    from repro_torch.core import pipeline
+    from repro_torch.data.synthetic import planted_stream, template_bank
+    from repro_torch.launch.stream import calibrate_thresholds
+    from repro_torch.stream import windowed_matches
+
+    t_phase = time.perf_counter()
+    n_samples, chunk, hop, n_plants, n = STREAM_SESSION
+    templates = template_bank(n, kinds=("sine", "cosine", "gaussian", "gaussian_inverted"))
+    rng = np.random.default_rng(SEED + 7)
+    stream, plants = planted_stream(rng, n_samples, templates, n_plants, noise_level=0.05)
+    base = SearchConfig(w=12, p=2, block=64, method="lb_improved")
+
+    # S1's dense stage, counted: the tile's LB_Keogh (K2's dense entry)
+    dense_calls = [0]
+    keogh = pipeline.STAGES["lb_keogh"]
+
+    def counting_dense(ctx, blk):
+        dense_calls[0] += 1
+        return keogh.dense(ctx, blk)
+
+    pipeline.STAGES["lb_keogh"] = dataclasses.replace(keogh, dense=counting_dense)
+    try:
+        for znorm in (False, True):
+            tag = f"[stream znorm={znorm}]"
+            db = Database.build(templates, dataclasses.replace(base, znorm=znorm))
+            thr = calibrate_thresholds(templates, stream[:STREAM_HEAD], db.w, base.p, hop,
+                                       znorm)
+            dense_calls[0] = 0
+            before = dict(launches.get("stream session", {}))
+
+            def run():
+                t0 = time.perf_counter()
+                m = db.stream(threshold=thr, hop=hop)
+                polled = []
+                for lo in range(0, n_samples, chunk):
+                    m.push(stream[lo : lo + chunk])
+                    polled += m.poll()
+                m.flush()
+                polled += m.poll()
+                torch.cuda.synchronize()
+                return m, polled, time.perf_counter() - t0
+
+            with captured_blocks() as sample:
+                m, polled, run_s = counted(launches, "stream session", run)
+            got = {k: v - before.get(k, 0) for k, v in launches["stream session"].items()}
+            s = m.stats
+            blocks, s1_dense = s.blocks_total, dense_calls[0]
+            hits = m.matches()
+            if sorted(polled, key=lambda h: (h.start, h.tid)) != hits:
+                fail(f"{tag} the polled matches differ from matches()")
+            if not np.array_equal(s.env_pruned + s.stage_pruned.sum(axis=0) + s.full_dtw,
+                                  s.n_windows):
+                fail(f"{tag} env + stages + dtw != windows: {s}")
+            # the launches: K7 once a block without znorm, else K2's dense S1
+            want_k7, want_dense = (0, blocks) if znorm else (blocks, 0)
+            if (got["lb_keogh_stream"], s1_dense) != (want_k7, want_dense):
+                fail(f"{tag} S1: {got['lb_keogh_stream']} K7 launches and {s1_dense} dense "
+                     f"K2 stages in {blocks} blocks, expected {want_k7} and {want_dense}")
+            # the offline replay and a K5 brute force over every window
+            t0 = time.perf_counter()
+            offline, _ = counted(launches, "stream offline", lambda: windowed_matches(
+                stream, templates, db.w, thr, p=base.p, hop=hop, znorm=znorm,
+                block=base.block, device=dev))
+            offline_s = time.perf_counter() - t0
+            if offline != hits:
+                fail(f"{tag} streamed matches != offline windowed_matches")
+            t0 = time.perf_counter()
+            brute, raw_hits = stream_brute_force(dev, stream, templates, db.w, base.p, hop,
+                                                 znorm, thr, m.exclusion)
+            brute_s = time.perf_counter() - t0
+            if [(h.tid, h.start) for h in brute] != [(h.tid, h.start) for h in hits]:
+                fail(f"{tag} matches != the K5 brute force's")
+            if [h.dist for h in brute] != [h.dist for h in hits]:
+                fail(f"{tag} match distances are not the K5 brute force's bits")
+            tol = max(hop, n // 16)
+            recovered = sum(any(h.tid == tid and abs(h.start - pos) <= tol for h in hits)
+                            for tid, pos, _ in plants)
+            windows = int(s.n_windows[0])
+            log(f"{tag} {n_samples:,} samples in {chunk}-sample chunks, {windows:,} windows "
+                f"x {s.n_templates} templates in {blocks} blocks: {run_s:.2f} s = "
+                f"{n_samples / run_s:,.0f} samples/s; thresholds {np.round(thr, 4).tolist()}")
+            log(f"{tag} matches {len(hits)} (raw hits {int(s.matched.sum())}), planted "
+                f"recovered {recovered}/{len(plants)}; pruned S0 {int(s.env_pruned.sum()):,}, "
+                + ", ".join(f"{k} {int(v.sum()):,}" for k, v in s.pruned_by.items())
+                + f", dtw {int(s.full_dtw.sum()):,} of {int(s.n_windows.sum()):,} lanes; "
+                f"blocks with pass 2 {s.blocks_lb2}, with the DP {s.blocks_dtw}; DP lanes "
+                f"{s.dp_lane_useful}/{s.dp_lane_work}")
+            log(f"{tag} launches: { {k: v for k, v in got.items() if v} }; S1 dense stages "
+                f"{s1_dense}")
+            log(f"{tag} == offline windowed_matches ({offline_s:.2f} s) == K5 brute force "
+                f"({brute_s:.2f} s, {raw_hits} raw hits): same (tid, start) and distance bits")
+            check_stream_blocks(tag, m.scanner, sample)
+            if not znorm:
+                stream_breakdown(dev, db, thr, stream, hop, chunk, tag)
+            del db, m
+    finally:
+        pipeline.STAGES["lb_keogh"] = keogh
+    subnormal_envelope_check(dev)
+
+    # the motion-segmentation example at its full size, in this process
+    path = ROOT / "examples" / "motion_segmentation_torch.py"
+    spec = importlib.util.spec_from_file_location("motion_segmentation_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    segments, ms = counted(launches, "stream example", lambda: example.main(MOTION_SAMPLES))
+    log(f"[stream] examples/motion_segmentation_torch.py ({MOTION_SAMPLES:,} samples): "
+        f"{len(segments)} segments, {ms.blocks_total} blocks, in "
+        f"{time.perf_counter() - t0:.2f} s; launches "
+        f"{ {k: v for k, v in launches['stream example'].items() if v} }")
+    log(f"[stream] phase 7 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def stream_breakdown(dev, db, thr, stream, hop, chunk, tag):
+    """Where a stream session's time goes, on a quarter of the stream: the
+    host's pushes into StreamState alone, the lanes and S0 on the host
+    (``_window_lanes``), the rest of each block (uploads, the stages with
+    their synchronising reads, the copy back), and the device's busy time
+    by kernel from one profiled run (CUDA activity only)."""
+    import torch
+
+    from repro_torch.stream import StreamState
+
+    part = stream[: stream.size // 4]
+    st = StreamState(2 * ((db.config.block - 1) * hop + db.length), db.w)
+    t0 = time.perf_counter()
+    for lo in range(0, part.size, chunk):
+        st.push(part[lo : lo + chunk])
+    push_s = time.perf_counter() - t0
+
+    m = db.stream(threshold=thr, hop=hop)
+    sc = m.scanner
+    spent = {"lanes": 0.0, "block": 0.0}
+    lanes_fn, block_fn = sc._window_lanes, sc.process_block
+
+    def timed_lanes(*a):
+        t = time.perf_counter()
+        out = lanes_fn(*a)
+        spent["lanes"] += time.perf_counter() - t
+        return out
+
+    def timed_block(*a):
+        t = time.perf_counter()
+        out = block_fn(*a)
+        spent["block"] += time.perf_counter() - t
+        return out
+
+    sc._window_lanes, sc.process_block = timed_lanes, timed_block
+    wall = []
+
+    def run():
+        t = time.perf_counter()
+        for lo in range(0, part.size, chunk):
+            m.push(part[lo : lo + chunk])
+            m.poll()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t)
+
+    run()  # timed, unprofiled
+    blocks = m.stats.blocks_total
+    total_s = wall[-1]
+    lanes_s, block_s = spent["lanes"], spent["block"]
+    log(f"{tag} breakdown over {part.size:,} samples ({blocks} blocks): wall "
+        f"{total_s:.3f} s; pushes into StreamState alone {push_s:.3f} s "
+        f"({push_s / part.size * 1e6:.2f} us a sample); per block: lanes and S0 on the "
+        f"host {lanes_s / blocks * 1e3:.3f} ms, uploads + stages + syncs + copy back "
+        f"{(block_s - lanes_s) / blocks * 1e3:.3f} ms; the rest (pushes, exclusion) "
+        f"{(total_s - block_s) / blocks * 1e3:.3f} ms")
+    m = db.stream(threshold=thr, hop=hop)
+    got = profiled_kernels(run, "profiled stream session")
+    if got:
+        busy = sum(us for us, _ in got.values()) / 1e3
+        top = sorted(got.items(), key=lambda kv: -kv[1][0])[:8]
+        log(f"{tag} profiled run: device busy {busy:.1f} ms of {wall[-1] * 1e3:.1f} ms wall "
+            f"= idle share {1 - busy / (wall[-1] * 1e3):.3f}; device ms by kernel: "
+            + "; ".join(f"{k[:40]} {us / 1e3:.2f} ms / {c}" for k, (us, c) in top))
+    else:
+        log(f"{tag} profiled run: the profiler saw no device time; idle share not measured")
+
+
+# ------------------------------------------------------------- phase 8
+
+#: the serve phase: requests, client threads, max_batch; the concurrent
+#: stream session's templates (rows), hop and samples
+SERVE = (64, 4, 16)
+SERVE_STREAM = (16, 16, 262_144)
+
+
+def phase_serve(dev, launches, main):
+    """A QueryEngine over phase 3's default session serving the serve
+    CLI's mixed workload from client threads while a stream session runs
+    beside it; every answer against a direct ``db.search``, the stream
+    session's matches against a direct ``db.stream`` matcher's, and its
+    kernels on a few of its blocks against their plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import random_walks
+    from repro_torch.launch.serve import mixed_workload, replay
+    from repro_torch.launch.stream import calibrate_thresholds
+    from repro_torch.serve import QueryEngine
+
+    t_phase = time.perf_counter()
+    db, x = main["db"], main["x"]
+    n_requests, n_clients, max_batch = SERVE
+    n_templates, hop, n_samples = SERVE_STREAM
+    rng = np.random.default_rng(SEED + 8)
+    workload = mixed_workload(rng, x, n_requests, repeat_frac=0.3, near_frac=0.4)
+    signal = random_walks(rng, 1, n_samples)[0]
+    templates = x[:n_templates]
+    thr = calibrate_thresholds(templates, signal[:STREAM_HEAD], db.w, db.p, hop, False,
+                               device=dev)
+    engine = QueryEngine(db, max_batch=max_batch)
+    replay(engine, workload[:max_batch], 1)  # warm up the (max_batch, n) shape
+
+    def run():
+        sess = engine.open_stream(templates, threshold=thr, hop=hop)
+        streamed, stream_s = [], []
+
+        def stream_client():
+            t0 = time.perf_counter()
+            for lo in range(0, n_samples, 4096):
+                streamed.extend(sess.feed(signal[lo : lo + 4096]))
+            streamed.extend(sess.close())
+            stream_s.append(time.perf_counter() - t0)
+
+        client = threading.Thread(target=stream_client)
+        t0 = time.perf_counter()
+        client.start()
+        served = replay(engine, workload, n_clients)
+        queries_s = time.perf_counter() - t0
+        client.join(timeout=600)
+        if client.is_alive():
+            fail("the stream session's client did not finish")
+        torch.cuda.synchronize()
+        return served, queries_s, sess, streamed, stream_s[0], time.perf_counter() - t0
+
+    with captured_blocks() as sample:
+        served, queries_s, sess, streamed, stream_s, wall_s = counted(launches, "serve", run)
+    stats = engine.stats()
+    engine.close()
+    direct = db.search(workload)
+    for qi, _, ans in served:
+        if not (np.array_equal(ans.distances, direct.distances[qi])
+                and np.array_equal(ans.indices, direct.indices[qi])):
+            fail(f"[serve] request {qi}: the engine's answer is not a direct db.search's")
+    ref = db.stream(templates, threshold=thr, hop=hop)
+    ref.push(signal)
+    ref.flush()
+    if sorted(streamed, key=lambda h: (h.start, h.tid)) != ref.matches():
+        fail("[serve] the stream session's matches differ from a direct db.stream matcher's")
+    lat_ms = np.sort([1e3 * dt for _, dt, _ in served])
+    log(f"[serve] {len(served)} requests from {n_clients} clients (max_batch {max_batch}) "
+        f"in {queries_s:.3f} s = {len(served) / queries_s:.1f} qps; latency p50 "
+        f"{np.percentile(lat_ms, 50):.2f} ms, p99 {np.percentile(lat_ms, 99):.2f} ms; "
+        f"batches {stats.batches}, occupancy {stats.batch_occupancy:.2f}, coalesced "
+        f"{stats.coalesced}, cache hit rate {stats.cache_hit_rate:.2f}")
+    log(f"[serve] beside them a stream session ({n_templates} rows as templates, hop {hop}): "
+        f"{n_samples:,} samples in {stream_s:.2f} s = {n_samples / stream_s:,.0f} samples/s, "
+        f"{len(streamed)} matches, {sess.stats.blocks_total} blocks; wall {wall_s:.2f} s")
+    log(f"[serve] every answer == a direct db.search of the workload (indices and distance "
+        f"bits); the stream session's matches == a direct db.stream matcher's; launches "
+        f"{ {k: v for k, v in launches['serve'].items() if v} }")
+    require_launched(launches, "serve", ("envelope", "lb_fused", "dtw_merge",
+                                         "lb_keogh_stream"), "serve")
+    check_stream_blocks("[serve stream]", sess.matcher.scanner, sample)
+    log(f"[serve] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_module(args, what, timeout=600):
+    """``python -m <module> <args>`` from the repository root; its stdout."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", *args], capture_output=True, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=timeout,
+    )
+    if proc.returncode != 0:
+        fail(f"{what}: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def phase_stream_serve_cli():
+    """The stream CLI at its defaults and with ``--znorm``, and the serve
+    CLI with ``--stream-samples 4096``, as subprocesses: each exits 0 and
+    prints the reference's lines."""
+    for args, heads in (
+        (["repro_torch.launch.stream"], ("stream=", "pruned before DTW", "matches=")),
+        (["repro_torch.launch.stream", "--znorm"], ("stream=", "pruned before DTW",
+                                                    "matches=")),
+        (["repro_torch.launch.serve", "--stream-samples", "4096"],
+         ("built session", "replayed", "latency", "engine:", "answers verified",
+          "stream session:")),
+    ):
+        what = " ".join(args)
+        out, secs = run_module(args, what)
+        lines = out.splitlines()
+        for head in heads:
+            if not any(ln.startswith(head) for ln in lines):
+                fail(f"{what}: no line starting with {head!r}:\n{out}")
+        shown = [ln for ln in lines if ln.startswith(heads[1:])]
+        log(f"[cli] {what}: exit 0 in {secs:.1f} s; " + " | ".join(shown))
+
+
 def main() -> int:
     try:
         import torch
@@ -2006,18 +2554,30 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    smi = phase_toolchain()
-    rec = phase_kernels(dev)
-    phase_kernels_lb(dev, rec)
-    phase_long_rows(dev, rec)
+    spent: dict[str, float] = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        spent[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("1 toolchain and build", phase_toolchain)
+    rec = timed("2 kernels", phase_kernels, dev)
+    timed("2 kernels lb", phase_kernels_lb, dev, rec)
+    timed("2 long rows", phase_long_rows, dev, rec)
     launches: dict[str, dict[str, int]] = {}
-    main_out = phase_main_path(dev, launches)
-    phase_long_session(dev, launches, main_out)
-    phase_scan_sessions(dev, launches)
-    phase_stream(dev, launches)
-    phase_tuned(dev, launches, main_out)
-    phase_indexed(dev, launches, main_out)
-    phase_cli()
+    main_out = timed("3 main path", phase_main_path, dev, launches)
+    timed("3 long session", phase_long_session, dev, launches, main_out)
+    timed("4 scan sessions", phase_scan_sessions, dev, launches)
+    timed("4 stream ops", phase_stream, dev, launches)
+    timed("5 tuned", phase_tuned, dev, launches, main_out)
+    timed("6 indexed", phase_indexed, dev, launches, main_out)
+    timed("6 search CLI", phase_cli)
+    timed("7 stream session", phase_stream_session, dev, launches)
+    timed("8 serve", phase_serve, dev, launches, main_out)
+    timed("8 stream and serve CLIs", phase_stream_serve_cli)
+    log("[time] seconds by phase: " + "; ".join(f"{k} {v:.1f}" for k, v in spent.items()))
     kernels = []
     for name, r in rec.items():
         source, replaces = SOURCES[name]

@@ -11,8 +11,10 @@ kernel wrapper runs its plain PyTorch version.  ``kernels/tuning`` holds
 the schedule table the wrappers resolve, and ``Database.build(tune=...)``
 sweeps it.
 
-This slice is univariate; the index, anytime, streaming, serving,
-multivariate and sharded tiers are queued in ROADMAP.md.
+The stage-0 index (``index``), streaming subsequence search
+(``stream``) and the multi-tenant serving engine (``serve``) are ported;
+the port is univariate, and the anytime, multivariate and sharded tiers
+are queued in ROADMAP.md.
 """
 
 from repro_torch.api import Database, SearchConfig

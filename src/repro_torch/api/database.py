@@ -7,6 +7,7 @@
     db.save("session.npz"); Database.load(...)  # the reference's bundle
     Database.build(data, tune=True)             # + the kernel tune sweep
     Database.build(data, index=True)            # + the stage-0 triangle index
+    db.stream(threshold=3.0, hop=2)             # rows as a stream's templates
 
 ``build`` computes every database-side artifact once: the (z-normalized,
 precision-cast) rows on the device, their warping envelopes (envelope
@@ -49,11 +50,10 @@ from repro_torch.index.store import index_arrays, index_from_arrays
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.envelope.ops import envelope_op
 from repro_torch.kernels.tuning import TuneTable, autotune_session, install
+from repro_torch.stream.state import STD_EPS
 
 BUNDLE_FORMAT_VERSION = 1
 
-#: the stream scanner's std floor in the reference (repro.stream.state)
-STD_EPS = 1e-8
 
 #: bundle key prefixes of tiers a later slice ports -> ROADMAP.md item
 _UNPORTED_BUNDLE_KEYS = {
@@ -353,9 +353,6 @@ class Database:
     def use_mesh(self, *args, **kwargs):
         raise not_ported("Database.use_mesh", "11 (sharded driver)")
 
-    def stream(self, *args, **kwargs):
-        raise not_ported("Database.stream", "7 (streaming)")
-
     # ----------------------------------------------------------- queries
 
     def prepare_queries(self, queries) -> np.ndarray:
@@ -458,6 +455,65 @@ class Database:
         if isinstance(res, SearchResult):
             return int(labels[res.index])
         return np.asarray(labels[res.indices[:, 0]])
+
+    # ---------------------------------------------------------- streaming
+
+    def stream(
+        self,
+        templates=None,
+        *,
+        threshold,
+        hop: int = 1,
+        prefilter: bool = True,
+        exclusion: int | None = None,
+        capacity: int | None = None,
+        eps: float = STD_EPS,
+    ):
+        """A :class:`repro_torch.stream.StreamMatcher` under this session's
+        config (w, p, block, method, znorm), on the session's device.
+
+        With ``templates=None`` the database rows are the template bank
+        and the build-time envelopes are reused — constructing matchers
+        per signal stops re-deriving them.  Explicit ``templates`` get
+        their envelopes computed on construction (the envelope kernel).
+        Multivariate templates (Q, n, d > 1) need the multivariate tier,
+        which is not ported yet, and raise.
+        """
+        from repro_torch.stream.matcher import StreamMatcher
+
+        cfg, _ = self._resolve_method(self.config)
+        envelopes = None
+        if templates is None:
+            templates = self.raw
+            # cached envelopes were computed on the (znormed) float32
+            # rows with the default std floor; reuse them only when the
+            # scanner would recompute exactly that
+            if self.config.precision == "float32" and (
+                not self.config.znorm or eps == STD_EPS
+            ):
+                envelopes = (self._upper, self._lower)
+        else:
+            shape = np.shape(templates)
+            if len(shape) == 3 and shape[-1] > 1:
+                raise not_ported(
+                    f"a multivariate stream (d={shape[-1]})", "9 (multivariate)"
+                )
+        return StreamMatcher(
+            templates,
+            self.w,
+            threshold,
+            p=self.config.p,
+            hop=hop,
+            znorm=self.config.znorm,
+            block=self.config.block,
+            method=cfg.method,
+            prefilter=prefilter,
+            exclusion=exclusion,
+            capacity=capacity,
+            eps=eps,
+            envelopes=envelopes,
+            device=self.device,
+        )
 
 
 __all__ = ["BUNDLE_FORMAT_VERSION", "BatchSearchResult", "Database", "SearchResult"]

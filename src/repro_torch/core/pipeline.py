@@ -269,6 +269,7 @@ class BlockStages(NamedTuple):
 def run_block_stages(
     qs, upper, lower, w: int, p: PNorm, method: str, blk, bound, mask0,
     lane_chunk: int | None = None, d: int = 1, ctx: PipeContext | None = None,
+    first: torch.Tensor | None = None,
 ) -> BlockStages:
     """One candidate block through the method's stage pipeline, query-major.
 
@@ -276,7 +277,10 @@ def run_block_stages(
     pruning bound, ``mask0`` a ``(Q, block)`` bool of lanes alive on entry.
     The first LB stage runs on the whole tile; every later stage runs
     survivor-compacted.  ``ctx`` may carry a prebuilt context (drivers
-    build it once per query batch).  ``lane_chunk`` left ``None``
+    build it once per query batch).  ``first`` may carry the first LB
+    stage's (Q, block) powered values, already computed by the caller (the
+    stream scanner's K7 over the block's flat segment); the stage then
+    does not run on the tile.  ``lane_chunk`` left ``None``
     resolves from the active tune table (the "pipeline" family, keyed by
     the block's device type); it changes no distance or mask, only the
     chunk-padded ``dp_lane_work``.
@@ -307,7 +311,7 @@ def run_block_stages(
             dp_useful = int(alive.sum())
             return BlockStages(dist, tuple(masks), need_lb2, need_dtw, dp_work, dp_useful)
         if si == 0:
-            vals = stage.dense(ctx, blk)
+            vals = stage.dense(ctx, blk) if first is None else first
         else:
             vals, _ = _run_stage_compacted(ctx, stage, blk, alive, bound, vals, lane_chunk)
         alive = alive & (vals < bound[:, None])

@@ -34,7 +34,7 @@ import math
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype
+from repro_torch.kernels.common import check_cuda_tensor, count_launch, kernel_dtype
 
 
 def block_merge_plain(top_v, top_i, counts, totals, stage, dvals, lo: int,
@@ -101,7 +101,7 @@ def block_merge_prepare(top_v, top_i, counts, totals, stage, dvals,
     def run(lo):
         cuda_lib.check("block_merge", fn(*head, int(lo), *tail))
         if nq:
-            block_merge_launch.launches += 1
+            count_launch(block_merge_launch)
 
     run.tensors = (top_v, top_i, counts, totals, stage, dvals)  # the pointers it holds
     return run

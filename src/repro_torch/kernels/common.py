@@ -8,6 +8,7 @@ and the scan driver's pad-row filler (``0.5 * BIG ** 0.25``) rely on it.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -26,6 +27,17 @@ class NotRunnable(ValueError):
     """A schedule that cannot launch at this shape (for example a tile
     whose shared memory exceeds the card's limit).  ``autotune`` records
     such a config as not runnable instead of raising."""
+
+
+#: guards the launch counters: the serving engine's worker and its stream
+#: clients launch from their own threads
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(launch_fn) -> None:
+    """Add one to the ``launches`` count of a kernel's launch function."""
+    with _COUNT_LOCK:
+        launch_fn.launches += 1
 
 
 def round_up(x: int, m: int) -> int:

@@ -19,6 +19,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -167,9 +168,18 @@ def build(force: bool = False) -> tuple[pathlib.Path, str]:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-@functools.lru_cache(maxsize=None)
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), signatures set."""
+    """The loaded kernel library (built on first call), signatures set.
+    Threads that launch kernels concurrently build and load it once."""
+    with _LIBRARY_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     lib_path, _ = build()
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():

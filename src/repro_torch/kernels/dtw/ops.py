@@ -48,7 +48,12 @@ from repro_torch.core.dtw import (
 )
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.block_merge.ops import block_merge_plain, check_merge_buffers
-from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype, p_code
+from repro_torch.kernels.common import (
+    check_cuda_tensor,
+    count_launch,
+    kernel_dtype,
+    p_code,
+)
 
 
 def dtw_plain(qs, cands, w: int, p=1, qidx=None, cidx=None, bounds=None):
@@ -152,7 +157,7 @@ def dtw_launch(qs, cands, w: int, p=1, qidx=None, cidx=None, bounds=None):
     )
     cuda_lib.check("dtw", code)
     if npairs:
-        dtw_launch.launches += 1
+        count_launch(dtw_launch)
     return out
 
 
@@ -235,7 +240,7 @@ def dtw_masked_prepare(qs, w: int, p, stage, bounds, out, merge):
         check_cuda_tensor("cands", cands, dev, dt, (nb, n))
         cuda_lib.check("dtw", fn(*head, cands.data_ptr(), *mid, int(lo), *tail))
         if nq * nb:
-            dtw_merge_launch.launches += 1
+            count_launch(dtw_merge_launch)
         return out
 
     run.tensors = (qs, stage, bounds, out, top_v, top_i, counts, totals,

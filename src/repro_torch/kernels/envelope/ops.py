@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.envelope import envelope_batch
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype
+from repro_torch.kernels.common import check_cuda_tensor, count_launch, kernel_dtype
 
 
 #: batches of up to this many rows run a block per row
@@ -56,7 +56,7 @@ def envelope_launch(xs: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tenso
     )
     cuda_lib.check("envelope", code)
     if rows:
-        envelope_launch.launches += 1
+        count_launch(envelope_launch)
     return u, l
 
 

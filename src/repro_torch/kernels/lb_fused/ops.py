@@ -51,6 +51,7 @@ from repro_torch.kernels.common import (
     SMEM_LIMIT_BYTES,
     NotRunnable,
     check_cuda_tensor,
+    count_launch,
     kernel_dtype,
     p_code,
 )
@@ -210,7 +211,7 @@ def lb_fused_prepare(qs, upper, lower, w: int, bounds, p, block: int, stage=None
         code = fn(*head, cands.data_ptr(), *mid, int(real), *tail)
         cuda_lib.check("lb_fused", code)
         if nq * block:
-            lb_fused_launch.launches += 1
+            count_launch(lb_fused_launch)
         return lb1, lb
 
     run.tensors = (qs, upper, lower, bounds, stage, lb1, lb, ws, qfeat)  # the pointers it holds

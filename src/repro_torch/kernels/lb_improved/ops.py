@@ -25,7 +25,12 @@ import torch
 from repro_torch.core import lb as lb_mod
 from repro_torch.core.envelope import envelope_batch
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.common import check_cuda_tensor, kernel_dtype, p_code
+from repro_torch.kernels.common import (
+    check_cuda_tensor,
+    count_launch,
+    kernel_dtype,
+    p_code,
+)
 from repro_torch.kernels.lb_keogh.ops import (
     lb_keogh_qbatch_op,
     lb_keogh_stream_plain,
@@ -66,7 +71,7 @@ def lb_improved_pass2_launch(h, qs, w: int, p=1, qidx=None):
     )
     cuda_lib.check("lb_improved_pass2", code)
     if rows:
-        lb_improved_pass2_launch.launches += 1
+        count_launch(lb_improved_pass2_launch)
     return lb2
 
 

@@ -27,6 +27,7 @@ from repro_torch.core import lb as lb_mod
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import (
     check_cuda_tensor,
+    count_launch,
     kernel_dtype,
     p_code,
     warps_per_block,
@@ -74,7 +75,7 @@ def lb_keogh_launch(cands, upper, lower, p=1, qidx=None, cidx=None, tile_b=None)
     )
     cuda_lib.check("lb_keogh", code)
     if npairs:
-        lb_keogh_launch.launches += 1
+        count_launch(lb_keogh_launch)
     return lb, h
 
 
@@ -146,7 +147,7 @@ def lb_keogh_stream_launch(segment, upper, lower, n: int, hop: int = 1, p=1,
     )
     cuda_lib.check("lb_keogh_stream", code)
     if nq * nb:
-        lb_keogh_stream_launch.launches += 1
+        count_launch(lb_keogh_stream_launch)
     return lb, h
 
 

@@ -20,6 +20,8 @@ from the active tune table.  It changes no bit.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.core import lb as lb_mod
@@ -27,6 +29,7 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import (
     BIG,
     check_cuda_tensor,
+    count_launch,
     kernel_dtype,
     p_code,
     warps_per_block,
@@ -35,6 +38,7 @@ from repro_torch.kernels.tuning.table import resolve_config
 
 #: the ticket of each (device, stream): K6's last block finds itself by it
 _TICKETS: dict = {}
+_TICKETS_LOCK = threading.Lock()
 
 
 def _live(mask):
@@ -63,9 +67,10 @@ def _warps(nb, n, tile_b):
 
 def _ticket(dev):
     key = (dev, cuda_lib.stream_of(dev))
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(1, dtype=torch.int64, device=dev)
-    return _TICKETS[key]
+    with _TICKETS_LOCK:  # one ticket per stream, even when threads race
+        if key not in _TICKETS:
+            _TICKETS[key] = torch.zeros(1, dtype=torch.int64, device=dev)
+        return _TICKETS[key]
 
 
 def lb_kim_launch(cands, qs, mask=None, p=1, tile_b=None):
@@ -91,7 +96,7 @@ def lb_kim_launch(cands, qs, mask=None, p=1, tile_b=None):
     )
     cuda_lib.check("lb_kim", code)
     if nq * nb:
-        lb_kim_launch.launches += 1
+        count_launch(lb_kim_launch)
     return lb
 
 
@@ -110,7 +115,7 @@ def lb_kim_features_launch(rows, tile_b=None):
     )
     cuda_lib.check("lb_kim_features", code)
     if nrows:
-        lb_kim_features_launch.launches += 1
+        count_launch(lb_kim_features_launch)
     return feats
 
 

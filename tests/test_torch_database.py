@@ -23,6 +23,7 @@ from repro.api import Database as JDatabase  # noqa: E402
 from repro.api import SearchConfig as JConfig  # noqa: E402
 from repro_torch.api import Database, SearchConfig  # noqa: E402
 from repro_torch.api.planner import SMALL_DB_ROWS, choose_cascade  # noqa: E402
+from repro_torch.stream import StreamMatcher  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -119,8 +120,9 @@ def test_bundles_of_unported_tiers_raise(tmp_path):
     db = Database.build(x, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         db.use_mesh(None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        db.stream(threshold=1.0)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        db.stream(np.stack([x[:2], x[:2]], axis=-1), threshold=1.0)
+    assert isinstance(db.stream(threshold=1.0), StreamMatcher)
     with pytest.raises(NotImplementedError, match="item 10"):
         db.search(x[:2], mode="anytime")
     jdb = JDatabase.build(x, JConfig(), anytime=True)
