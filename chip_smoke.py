@@ -120,11 +120,29 @@ Phases (any failure raises, exits non-zero and prints no result line):
    plain versions as in phase 7.  Then ``python -m repro_torch.launch.stream`` at its defaults and with
    ``--znorm`` and ``python -m repro_torch.launch.serve --stream-samples
    4096`` as subprocesses, each printing the reference's lines.
+9. The multivariate tier: a session of 100,000 random walks of (315, 3)
+   (the shape of UWaveGestureLibrary in the UEA multivariate archive, a
+   3-axis accelerometer gesture; one walk per channel) under
+   ``SearchConfig()``, 16 queries through the host driver's device loop:
+   per block K2, the folded K3 (the channels as its rows) and K5's
+   masked channel entry with the merge, no K4, the loop again under
+   sync debug mode; top-1 of two queries against a brute force by K5's
+   channel entry over every row, every top-1 against the float64
+   ``dtw_reference_mv``, and the session at ``early_abandon=True`` with
+   the same answers.  On the first two blocks and the tail block K1 on
+   the (B*d, n) segment view, K2, the folded K3 and K5's channel entry
+   (pair list, and masked with the merge) against their plain versions;
+   K5's channel entry also at p in {2, inf}, d = 8 and on its in-place
+   path.  Then a 768 x (128, 3) session on the scan route for every
+   method (``tc_tri`` on an indexed build, R = 8), each giving ``full``'s
+   indices, and an (N, n, 1) build of phase 3's rows with phase 3's
+   pruning, top-1 rows and distance bits.
 
 Launches are counted per phase (3 build, 3 search, the long-row
 session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
 6 index build and indexed search, each summed over both p, 7 stream
-session, stream offline and stream example, 8 serve),
+session, stream offline and stream example, 8 serve, 9 mv build, mv
+search, mv scan and mv d=1),
 each from zero, and the untuned ``kim_improved`` and ``kim_webb``
 searches; phase 2's
 comparisons are not counted.  The
@@ -178,7 +196,7 @@ MAIN_TOP1 = [43381, 21115]
 
 TOL = {"envelope": 0.0, "lb_keogh": 1e-4, "lb_improved_pass2": 2e-4, "dtw": 3e-4,
        "lb_kim": 0.0, "lb_kim_features": 0.0, "lb_keogh_stream": 1e-4, "lb_fused": 2e-4,
-       "block_merge": 0.0, "dtw_merge": 0.0}
+       "block_merge": 0.0, "dtw_merge": 0.0, "dtw_mv": 0.0, "dtw_merge_mv": 0.0}
 SOURCES = {
     "envelope": ("src/repro_torch/csrc/envelope.cu",
                  "src/repro/kernels/envelope/kernel.py:52"),
@@ -200,6 +218,10 @@ SOURCES = {
     "block_merge": ("src/repro_torch/csrc/block_merge.cu", "src/repro/core/cascade.py:555"),
     # K5's masked entry with the merge (csrc/block_merge.cuh) as its epilogue
     "dtw_merge": ("src/repro_torch/csrc/dtw.cu", "src/repro/kernels/dtw/kernel.py:119"),
+    # K5's channel entry (multivariate rows, d > 1): pair list, and masked
+    # with the merge
+    "dtw_mv": ("src/repro_torch/csrc/dtw.cu", "src/repro/kernels/dtw/kernel.py:119"),
+    "dtw_merge_mv": ("src/repro_torch/csrc/dtw.cu", "src/repro/kernels/dtw/kernel.py:119"),
 }
 #: kernels on no path of this script, and why
 OFF_PATH = {"block_merge": "its routine (csrc/block_merge.cuh) runs as the epilogue of "
@@ -1253,12 +1275,12 @@ def phase_long_rows(dev, rec):
                           bound_by=by))
 
     def dtw_path(dt, n, w):
-        slots = lib.repro_dtw_slots(KERNEL_DTYPES[dt], n, w)
+        slots = lib.repro_dtw_slots(KERNEL_DTYPES[dt], n, w, 1)
         if slots > 0:
             return f"register wavefront, {slots} slots a lane"
         if slots == 0:
             return "shared-memory wavefront"
-        diag = lib.repro_dtw_workspace(KERNEL_DTYPES[dt], 1, n, w)
+        diag = lib.repro_dtw_workspace(KERNEL_DTYPES[dt], 1, n, w, 1)
         return ("long rows, rows in place, diagonals in " +
                 ("the workspace" if diag else "shared memory"))
 
@@ -1436,7 +1458,8 @@ def device_busy(fn) -> tuple[float, float, dict]:
 
 def loop_without_sync(dev, db, queries, res, kim: bool = False) -> tuple[float, float]:
     """The session's search loop (``fused_block_loop``; with ``kim``, that
-    of ``kim_improved``) on the prepared queries under
+    of ``kim_improved``; a multivariate session's composed loop) on the
+    prepared queries under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
     synchronising call; its answers and counters must be the search's
     ``res``.  Returns the host's seconds to enqueue the loop and the
@@ -1451,13 +1474,14 @@ def loop_without_sync(dev, db, queries, res, kim: bool = False) -> tuple[float, 
     cfg = db.config
     qs = torch.as_tensor(db.prepare_queries(queries), device=dev)
     qs = qs.to(db.rows_tensor.dtype).contiguous()
-    upper, lower = envelope_op(qs, db.w)
+    upper, lower = envelope_op(qs, db.w, db.channels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
         top_v, top_i, counts, totals = fused_block_loop(
-            qs, db.rows_tensor, upper, lower, db.w, cfg.p, cfg.k, cfg.block, 16, kim=kim)
+            qs, db.rows_tensor, upper, lower, db.w, cfg.p, cfg.k, cfg.block, 16, kim=kim,
+            d=db.channels)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     enqueue_s = time.perf_counter() - t0
@@ -2537,6 +2561,350 @@ def phase_stream_serve_cli():
         log(f"[cli] {what}: exit 0 in {secs:.1f} s; " + " | ".join(shown))
 
 
+# ------------------------------------------------------------- phase 9
+
+#: the multivariate default session: the shape of UWaveGestureLibrary in
+#: the UEA multivariate archive (Bagnall et al. 2018), a 3-axis
+#: accelerometer gesture: rows, length n, channels d
+MV_SESSION = (100_000, 315, 3)
+#: the scan-route mv session (rows, length, channels) and its index's R
+MV_SCAN = (768, 128, 3)
+MV_SCAN_REFS = 8
+#: K5's channel entry where d*n pushes a pair's rows past a block's
+#: shared memory (its in-place path): (d, n, w), float32
+MV_LONG = (8, 4000, 40)
+
+
+def mv_walks(rng, rows: int, n: int, d: int):
+    """(rows, n, d) float32 random walks, one per channel."""
+    from repro_torch.data.synthetic import random_walks
+
+    return random_walks(rng, rows * d, n).reshape(rows, d, n).swapaxes(1, 2)
+
+
+def mv_block_checks(dev, db, qs, res, rec):
+    """The mv session's kernels against their plain versions on the first
+    two blocks and the tail block, at the session's shapes: K1 on the
+    (B*d, n) segment view (bit-equal), K2 on the flat rows, the folded K3
+    (2e-4), and K5's channel entry, pair list and masked with the merge,
+    bit-equal to ``dtw_wavefront_plain(d=)`` / ``dtw_merge_plain(d=)``
+    (block 0 against BIG, every slot live; the others against the
+    search's final bounds).  Then K5's channel entry at p = 2 and inf, at
+    d = 8, and on its in-place path.  Adds the channel entries' records."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.common import BIG, KERNEL_DTYPES
+    from repro_torch.kernels.dtw.ops import (
+        dtw_launch,
+        dtw_masked_prepare,
+        dtw_merge_plain,
+        dtw_plain,
+        dtw_wavefront_plain,
+    )
+    from repro_torch.kernels.envelope.ops import envelope_launch, envelope_op, envelope_plain
+    from repro_torch.kernels.lb_fused.ops import lb_fused_prepare
+    from repro_torch.kernels.lb_improved.ops import (
+        _folded_qidx,
+        lb_improved_pass2_launch,
+        lb_improved_pass2_plain,
+        lb_improved_pass2_qbatch_op,
+    )
+    from repro_torch.kernels.lb_keogh.ops import lb_keogh_launch, lb_keogh_plain
+
+    rows, w, d = db.rows_tensor, db.w, db.channels
+    nq, total = qs.shape
+    n, b = total // d, BLOCK
+    n_rows = rows.shape[0]
+    upper, lower = envelope_op(qs, w, d)
+    final = torch.as_tensor(res.distances[:, -1], device=dev).contiguous()  # p = 1
+    tail = (n_rows - 1) // b * b
+    cells = n * (2 * w + 1) - w * (w + 1)
+    lb2_err = 0.0
+    for lo in (0, b, tail):
+        cands = rows[lo : lo + b]
+        real = cands.shape[0]
+        if real < b:  # the loop pads the tail block with its last row
+            cands = torch.cat([cands, cands[-1:].expand(b - real, total)]).contiguous()
+        what = f"mv block at row {lo}"
+        seg = cands.reshape(-1, n)
+        u, l = envelope_launch(seg, w)
+        check_equal("envelope", (u, l), envelope_plain(seg, w), f"{what}: K1 on (B*d, n)")
+        lb1, h = lb_keogh_launch(cands, upper, lower, 1)
+        lb1p, hp = lb_keogh_plain(cands, upper, lower, 1)
+        check_close("lb_keogh", lb1, lb1p, TOL["lb_keogh"], f"{what}: flat rows")
+        check_close("lb_keogh", h, hp, 0.0, f"{what}: flat H")
+        hrows, qs_ch = h.reshape(-1, n), qs.reshape(-1, n)
+        qi = _folded_qidx(nq, b, d, dev)
+        lb2 = lb_improved_pass2_launch(hrows, qs_ch, w, 1, qi)
+        e = check_close("lb_improved_pass2", lb2, lb_improved_pass2_plain(hrows, qs_ch, w, 1, qi),
+                        TOL["lb_improved_pass2"], f"{what}: folded rows")
+        lb2_err = max(lb2_err, e)
+        bound = torch.full_like(final, BIG) if lo == 0 else final
+        stage = torch.empty((nq, b), dtype=torch.uint8, device=dev)
+        lb_fused_prepare(qs, upper, lower, w, bound, 1, b, stage, d=d)(cands, real)
+        live = stage == 2
+        pq, pc = (t.contiguous() for t in live.nonzero(as_tuple=True))
+        if pq.numel():
+            check_equal("dtw_mv", dtw_launch(qs, cands, w, 1, pq, pc, d=d),
+                        dtw_wavefront_plain(qs, cands, w, 1, pq, pc, d=d),
+                        f"{what}: {pq.numel()} live pairs")
+        state = (torch.full((nq, 1), BIG, device=dev),
+                 torch.full((nq, 1), -1, dtype=torch.int64, device=dev),
+                 torch.zeros((3, nq), dtype=torch.int64, device=dev),
+                 torch.zeros(4, dtype=torch.int64, device=dev))
+        want = [t.clone() for t in state]
+        out = torch.full((nq, b), math.nan, device=dev)
+        out_w = out.clone()
+        dtw_masked_prepare(qs, w, 1, stage, None, out, (*state, DTW_CHUNK), d=d)(cands, lo)
+        dtw_merge_plain(qs, cands, stage, w, 1, None, out_w, *want, lo, DTW_CHUNK,
+                        dp=dtw_wavefront_plain, d=d)
+        check_equal("dtw_merge_mv", out[live], out_w[live], f"{what}: DP slots")
+        check_equal("dtw_merge_mv", tuple(state), tuple(want), f"{what}: top-k and counters")
+        log(f"[mv] {what}: K1, K2, folded K3, K5's channel entry (pairs and masked with "
+            f"the merge, {int(live.sum())} live slots) match their plain versions")
+    # the channel entry at p in {1, 2, inf}, d = 8 and on its in-place path
+    rng = np.random.default_rng(SEED + 10)
+    lib_slots = []
+    for dd, nn, ww, npair in ((d, n, w, 16), (8, n, w, 16), (*MV_LONG, 2)):
+        qv = torch.as_tensor(mv_walks(rng, 2, nn, dd).swapaxes(1, 2).reshape(2, -1),
+                             device=dev).contiguous()
+        cv = torch.as_tensor(mv_walks(rng, 8, nn, dd).swapaxes(1, 2).reshape(8, -1),
+                             device=dev).contiguous()
+        pi = torch.as_tensor(rng.integers(0, 2, npair), device=dev)
+        pj = torch.as_tensor(rng.integers(0, 8, npair), device=dev)
+        slots = cuda_lib.library().repro_dtw_slots(KERNEL_DTYPES[torch.float32], nn, ww, dd)
+        lib_slots.append(slots)
+        for p in (1, 2, math.inf):
+            got = dtw_launch(qv, cv, ww, p, pi, pj, d=dd)
+            check_equal("dtw_mv", got, dtw_wavefront_plain(qv, cv, ww, p, pi, pj, d=dd),
+                        f"d={dd} n={nn} w={ww} p={p} ({npair} pairs, path {slots})")
+            if p != math.inf:
+                bnd = (got * torch.as_tensor(rng.uniform(0.3, 1.6, npair), device=dev)
+                       .to(got.dtype)).contiguous()
+                ab = dtw_launch(qv, cv, ww, p, pi, pj, bnd, d=dd)
+                check_equal("dtw_mv", ab, dtw_wavefront_plain(qv, cv, ww, p, pi, pj, bnd, d=dd),
+                            f"d={dd} n={nn} w={ww} p={p} with bounds")
+                if not bool((ab[got >= bnd] >= bnd[got >= bnd]).all()):
+                    fail(f"dtw_mv d={dd} p={p}: an abandoned lane below its bound")
+    log(f"[mv] K5's channel entry bit-equal to dtw_wavefront_plain at d={d} and 8 "
+        f"(n={n}, w={w}) and on its in-place path (d={MV_LONG[0]}, n={MV_LONG[1]}, "
+        f"w={MV_LONG[2]}), p in {{1, 2, inf}}, with and without bounds; paths {lib_slots} "
+        f"(-2 staged segments, -3 rows in place)")
+    if lib_slots[-1] != -3:
+        fail(f"MV_LONG did not take the in-place path ({lib_slots})")
+
+    # times at the path's shapes: the pair list at DTW_CHUNK pairs, the
+    # masked entry with the merge on block 1 (the search's final bounds)
+    pi = torch.as_tensor(rng.integers(0, nq, DTW_CHUNK), device=dev)
+    pj = torch.as_tensor(rng.integers(0, b, DTW_CHUNK), device=dev)
+    blk = rows[b : 2 * b]
+    ms = time_ms(lambda: dtw_launch(qs, blk, w, 1, pi, pj, d=d))
+    dms = device_ms(lambda: dtw_launch(qs, blk, w, 1, pi, pj, d=d))
+    plain = time_ms(lambda: dtw_plain(qs, blk, w, 1, pi, pj, d=d), iters=1, repeats=3,
+                    warmup=1)
+    wave = time_ms(lambda: dtw_wavefront_plain(qs, blk, w, 1, pi, pj, d=d), iters=1,
+                   repeats=3, warmup=1)
+    ops = 3 * d + 2  # a cell: d (difference, |.|, join), then the DP's min, add, clamp
+    bnd, by = bound_ms(4 * DTW_CHUNK * (2 * total + 1), ops * DTW_CHUNK * cells)
+    err = check_close("dtw_mv", dtw_launch(qs, blk, w, 1, pi, pj, d=d),
+                      dtw_plain(qs, blk, w, 1, pi, pj, d=d), TOL["dtw"], "vs dtw_plain")
+    rec["dtw_mv"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=None, device_ms=dms, wavefront_plain_ms=wave,
+                         shape=f"pairs={DTW_CHUNK} d={d} n={n} w={w} p=1 full DP",
+                         tolerance="bit-equal to dtw_wavefront_plain; 3e-4 to dtw_plain")
+    stage = torch.empty((nq, b), dtype=torch.uint8, device=dev)
+    lb_fused_prepare(qs, upper, lower, w, final, 1, b, stage, d=d)(blk, b)
+    nlive = int((stage == 2).sum())
+    mstate = (torch.full((nq, 1), -1.0, device=dev),
+              torch.full((nq, 1), -1, dtype=torch.int64, device=dev),
+              torch.zeros((3, nq), dtype=torch.int64, device=dev),
+              torch.zeros(4, dtype=torch.int64, device=dev))
+    out = torch.empty((nq, b), device=dev)
+    mrun = dtw_masked_prepare(qs, w, 1, stage, None, out, (*mstate, DTW_CHUNK), d=d)
+    mms = time_ms(lambda: mrun(blk, b))
+    mdms = device_ms(lambda: mrun(blk, b))
+    mplain = time_ms(lambda: dtw_merge_plain(qs, blk, stage, w, 1, None, out, *mstate, b,
+                                             DTW_CHUNK, d=d), iters=3, repeats=3, warmup=1)
+    mbnd, mby = bound_ms(4 * (nq * total + b * total + nlive) + nq * b + 2 * nq * (4 + 8)
+                         + 2 * 8 * (3 * nq + 4), ops * nlive * cells)
+    rec["dtw_merge_mv"] = dict(max_abs_err=0.0, ms=mms, plain_ms=mplain, bound_ms=mbnd,
+                               bound_by=mby, library_ms=None, device_ms=mdms,
+                               shape=f"Q={nq} x B={b} slots, {nlive} live, d={d} n={n} "
+                                     f"w={w} p=1, k=1; then the merge",
+                               tolerance="bit-equal to dtw_merge_plain(dp=dtw_wavefront_plain)")
+    # the folded K3 and K1 at the path's shapes, beside their d = 1 records
+    h = lb_keogh_launch(blk, upper, lower, 1)[1]
+    k3 = lambda: lb_improved_pass2_qbatch_op(h, qs, w, 1, d)  # noqa: E731
+    rec["lb_improved_pass2"].update(
+        mv_folded_ms=time_ms(k3), mv_folded_device_ms=device_ms(k3),
+        mv_folded_max_abs_err=lb2_err,
+        mv_folded_shape=f"Q={nq} B={b} d={d} n={n}: {nq * b * d} rows, then the channel sum")
+    seg = rows[:b].reshape(-1, n)
+    rec["envelope"].update(mv_segments_device_ms=device_ms(lambda: envelope_launch(seg, w)),
+                           mv_segments_shape=f"{b * d} rows of n={n} (B={b}, d={d})")
+    log(f"[mv] dtw_mv: {ms:.4f} ms per call ({dms:.5f} on the device) at {DTW_CHUNK} pairs "
+        f"vs plain {plain:.3f} ms (wavefront plain {wave:.3f}), bound {bnd:.6f} ms ({by}); "
+        f"dtw_merge_mv: {mms:.4f} ms per call ({mdms:.5f} on the device), {nlive} live of "
+        f"{nq * b}, vs plain {mplain:.3f} ms, bound {mbnd:.6f} ms ({mby}); folded K3 "
+        f"{rec['lb_improved_pass2']['mv_folded_device_ms']:.5f} ms on the device")
+
+
+def phase_mv(dev, launches, main, rec):
+    """The multivariate tier on the card: the MV_SESSION default session
+    through the host driver's device loop, its exactness gate, its kernels
+    against their plain versions, the scan-route session with every method,
+    and an (N, n, 1) build of phase 3's rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Database, SearchConfig
+    from repro_torch.core.cascade import nn_search_host
+    from repro_torch.kernels.dtw.ops import dtw_qbatch_op
+    from repro_torch.mv import dtw_reference_mv
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    n_rows, n, d = MV_SESSION
+    x = mv_walks(rng, n_rows, n, d)
+    queries = mv_walks(rng, N_QUERIES, n, d)
+    torch.cuda.synchronize()
+
+    def build():
+        t0 = time.perf_counter()
+        db = Database.build(x)
+        torch.cuda.synchronize()
+        return db, time.perf_counter() - t0
+
+    db, build_s = counted(launches, "mv build", build)
+    plan = db.plan(queries).explain()
+    if not plan.startswith("driver: host") or f"channels: {d}" not in plan:
+        fail(f"the mv session did not route to the host driver with channels: {d}:\n{plan}")
+
+    def search():
+        t0 = time.perf_counter()
+        res = db.search(queries)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    res, search_s = counted(launches, "mv search", search)
+    busy_ms, wall_ms, by_kernel = device_busy(lambda: db.search(queries))
+    s = res.stats
+    log(f"[mv] {db!r} ({n_rows * n * d * 4 / 1e6:.1f} MB of rows); build {build_s:.2f} s, "
+        f"search of {N_QUERIES} queries {search_s:.3f} s = {N_QUERIES / search_s:.2f} qps")
+    log("[mv] plan: " + " | ".join(plan.splitlines()[:4]))
+    log(f"[mv] pruned {s.pruned_by}, full_dtw {s.full_dtw} of {s.n_candidates}, blocks "
+        f"{s.blocks_total}, DP chunks {s.blocks_dtw}, DP lanes "
+        f"{s.dp_lane_useful}/{s.dp_lane_work}")
+    log(f"[mv] launches: build {launches['mv build']}; search {launches['mv search']}")
+    if busy_ms > 0:
+        log(f"[mv] profiled second search: device busy {busy_ms:.1f} ms of {wall_ms:.1f} "
+            f"ms wall = idle share {1 - busy_ms / wall_ms:.3f}")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+        log("[mv] device ms by kernel: " + "; ".join(
+            f"{k[:56]} {ms:.1f} ms / {c}" for k, (ms, c) in top))
+        k5 = [(ms, c) for k, (ms, c) in by_kernel.items() if "dtw_kernel" in k]
+        if k5:
+            log(f"[mv] K5's channel entry in the search: {k5[0][0] / k5[0][1]:.4f} ms a "
+                f"launch over {k5[0][1]} launches")
+    else:
+        log("[mv] profiled second search: the profiler saw no device time; idle share "
+            "not measured")
+    got = launches["mv search"]
+    nb = s.blocks_total
+    require_launched(launches, "mv build", ("envelope", "lb_kim", "lb_keogh",
+                                            "lb_improved_pass2", "dtw_mv"), "mv build")
+    if ((got["lb_keogh"], got["lb_improved_pass2"], got["dtw_merge_mv"]) != (nb,) * 3
+            or got["envelope"] < 1 or any(got[k] for k in (
+                "lb_fused", "dtw", "dtw_mv", "dtw_merge", "block_merge", "lb_kim"))):
+        fail(f"mv search: expected K1, then per block ({nb}) one K2, one K3 and one K5 "
+             f"masked channel entry with the merge, and no K4, got {got}")
+    enqueue_s, loop_s = loop_without_sync(dev, db, queries, res)
+    log(f"[mv] the block loop ran again under set_sync_debug_mode('error') in "
+        f"{loop_s:.3f} s ({enqueue_s / nb * 1e6:.1f} us of host time a block to enqueue "
+        f"it): no synchronisation, same indices, distances and counters")
+
+    # exactness: top-1 of two queries against a brute force by K5's channel
+    # entry over every row, every top-1 against the float64 oracle, and the
+    # same session with early abandoning
+    qs = torch.as_tensor(db.prepare_queries(queries), device=dev).contiguous()
+    best = dtw_qbatch_op(qs[:2].contiguous(), db.rows_tensor, db.w, db.p, d=d).argmin(dim=1)
+    if not np.array_equal(best.cpu().numpy(), res.indices[:2, 0]):
+        fail(f"mv top-1 {res.indices[:2, 0]} != brute force {best.cpu().numpy()}")
+    worst = 0.0
+    for qi in range(N_QUERIES):
+        ref = dtw_reference_mv(queries[qi], x[res.indices[qi, 0]], db.w, db.p)
+        worst = max(worst, abs(float(res.distances[qi, 0]) - ref) / abs(ref))
+    if worst > 2e-4:
+        fail(f"mv distances vs float64 dtw_reference_mv: rel err {worst:.3g} > 2e-4")
+    early = nn_search_host(qs, db.rows_tensor, db.w, db.p, 1, db.config.block,
+                           method="lb_improved", early_abandon=True, d=d)
+    if not (np.array_equal(early.indices, res.indices)
+            and np.array_equal(early.distances, res.distances)):
+        fail("the mv session with early abandoning answered otherwise")
+    log(f"[mv] brute force top-1 {best.tolist()} == session top-1; top-1 vs float64 "
+        f"dtw_reference_mv: max rel err {worst:.3g}; early_abandon=True: the same indices "
+        f"and distance bits")
+    mv_block_checks(dev, db, qs, res, rec)
+    del db, x
+    torch.cuda.empty_cache()
+
+    # the scan route: every method gives full's indices; tc_tri indexed
+    rows, n2, d2 = MV_SCAN
+    xs = mv_walks(rng, rows, n2, d2)
+    qs2 = mv_walks(rng, 8, n2, d2)
+
+    def scan_all():
+        out = {}
+        for method in ("full", "lb_keogh", "lb_improved", "lb_webb", "kim_improved",
+                       "kim_webb", "tc_box", "auto"):
+            sdb = Database.build(xs, SearchConfig(k=5, method=method))
+            pl = sdb.plan(qs2).explain()
+            if not pl.startswith("driver: scan") or f"channels: {d2}" not in pl:
+                fail(f"mv scan {method}: plan\n{pl}")
+            out[method] = sdb.search(qs2)
+        idb = Database.build(xs, SearchConfig(k=5, method="tc_tri"), index=True,
+                             n_refs=MV_SCAN_REFS)
+        if not idb.plan(qs2).explain().startswith("driver: indexed"):
+            fail("mv tc_tri: the indexed session did not route to the indexed driver")
+        out["tc_tri (indexed)"] = idb.search(qs2)
+        return out
+
+    scans = counted(launches, "mv scan", scan_all)
+    base = scans["full"]
+    for method, r in scans.items():
+        if not np.array_equal(r.indices, base.indices):
+            fail(f"mv scan {method}: indices differ from full's")
+        log(f"[mv scan] {method:<17} pruned={r.stats.pruned_by} dtw={r.stats.full_dtw} "
+            f"lanes={r.stats.dp_lane_useful}/{r.stats.dp_lane_work}")
+    require_launched(launches, "mv scan", ("envelope", "lb_kim", "lb_keogh",
+                                           "lb_improved_pass2", "dtw_mv"), "mv scan")
+    log(f"[mv scan] {rows} x ({n2}, {d2}): every method gives full's indices; launches "
+        f"{launches['mv scan']}")
+
+    # d = 1 stays d = 1: an (N, n, 1) build of phase 3's rows
+    def unit_channel():
+        db1 = Database.build(main["x"][:, :, None])
+        return db1, db1.search(main["queries"])
+
+    db1, r1 = counted(launches, "mv d=1", unit_channel)
+    m = main["res"]
+    if (db1.channels != 1 or r1.stats.pruned_by != MAIN_PRUNED
+            or r1.stats.full_dtw != MAIN_FULL_DTW
+            or r1.indices[:2, 0].tolist() != MAIN_TOP1
+            or not np.array_equal(r1.indices, m.indices)
+            or r1.distances.tobytes() != m.distances.tobytes()):
+        fail(f"the (N, n, 1) build answered otherwise than phase 3: {r1.stats}")
+    got1 = launches["mv d=1"]
+    if got1["dtw_mv"] or got1["dtw_merge_mv"] or not got1["lb_fused"]:
+        fail(f"the (N, n, 1) build left the univariate kernels: {got1}")
+    log(f"[mv] (N, n, 1) build of phase 3's rows: pruning {r1.stats.pruned_by} / "
+        f"{r1.stats.full_dtw}, top-1 {r1.indices[:2, 0].tolist()}, phase 3's distance bits")
+    del db1
+    log(f"[mv] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2577,6 +2945,7 @@ def main() -> int:
     timed("7 stream session", phase_stream_session, dev, launches)
     timed("8 serve", phase_serve, dev, launches, main_out)
     timed("8 stream and serve CLIs", phase_stream_serve_cli)
+    timed("9 multivariate", phase_mv, dev, launches, main_out, rec)
     log("[time] seconds by phase: " + "; ".join(f"{k} {v:.1f}" for k, v in spent.items()))
     kernels = []
     for name, r in rec.items():

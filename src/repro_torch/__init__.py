@@ -12,9 +12,11 @@ the schedule table the wrappers resolve, and ``Database.build(tune=...)``
 sweeps it.
 
 The stage-0 index (``index``), streaming subsequence search
-(``stream``) and the multi-tenant serving engine (``serve``) are ported;
-the port is univariate, and the anytime, multivariate and sharded tiers
-are queued in ROADMAP.md.
+(``stream``), the multi-tenant serving engine (``serve``) and the
+multivariate tier (``mv``: dependent DTW on channel-major rows, every
+driver and method, the TC-DTW stages) are ported; multivariate streaming
+and serving, the anytime tier and the sharded driver are queued in
+ROADMAP.md.
 """
 
 from repro_torch.api import Database, SearchConfig

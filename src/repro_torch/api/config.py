@@ -21,7 +21,7 @@ import json
 import math
 
 from repro_torch.core.dtw import PNorm
-from repro_torch.core.pipeline import MV_METHODS, PIPELINES, Method, not_ported
+from repro_torch.core.pipeline import PIPELINES, Method
 
 #: norm orders the cascade kernels are specialised for (elementwise |.|,
 #: squared, and the max-combine DP); other p values remain available
@@ -64,8 +64,8 @@ class SearchConfig:
     * ``block``  — candidates per cascade block sweep.
     * ``method`` — stage pipeline (``repro_torch.core.pipeline.PIPELINES``):
       ``"lb_improved"`` (paper Algorithm 3), ``"lb_keogh"``,
-      ``"lb_webb"``, ``"kim_improved"``, ``"kim_webb"`` or ``"full"`` —
-      or ``"auto"``, which defers the stage order to the calibration-
+      ``"lb_webb"``, ``"kim_improved"``, ``"kim_webb"``, ``"full"``, the
+      TC-DTW cascades ``"tc_box"`` and ``"tc_tri"`` — or ``"auto"``, which defers the stage order to the calibration-
       driven cascade planner (``repro_torch.api.planner.choose_cascade``);
       all pipelines return bit-identical results, only cost differs.
     * ``znorm``  — z-normalize database rows at build and queries per
@@ -114,8 +114,6 @@ class SearchConfig:
                 f"lanes per sweep (32-256 are typical; it only affects "
                 f"performance, never results)"
             )
-        if self.method in MV_METHODS:
-            raise not_ported(f"method={self.method!r}", "9 (multivariate)")
         if self.method != "auto" and self.method not in PIPELINES:
             raise ValueError(
                 f"method={self.method!r} unknown; available stage pipelines: "

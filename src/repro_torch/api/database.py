@@ -1,7 +1,8 @@
 """Database: the build-once / query-many session facade (port of
-``repro.api.database``, univariate).
+``repro.api.database``).
 
     db = Database.build(data, SearchConfig())   # rows + envelopes on the GPU
+    Database.build(x_nd)                        # (N, n, d): the multivariate tier
     db.plan(queries).explain()                  # see the routing
     res = db.search(queries)                    # scan, host or indexed driver
     db.save("session.npz"); Database.load(...)  # the reference's bundle
@@ -17,6 +18,13 @@ reference's ``.npz`` keys and format version, so a bundle written by
 ``repro.api.Database.save`` loads here and answers the same (``load`` /
 ``from_arrays``).  The session runs on
 ``device`` (default: the GPU; ``RuntimeError`` when there is none).
+
+Multivariate data ``(N, n, d)`` is stored channel-major flattened, one
+``(d*n,)`` row per series (``repro_torch.mv.layout``), z-normalized per
+(row, channel), and searched under dependent DTW; queries are ``(n, d)``
+or ``(Q, n, d)`` (or already flattened ``(Q, d*n)``).  ``(N, n, 1)`` data
+is the univariate session, byte for byte.  Streaming and serving of
+multivariate sessions are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -44,12 +52,13 @@ from repro_torch.core.cascade import (
     nn_search_indexed,
     nn_search_scan,
 )
-from repro_torch.core.pipeline import not_ported
+from repro_torch.core.pipeline import MV_STREAM_ITEM, not_ported
 from repro_torch.index.build import TriangleIndex, build_index
 from repro_torch.index.store import index_arrays, index_from_arrays
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.envelope.ops import envelope_op
 from repro_torch.kernels.tuning import TuneTable, autotune_session, install
+from repro_torch.mv.layout import flatten_channels
 from repro_torch.stream.state import STD_EPS
 
 BUNDLE_FORMAT_VERSION = 1
@@ -68,6 +77,15 @@ def _znorm_rows(rows: np.ndarray, eps: float = STD_EPS, dtype="float32") -> np.n
     mean = x64.mean(axis=1, keepdims=True)
     std = np.maximum(x64.std(axis=1, keepdims=True), eps)
     return ((x64 - mean) / std).astype(dtype)
+
+
+def _znorm_channels(flat: np.ndarray, d: int, dtype) -> np.ndarray:
+    """``_znorm_rows`` per (row, channel) of channel-major flattened
+    (N, d*n) rows: each channel segment is its own series."""
+    n_rows, total = flat.shape
+    return _znorm_rows(flat.reshape(n_rows * d, total // d), dtype=dtype).reshape(
+        n_rows, total
+    )
 
 
 def _torch_dtype(precision: str) -> torch.dtype:
@@ -91,13 +109,16 @@ class Database:
         self, *, raw, data: torch.Tensor, config: SearchConfig, w: int,
         upper: torch.Tensor, lower: torch.Tensor, row_sums, row_sumsq,
         calibration: Calibration | None = None, tune_table: TuneTable | None = None,
-        index: TriangleIndex | None = None,
+        index: TriangleIndex | None = None, d: int = 1,
     ):
         self.raw = raw  # as given (precision-cast numpy), what save() persists
-        self._data = data  # (N, n) rows on the device, znormed when configured
+        # (N, d*n) rows on the device, channel-major flattened when d > 1,
+        # znormed per (row, channel) when configured
+        self._data = data
+        self.d = int(d)  # channel count
         self.config = config
         self.w = w  # resolved band half-width
-        self._upper = upper  # (N, n) row envelopes on the device
+        self._upper = upper  # (N, d*n) row envelopes on the device (per segment)
         self._lower = lower
         self.row_sums = row_sums  # (N,) float64 sum x of the raw rows
         self.row_sumsq = row_sumsq  # (N,) float64 sum x^2
@@ -121,8 +142,8 @@ class Database:
         n_clusters: int | None = None, seed: int = 0, anytime=False, tune=False,
         device=None,
     ) -> "Database":
-        """Precompute every database-side artifact for ``data`` (N, n) on
-        ``device``.
+        """Precompute every database-side artifact for ``data`` (N, n), or
+        (N, n, d) multivariate series, on ``device``.
 
         ``index=True`` also builds the stage-0 triangle index (``n_refs``
         references by farthest-first traversal, the first ``n_clusters``
@@ -140,39 +161,57 @@ class Database:
         bundle, and read by the planner for ``method="auto"``.  A dict
         customizes the sweep, e.g. ``tune=dict(iters=1, families=("lb_kim",
         "pipeline"))``.  The reference's ``anytime`` tier is not ported yet
-        and raises ``NotImplementedError``."""
-        _not_ported_option("anytime", anytime, _UNPORTED_BUNDLE_KEYS["any_"])
+        and raises ``NotImplementedError`` (``ValueError`` on multivariate
+        data, which the reference's tier does not serve)."""
         config = config if config is not None else SearchConfig()
-        dev = resolve_device(device)
         raw = np.asarray(data, dtype=config.precision)
-        if raw.ndim == 3 and raw.shape[2] == 1:
-            raw = raw[:, :, 0]
-        if raw.ndim == 3 or config.channels > 1:
-            raise not_ported("multivariate data (d > 1)", "9 (multivariate)")
-        if raw.ndim != 2:
+        if raw.ndim == 3:
+            d = int(raw.shape[2])
+            if d == 1:
+                raw = raw[:, :, 0]  # d = 1: the univariate session verbatim
+        elif raw.ndim == 2:
+            d = 1
+        else:
             raise ValueError(
-                f"data must be (N, n) equal-length series, got shape {raw.shape}"
+                f"data must be (N, n) equal-length series or (N, n, d) "
+                f"multivariate series, got shape {raw.shape}"
             )
-        n_db, n = raw.shape
+        if config.channels > 0 and config.channels != d:
+            raise ValueError(
+                f"config.channels={config.channels} but data has {d} "
+                f"channel(s) (shape {raw.shape}); pass matching data or "
+                f"channels=0 to infer"
+            )
+        if anytime and d > 1:
+            raise ValueError(
+                "anytime subsequence tier is univariate-only for now; "
+                "build with anytime=False for multivariate data"
+            )
+        _not_ported_option("anytime", anytime, _UNPORTED_BUNDLE_KEYS["any_"])
+        dev = resolve_device(device)
+        n_db, n = raw.shape[0], raw.shape[1]
         if n < 2:
             raise ValueError(f"series length n={n} must be >= 2")
         w = config.resolve_w(n)
         config.validate_k(config.k, n_db)
-        rows = _znorm_rows(raw, dtype=config.precision) if config.znorm else raw
-        raw64 = np.asarray(raw, np.float64)
+        # channel-major flatten: (N, n, d) -> (N, d*n); d = 1 is the identity
+        flat = flatten_channels(raw) if raw.ndim == 3 else raw
+        rows = _znorm_channels(flat, d, config.precision) if config.znorm else flat
+        raw64 = np.asarray(flat, np.float64)
         row_sums = raw64.sum(axis=1)
         row_sumsq = (raw64 * raw64).sum(axis=1)
         del raw64
         data_t = torch.as_tensor(rows, device=dev).contiguous()
-        upper, lower = envelope_op(data_t, w)
+        upper, lower = envelope_op(data_t, w, d)
         tri = None
         if index is True:
             tri = build_index(
                 data_t, w=w, p=config.p, n_refs=n_refs, n_clusters=n_clusters, seed=seed,
+                d=d,
             )
         elif isinstance(index, TriangleIndex):
             tri = index
-            tri.validate(n_db, n, w, config.p)
+            tri.validate(n_db, n, w, config.p, d)
             tri.validate_data(rows)
         elif index is not False:
             raise TypeError(
@@ -186,25 +225,23 @@ class Database:
                 n=n, b=opts.pop("b", min(config.block, n_db)), w=w, p=config.p,
                 seed=opts.pop("seed", seed), device=dev, **opts,
             )
-        cal = calibrate(data_t, w, config.p)
+        cal = calibrate(data_t, w, config.p, d=d)
         return cls(
             raw=raw, data=data_t, config=config, w=w, upper=upper, lower=lower,
             row_sums=row_sums, row_sumsq=row_sumsq, calibration=cal,
-            tune_table=table, index=tri,
+            tune_table=table, index=tri, d=d,
         )
 
     @classmethod
     def from_arrays(cls, arrays: Mapping[str, np.ndarray], device=None) -> "Database":
         """A session from the reference's bundle arrays (``.npz`` keys:
         ``config_json``, ``resolved_w``, ``data``, ``upper``, ``lower``,
-        ``row_sums``, ``row_sumsq`` and the optional ``idx_*``, ``cal_*``
-        and ``tune_*``).  Saved artifacts are uploaded, not recomputed; a
-        tune table is installed."""
+        ``row_sums``, ``row_sumsq`` and the optional ``channels``,
+        ``idx_*``, ``cal_*`` and ``tune_*``).  Saved artifacts are uploaded,
+        not recomputed; a tune table is installed."""
         for prefix, item in _UNPORTED_BUNDLE_KEYS.items():
             if any(k.startswith(prefix) for k in arrays):
                 raise not_ported(f"a bundle with {prefix}* keys", item)
-        if "channels" in arrays and int(arrays["channels"]) > 1:
-            raise not_ported("a multivariate bundle", "9 (multivariate)")
         version = int(arrays["bundle_format_version"])
         if version != BUNDLE_FORMAT_VERSION:
             raise ValueError(
@@ -214,7 +251,10 @@ class Database:
         dev = resolve_device(device)
         config = SearchConfig.from_json(str(arrays["config_json"]))
         raw = np.asarray(arrays["data"], dtype=config.precision)
-        rows = _znorm_rows(raw, dtype=config.precision) if config.znorm else raw
+        # absent in univariate bundles
+        d = int(arrays["channels"]) if "channels" in arrays else 1
+        flat = flatten_channels(raw) if raw.ndim == 3 else raw
+        rows = _znorm_channels(flat, d, config.precision) if config.znorm else flat
         tri = None
         if "idx_meta" in arrays:
             tri = index_from_arrays(
@@ -243,6 +283,7 @@ class Database:
             calibration=cal,
             tune_table=table,
             index=tri,
+            d=d,
         )
 
     # ------------------------------------------------------- persistence
@@ -262,6 +303,9 @@ class Database:
             "row_sums": self.row_sums,
             "row_sumsq": self.row_sumsq,
         }
+        if self.d > 1:
+            # absent means univariate, as in the reference's bundles
+            arrays["channels"] = np.int64(self.d)
         if self.index is not None:
             arrays.update({f"idx_{k}": v for k, v in index_arrays(self.index).items()})
         if self._calibration is not None:
@@ -291,12 +335,19 @@ class Database:
 
     @property
     def rows_tensor(self) -> torch.Tensor:
-        """The searched rows as the (N, n) tensor on the session's device."""
+        """The searched rows as the (N, d*n) tensor on the session's device."""
         return self._data
 
     @property
+    def data(self) -> np.ndarray:
+        """The searched rows (N, d*n) on the host: channel-major flattened
+        and z-normalized as configured, as the reference's ``data``."""
+        return self._data.cpu().numpy()
+
+    @property
     def upper(self) -> np.ndarray:
-        """(N, n) upper warping envelopes of the rows, band ``self.w``."""
+        """(N, d*n) upper warping envelopes of the rows (per channel
+        segment), band ``self.w``."""
         return self._upper.cpu().numpy()
 
     @property
@@ -309,7 +360,18 @@ class Database:
 
     @property
     def length(self) -> int:
-        return int(self._data.shape[1])
+        """Per-channel series length n (the flattened rows are d*n)."""
+        return int(self._data.shape[1]) // self.d
+
+    @property
+    def channels(self) -> int:
+        """Channel count d; 1 for univariate sessions."""
+        return self.d
+
+    @property
+    def envelopes(self) -> tuple[np.ndarray, np.ndarray]:
+        """(upper, lower) warping envelopes of the database rows."""
+        return self.upper, self.lower
 
     @property
     def p(self):
@@ -331,8 +393,8 @@ class Database:
 
     def row_mean_std(self, eps: float = STD_EPS) -> tuple[np.ndarray, np.ndarray]:
         """Per-row mean and (eps-floored) std of the raw rows, from the
-        cached powered norms."""
-        n = self.length
+        cached powered norms; multivariate rows pool all d*n values."""
+        n = self.length * self.d
         mean = self.row_sums / n
         var = np.maximum(self.row_sumsq / n - mean * mean, 0.0)
         return mean, np.maximum(np.sqrt(var), eps)
@@ -341,8 +403,9 @@ class Database:
         return self.n_rows
 
     def __repr__(self) -> str:
+        shape = f"{self.n_rows} x {self.length}" + (f" x {self.d}ch" if self.d > 1 else "")
         return (
-            f"Database({self.n_rows} x {self.length}, w={self.w}, "
+            f"Database({shape}, w={self.w}, "
             f"p={self.config.p}, method={self.config.method!r}, "
             f"index={'R=%d' % self.index.n_refs if self.index else 'none'}, "
             f"device={self.device})"
@@ -355,10 +418,41 @@ class Database:
 
     # ----------------------------------------------------------- queries
 
+    def _prepare_mv(self, qs: np.ndarray, queries) -> np.ndarray:
+        """``prepare_queries`` on a d-channel session: (n, d) or (Q, n, d),
+        or rows already flattened to (Q, d*n), -> flattened rows, znormed
+        per (row, channel) when configured."""
+        d, n = self.d, self.length
+        if qs.ndim == 2 and qs.shape[1] == d * n:
+            # already channel-major flattened rows; normalising prepared
+            # rows again leaves them as they are
+            return _znorm_channels(qs, d, self.config.precision) if self.config.znorm else qs
+        single = qs.ndim == 2
+        if single:
+            qs = qs[None]
+        if qs.ndim != 3 or qs.shape[-1] != d:
+            raise ValueError(
+                f"queries must be one (n, {d}) series or a (Q, n, {d}) batch on "
+                f"this {d}-channel session, got shape {np.asarray(queries).shape}"
+            )
+        if qs.shape[1] != n:
+            raise ValueError(
+                f"query length {qs.shape[1]} != expected series length {n}: the "
+                f"paper's DTW bounds assume equal lengths"
+            )
+        qs = flatten_channels(qs)
+        if self.config.znorm:
+            qs = _znorm_channels(qs, d, self.config.precision)
+        return qs[0] if single else qs
+
     def prepare_queries(self, queries) -> np.ndarray:
         """The exact query array the drivers consume: precision-cast and
-        (when the session z-norms) z-normalized, shape validated."""
+        (when the session z-norms) z-normalized, shape validated.  On a
+        multivariate session queries are one (n, d) series or a (Q, n, d)
+        batch, returned channel-major flattened like the stored rows."""
         qs = np.asarray(queries, dtype=self.config.precision)
+        if self.d > 1:
+            return self._prepare_mv(qs, queries)
         if qs.ndim == 3 and qs.shape[-1] == 1:
             qs = qs[:, :, 0]
         if qs.ndim not in (1, 2):
@@ -388,7 +482,7 @@ class Database:
         """The planner's selectivity probe (measured here, once, when a
         bundle did not carry one)."""
         if self._calibration is None:
-            self._calibration = calibrate(self._data, self.w, self.config.p)
+            self._calibration = calibrate(self._data, self.w, self.config.p, d=self.d)
         return self._calibration
 
     def _resolve_method(self, cfg: SearchConfig, k: int | None = None):
@@ -414,17 +508,20 @@ class Database:
             n_queries = int(queries)
         else:
             arr = np.asarray(queries)
-            n_queries = 1 if arr.ndim == 1 else int(arr.shape[0])
+            # on a d-channel session (d*n,) and (n, d) are one query
+            one = arr.ndim == 1 or (self.d > 1 and arr.ndim == 2 and arr.shape[-1] == self.d)
+            n_queries = 1 if one else int(arr.shape[0])
         cfg, cascade = self._resolve_method(self._config_for(method), k)
         return plan_search(
             cfg, self.n_rows, n_queries, has_index=self.index is not None,
-            driver=driver, cascade=cascade, mode=mode,
+            driver=driver, cascade=cascade, mode=mode, channels=self.d,
         )
 
     def search(self, queries, *, k: int | None = None, driver: str | None = None,
                method: str | None = None, mode: str = "exact"):
         """Nearest-neighbour search through the planned driver.  One (n,)
-        series -> ``SearchResult``; a (Q, n) batch -> ``BatchSearchResult``."""
+        series -> ``SearchResult``; a (Q, n) batch -> ``BatchSearchResult``
+        ((n, d) and (Q, n, d) on a d-channel session)."""
         qs = self.prepare_queries(queries)
         k = self.config.validate_k(self.config.k if k is None else k, self.n_rows)
         plan = self.plan(qs, driver=driver, method=method, k=k, mode=mode)
@@ -436,7 +533,7 @@ class Database:
         fn = nn_search_scan if plan.driver == "scan" else nn_search_host
         return fn(
             qs, self._data, w=self.w, p=cfg.p, k=k, block=cfg.block,
-            method=cfg.method,
+            method=cfg.method, d=self.d,
         )
 
     def topk(self, queries, k: int, *, driver: str | None = None):
@@ -476,11 +573,13 @@ class Database:
         and the build-time envelopes are reused — constructing matchers
         per signal stops re-deriving them.  Explicit ``templates`` get
         their envelopes computed on construction (the envelope kernel).
-        Multivariate templates (Q, n, d > 1) need the multivariate tier,
-        which is not ported yet, and raise.
+        Multivariate streaming (a d-channel session, or templates (Q, n,
+        d > 1)) is not ported yet and raises.
         """
         from repro_torch.stream.matcher import StreamMatcher
 
+        if self.d > 1:
+            raise not_ported(f"a multivariate stream (d={self.d})", MV_STREAM_ITEM)
         cfg, _ = self._resolve_method(self.config)
         envelopes = None
         if templates is None:
@@ -495,9 +594,7 @@ class Database:
         else:
             shape = np.shape(templates)
             if len(shape) == 3 and shape[-1] > 1:
-                raise not_ported(
-                    f"a multivariate stream (d={shape[-1]})", "9 (multivariate)"
-                )
+                raise not_ported(f"a multivariate stream (d={shape[-1]})", MV_STREAM_ITEM)
         return StreamMatcher(
             templates,
             self.w,

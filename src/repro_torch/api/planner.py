@@ -44,13 +44,19 @@ SMALL_DB_ROWS = 1024
 CALIBRATED_STAGES = ("lb_kim", "lb_keogh", "lb_improved", "lb_webb")
 
 #: analytic per-candidate unit costs in O(n)-sweep units (the reference's
-#: table); the exact DP costs ``full_dp_cost(w)``.
+#: table); the exact DP costs ``full_dp_cost(w)``.  The TC-DTW stages
+#: reduce a lane to O(d*S) scalars (tc_box) or O(R) arithmetic (tc_tri).
 STAGE_UNIT_COST = {
     "lb_kim": 1.0,
     "lb_keogh": 3.0,
     "lb_improved": 8.0,
     "lb_webb": 9.0,
+    "tc_box": 0.6,
+    "tc_tri": 0.4,
 }
+
+#: the TC-DTW stages, listed by ``Plan.explain`` where a plan weighed them
+MV_STAGES = ("tc_box", "tc_tri")
 
 
 def full_dp_cost(w: int) -> float:
@@ -101,18 +107,22 @@ def calibrate(rows, w: int, p, sample_q: int = 4, sample_c: int = 128, d: int = 
     Evenly-spaced rows stand in for queries (``sample_q``) against an
     evenly-spaced candidate subsample (``sample_c``); the four powered
     bounds and the true powered DTW are computed for every probe pair, on
-    the rows' device (through the kernels on CUDA).
+    the rows' device (through the kernels on CUDA).  ``d > 1`` probes the
+    multivariate forms on channel-major flattened rows and also measures
+    ``tc_box``, which makes the ``"tc_box"`` pipeline eligible under
+    ``method="auto"``; at d = 1 no tc stage is probed.
     """
     from repro_torch.core import lb as lb_mod
-    from repro_torch.core.pipeline import query_webb_envelopes, require_univariate
+    from repro_torch.core.pipeline import query_webb_envelopes
     from repro_torch.kernels.common import resolve_device
     from repro_torch.kernels.dtw.ops import dtw_qbatch_op
     from repro_torch.kernels.envelope.ops import envelope_op
     from repro_torch.kernels.lb_improved.ops import lb_improved_qbatch_op
     from repro_torch.kernels.lb_keogh.ops import lb_keogh_qbatch_op
     from repro_torch.kernels.lb_kim.ops import lb_kim_qbatch_op
+    from repro_torch.mv import tc as tc_mod
 
-    require_univariate(d)
+    d = int(d)
     dev = resolve_device(device, like=rows)
     rows = torch.as_tensor(rows, device=dev)
     n_db = rows.shape[0]
@@ -120,24 +130,28 @@ def calibrate(rows, w: int, p, sample_q: int = 4, sample_c: int = 128, d: int = 
     ci = np.unique(np.linspace(0, n_db - 1, min(sample_c, n_db)).astype(np.int64))
     qs = rows[torch.as_tensor(qi, device=dev)].contiguous()
     cs = rows[torch.as_tensor(ci, device=dev)].contiguous()
-    upper, lower = envelope_op(qs, w)
-    cand_u, cand_l = envelope_op(cs, w)
-    q_ul, q_lu = query_webb_envelopes(upper, lower, w)
+    upper, lower = envelope_op(qs, w, d)
+    cand_u, cand_l = envelope_op(cs, w, d)
+    q_ul, q_lu = query_webb_envelopes(upper, lower, w, d)
 
     def host(t):
         return t.double().cpu().numpy()
 
-    bounds = np.stack([
+    rows_b = [
         host(lb_kim_qbatch_op(cs, qs, None, p)),
         host(lb_keogh_qbatch_op(cs, upper, lower, p)[0]),
-        host(lb_improved_qbatch_op(cs, qs, upper, lower, w, p)),
+        host(lb_improved_qbatch_op(cs, qs, upper, lower, w, p, d=d)),
         host(lb_mod.lb_webb_powered_qbatch(
             cs, qs, upper, lower, w, p, q_ul=q_ul, q_lu=q_lu,
             cand_u=cand_u, cand_l=cand_l,
         )),
-    ])
-    dtw = host(dtw_qbatch_op(qs, cs, w, p))
-    return Calibration(CALIBRATED_STAGES, bounds, dtw, int(w))
+    ]
+    names = CALIBRATED_STAGES
+    if d > 1:
+        names = names + ("tc_box",)
+        rows_b.append(host(tc_mod.tc_box_powered_qbatch(cs, upper, lower, p, d)))
+    dtw = host(dtw_qbatch_op(qs, cs, w, p, d=d))
+    return Calibration(names, np.stack(rows_b), dtw, int(w))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,14 +282,27 @@ class Plan:
     n_queries: int
     config: SearchConfig
     cascade: CascadePlan | None = None  # set when the planner chose the order
+    channels: int = 1  # data channel count d
+
+    def _mv_considered(self) -> tuple[str, ...]:
+        """TC-DTW stages this plan weighed: those of the chosen pipeline
+        and, under method="auto", of every pipeline the chooser scored."""
+        seen = {s for s in self.stages if s in MV_STAGES}
+        if self.cascade is not None:
+            for m, _cost in self.cascade.predicted:
+                seen |= {s for s in PIPELINES[m] if s in MV_STAGES}
+        return tuple(sorted(seen))
 
     def explain(self) -> str:
+        mv = self._mv_considered()
         lines = [
             f"driver: {self.driver} ({DRIVERS[self.driver]})",
             f"stages: {' -> '.join(self.stages)}",
             f"queries: {self.n_queries} (method={self.config.method}, "
             f"p={self.config.p}, k={self.config.k}, "
             f"block={self.config.block})",
+            f"channels: {self.channels} (mv stages considered: "
+            f"{', '.join(mv) if mv else 'none'})",
             "because:",
         ]
         lines += [f"  - {r}" for r in self.reasons]
@@ -293,12 +320,14 @@ def plan_search(
     driver: str | None = None,
     cascade: CascadePlan | None = None,
     mode: str = "exact",
+    channels: int = 1,
 ) -> Plan:
     """Choose the driver for a query batch against one database session:
     an explicit ``driver`` override wins; then the stage-0 index (the most
     specific prebuilt artifact); then ``method="full"`` and databases below
     ``SMALL_DB_ROWS`` rows go to the scan driver, the rest to the host
-    driver."""
+    driver.  ``channels`` (the session's d) rides the plan for
+    ``explain()``."""
     if mode == "anytime":
         raise not_ported("mode='anytime'", UNPORTED_DRIVERS["anytime"])
     if mode != "exact":
@@ -329,7 +358,7 @@ def plan_search(
                 )
             stages = ("lb_tri",) + stages
         return Plan(driver, stages, ("caller override",) + because,
-                    n_queries, config, cascade)
+                    n_queries, config, cascade, channels)
     if has_index:
         return Plan(
             "indexed", ("lb_tri",) + stages,
@@ -337,26 +366,26 @@ def plan_search(
              "arithmetic per candidate kills most lanes before any "
              "envelope work, and the reference distances seed the "
              "top-k exactly",) + because,
-            n_queries, config, cascade,
+            n_queries, config, cascade, channels,
         )
     if config.method == "full":
         return Plan(
             "scan", stages,
             ("method='full' has no LB stages to compact, so the dense "
              "block scan is the fastest layout",) + because,
-            n_queries, config, cascade,
+            n_queries, config, cascade, channels,
         )
     if n_rows < SMALL_DB_ROWS:
         return Plan(
             "scan", stages,
             (f"database has {n_rows} rows (< {SMALL_DB_ROWS}): one device "
              f"sweep beats host orchestration overhead at this size",) + because,
-            n_queries, config, cascade,
+            n_queries, config, cascade, channels,
         )
     return Plan(
         "host", stages,
         (f"database has {n_rows} rows (>= {SMALL_DB_ROWS}): the host "
          f"driver gathers LB survivors into pooled fixed-size DP "
          f"chunks, so post-LB wall-clock tracks surviving work",) + because,
-        n_queries, config, cascade,
+        n_queries, config, cascade, channels,
     )

@@ -27,8 +27,15 @@ top-k and prunes against its own tightening bound.
   compacted survivors with a per-query entry mask, its top-k seeded with
   the exact reference distances.
 
-Both take numpy arrays or tensors.  They run on the tensors' device, or
+All take numpy arrays or tensors.  They run on the tensors' device, or
 on ``device`` (default: the GPU; ``RuntimeError`` when there is none).
+Rows of ``d > 1`` channels are dependent multivariate series in the
+channel-major flattened layout (``repro_torch.mv.layout``): ``w`` is
+clamped to the per-channel length, the envelopes are per channel segment
+and the DP is K5's channel entry.  At d > 1 only ``lb_improved`` at p in
+{1, 2} takes the device loop, its K4 step composed of K2 and the folded
+K3 (``kernels/lb_fused/ops.py::lb_fused_prepare``); ``kim_improved``
+keeps the host loop there, as K4's kim entry serves d = 1 rows only.
 """
 
 from __future__ import annotations
@@ -162,9 +169,11 @@ class BatchSearchResult:
 
 
 def _as_inputs(q, db, device, d: int):
-    """(qs (Q, n), db (N, n), single) as tensors on one device; numpy
-    queries take the database's dtype."""
-    pipe.require_univariate(d)
+    """(qs (Q, d*n), db (N, d*n), single, d) as tensors on one device;
+    numpy queries take the database's dtype."""
+    d = int(d)
+    if d < 1 or np.shape(db)[-1] % d:
+        raise ValueError(f"row length {np.shape(db)[-1]} not a multiple of d={d}")
     dev = resolve_device(device, like=db if isinstance(db, torch.Tensor) else q)
     db_t = torch.as_tensor(db, device=dev)
     if db_t.dtype not in (torch.float32, torch.float64):
@@ -172,7 +181,7 @@ def _as_inputs(q, db, device, d: int):
     q_t = torch.as_tensor(q, device=dev).to(db_t.dtype)
     single = q_t.ndim == 1
     qs = q_t[None, :] if single else q_t
-    return qs.contiguous(), db_t.contiguous(), single
+    return qs.contiguous(), db_t.contiguous(), single, d
 
 
 def _pad_db(db: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
@@ -225,7 +234,7 @@ def make_block_step(ctx: pipe.PipeContext, k: int, block: int, method: str,
         bound = top_v[:, -1]
         st = pipe.run_block_stages(
             ctx.qs, ctx.upper, ctx.lower, ctx.w, ctx.p, method, blk, bound,
-            mask0, ctx=ctx,
+            mask0, ctx=ctx, cand_i=cand_i,
         )
         all_v = torch.cat([top_v, st.d], dim=1)
         all_i = torch.cat([top_i, cand_i[None, :].expand(nq, block)], dim=1)
@@ -303,15 +312,15 @@ def nn_search_scan(
     q, db, w: int, p: PNorm = 1, k: int = 1, block: int = 32,
     method: str = "lb_improved", d: int = 1, device=None,
 ) -> SearchResult | BatchSearchResult:
-    """Block-scan cascade.  ``q`` is one series (n,) -> ``SearchResult``
-    or a batch (Q, n) -> ``BatchSearchResult`` (one shared sweep)."""
-    qs, db_t, single = _as_inputs(q, db, device, d)
+    """Block-scan cascade.  ``q`` is one series (d*n,) -> ``SearchResult``
+    or a batch (Q, d*n) -> ``BatchSearchResult`` (one shared sweep)."""
+    qs, db_t, single, d = _as_inputs(q, db, device, d)
     pipe.check_method(method)
     nq, n = qs.shape
     n_db = db_t.shape[0]
-    w = int(min(w, n - 1))
-    upper, lower = envelope_op(qs, w)
-    ctx = pipe.make_context(qs, upper, lower, w, p, method)
+    w = int(min(w, n // d - 1))  # clamped to the per-channel length
+    upper, lower = envelope_op(qs, w, d)
+    ctx = pipe.make_context(qs, upper, lower, w, p, method, d)
     dbp, _ = _pad_db(db_t, block)
     nb = dbp.shape[0] // block
     body = make_block_step(ctx, int(k), int(block), method, n_db)
@@ -332,11 +341,11 @@ def nn_search_scan(
 # ------------------------------------------------------------------ host
 
 
-def _dtw_pairs_block(qs, db, qidx, cidx, w, p, bounds=None):
+def _dtw_pairs_block(qs, db, qidx, cidx, w, p, bounds=None, d: int = 1):
     """Banded DP over explicit (query, candidate) row pairs, the pooled
     survivor chunks of the host driver; the DP kernel gathers the rows
     from ``qs`` and ``db`` itself.  ``bounds`` (P,) enables abandoning."""
-    return dtw_pairs_op(qs, db, qidx, cidx, w, p, bounds)
+    return dtw_pairs_op(qs, db, qidx, cidx, w, p, bounds, d)
 
 
 def _host_steps(names: tuple[str, ...], p: PNorm) -> list[tuple[int, ...]]:
@@ -354,7 +363,8 @@ def _host_steps(names: tuple[str, ...], p: PNorm) -> list[tuple[int, ...]]:
 
 
 def fused_block_loop(qs, db, upper, lower, w: int, p: PNorm, k: int, block: int,
-                     dtw_chunk: int, early_abandon: bool = False, kim: bool = False):
+                     dtw_chunk: int, early_abandon: bool = False, kim: bool = False,
+                     d: int = 1):
     """The host driver's block loop for the fused LB_Keogh -> LB_Improved
     pipeline (``lb_improved``), or with ``kim`` for LB_Kim -> that pair
     (``kim_improved``), resident on the tensors' device.  Per block of
@@ -377,7 +387,9 @@ def fused_block_loop(qs, db, upper, lower, w: int, p: PNorm, k: int, block: int,
     (n_lb + 1, Q) (pruned by each LB stage, then survivors; n_lb = 2, or
     3 with ``kim``) and totals (blocks_lb2, blocks_dtw, dp_lane_work,
     dp_lane_useful).  On CPU tensors every step is its kernel's plain
-    version.
+    version.  Rows of ``d > 1`` channels (no ``kim``) take step 1 as K2
+    and the folded K3 with the stages written by tensor operations on the
+    device, and step 2 in K5's channel entry.
     """
     dev, dt = db.device, db.dtype
     nq, n = qs.shape
@@ -389,9 +401,9 @@ def fused_block_loop(qs, db, upper, lower, w: int, p: PNorm, k: int, block: int,
     stage = torch.empty((nq, block), dtype=torch.uint8, device=dev)
     dvals = torch.empty((nq, block), dtype=dt, device=dev)
     bound = top_v[:, -1]  # read by each launch: the k-th best so far
-    lbs = lb_fused_prepare(qs, upper, lower, w, bound, p, block, stage, kim=kim)
+    lbs = lb_fused_prepare(qs, upper, lower, w, bound, p, block, stage, kim=kim, d=d)
     dp_merge = dtw_masked_prepare(qs, w, p, stage, bound if early_abandon else None, dvals,
-                                  merge=(top_v, top_i, counts, totals, dtw_chunk))
+                                  merge=(top_v, top_i, counts, totals, dtw_chunk), d=d)
     for lo in range(0, n_db, block):
         real = min(block, n_db - lo)
         cands = db[lo : lo + block]
@@ -432,24 +444,26 @@ def nn_search_host(
     k-th best, copied to the host once: its masks are ``lb1 < bound``,
     then ``lb < bound``, as the two stages would give.  When that fused
     pair is the whole pipeline (``lb_improved``), or LB_Kim then that
-    pair (``kim_improved``), the loop runs on the device instead
-    (``fused_block_loop``) with the same answers and counters.
+    pair (``kim_improved``, d = 1 only), the loop runs on the device
+    instead (``fused_block_loop``) with the same answers and counters.
     ``early_abandon`` additionally stops each DP once its band clears
-    the running bound.
+    the running bound.  ``d > 1``: rows of d channels, channel-major
+    flattened.
     """
-    qs, db_t, single = _as_inputs(q, db, device, d)
+    qs, db_t, single, d = _as_inputs(q, db, device, d)
     pipe.check_method(method)
     nq, n = qs.shape
     n_db = db_t.shape[0]
-    w = int(min(w, n - 1))
-    upper, lower = envelope_op(qs, w)
+    w = int(min(w, n // d - 1))  # clamped to the per-channel length
+    upper, lower = envelope_op(qs, w, d)
     lb_names = pipe.lb_stage_names(method)
     steps = _host_steps(lb_names, p)
     nb = -(-n_db // block)
-    kim = steps == [(0,), (1, 2)] and lb_names[0] == "lb_kim"
+    kim = steps == [(0,), (1, 2)] and lb_names[0] == "lb_kim" and d == 1
     if steps == [(0, 1)] or kim:
         top_v, top_i, counts, totals = _to_host(*fused_block_loop(
-            qs, db_t, upper, lower, w, p, k, block, dtw_chunk, early_abandon, kim=kim
+            qs, db_t, upper, lower, w, p, k, block, dtw_chunk, early_abandon, kim=kim,
+            d=d,
         ))
         n_lb = len(lb_names)
         agg, per_query = _batch_stats(
@@ -458,7 +472,7 @@ def nn_search_host(
         )
         distances = finish_cost(torch.as_tensor(top_v), p).numpy()
         return _result(distances, top_i, single, agg, per_query)
-    ctx = pipe.make_context(qs, upper, lower, w, p, method)
+    ctx = pipe.make_context(qs, upper, lower, w, p, method, d)
     dev = db_t.device
 
     top_v = np.full((nq, k), BIG)
@@ -478,7 +492,7 @@ def nn_search_host(
         """(len(step), Q, real) stage values of one launch, on the host."""
         if len(step) == 2:
             bound_t = torch.as_tensor(bound, dtype=db_t.dtype, device=dev)
-            vals = torch.stack(lb_fused_qbatch_op(blk, qs, upper, lower, w, bound_t, p))
+            vals = torch.stack(lb_fused_qbatch_op(blk, qs, upper, lower, w, bound_t, p, d=d))
         else:
             vals = pipe.STAGES[lb_names[step[0]]].dense(ctx, blk)[None]
         return vals[:, :, :real].cpu().numpy()
@@ -519,7 +533,7 @@ def nn_search_host(
             bounds = None
             if early_abandon:
                 bounds = torch.as_tensor(top_v[sel_q, -1], dtype=db_t.dtype, device=dev)
-            dvals = _dtw_pairs_block(qs, db_t, qi_t, ci_t, w, p, bounds).cpu().numpy()
+            dvals = _dtw_pairs_block(qs, db_t, qi_t, ci_t, w, p, bounds, d).cpu().numpy()
             for qi in np.unique(sel_q):
                 sel = sel_q == qi
                 merge(int(qi), dvals[sel], sel_c[sel])
@@ -542,9 +556,12 @@ def nn_search_indexed(
     """Four-stage search: LB_tri -> LB_Keogh -> LB_Improved -> DTW.
 
     ``index`` is a prebuilt ``repro_torch.index.TriangleIndex`` over
-    ``db``; ``w`` and ``p`` come from the index (Theorem 1's constant
-    depends on both).  ``q`` is one series (n,) -> ``SearchResult`` or a
-    batch (Q, n) -> ``BatchSearchResult``.
+    ``db``; ``w``, ``p`` and the channel count ``d`` come from the index
+    (Theorem 1's constant depends on w and p).  ``q`` is one series
+    (d*n,) -> ``SearchResult`` or a batch (Q, d*n) -> ``BatchSearchResult``.
+    A pipeline with ``tc_tri`` re-applies LB_tri per block against the
+    running bound, from the reference distances of stage 0
+    (``core.pipeline.TriContext``).
 
     Stage 0 spends 2R exact DPs per query on the references (band w and
     the composed band 2w), two launches of the DP kernel for the whole
@@ -565,7 +582,7 @@ def nn_search_indexed(
     ``full_dtw`` includes the R band-w reference DPs, so
     ``lb0 + sum(stage_pruned) + full_dtw == n_candidates`` per query.
     """
-    qs, db_t, single = _as_inputs(q, db, device, int(getattr(index, "d", 1)))
+    qs, db_t, single, d = _as_inputs(q, db, device, int(getattr(index, "d", 1)))
     pipe.check_method(method)
     nq, n = qs.shape
     n_db = db_t.shape[0]
@@ -573,7 +590,7 @@ def nn_search_indexed(
     w, p = index.w, (math.inf if math.isinf(index.p) else index.p)
     if p != math.inf and float(p) == int(p):
         p = int(p)
-    index.validate(n_db, n, w, p)
+    index.validate(n_db, n // d, w, p, d)
     cl = index.clustering
     c_w = index.constant
     n_refs = index.n_refs
@@ -593,8 +610,8 @@ def nn_search_indexed(
 
     # ---- stage 0a: exact DTW to the references at both bands, rooted
     refs = arrs["ref_series"].to(qs.dtype).contiguous()
-    d_q_refs = finish_cost(dtw_qbatch_op(qs, refs, w, p), p)  # (Q, R)
-    d_q_refs_wide = finish_cost(dtw_qbatch_op(qs, refs, index.w_wide, p), p)
+    d_q_refs = finish_cost(dtw_qbatch_op(qs, refs, w, p, d=d), p)  # (Q, R)
+    d_q_refs_wide = finish_cost(dtw_qbatch_op(qs, refs, index.w_wide, p, d=d), p)
     ref_pow = powered(d_q_refs.cpu().numpy(), p)
     order = np.argsort(ref_pow, axis=1, kind="stable")
     top_v = np.full((nq, k), BIG)  # float64 on the host, as the reference's
@@ -655,9 +672,17 @@ def nn_search_indexed(
     mask[:, : len(survivors)] = alive[:, survivors]
     idx_t = torch.as_tensor(idx, device=dev)
     mask_t = torch.as_tensor(mask, device=dev)
-    w_scan = int(min(w, n - 1))
-    upper, lower = envelope_op(qs, w_scan)
-    ctx = pipe.make_context(qs, upper, lower, w_scan, p, method)
+    w_scan = int(min(w, n // d - 1))
+    upper, lower = envelope_op(qs, w_scan, d)
+    # a pipeline with tc_tri re-applies LB_tri per block against the
+    # running bound (stage 0 saw only the reference-seeded one)
+    tri = None
+    if "tc_tri" in pipe.PIPELINES[method]:
+        tri = pipe.TriContext(
+            d_q_refs, d_q_refs_wide, arrs["d_ref_db"], arrs["d_ref_db_wide"],
+            torch.tensor(c_w, dtype=d_q_refs.dtype, device=dev),
+        )
+    ctx = pipe.make_context(qs, upper, lower, w_scan, p, method, d, tri)
     body = make_block_step(ctx, int(k), int(block), method)
     carry = init_carry(int(k), nq, len(lb_names), qs.dtype, dev, top_v, top_i)
     for t in range(nb):

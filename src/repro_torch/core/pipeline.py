@@ -1,9 +1,9 @@
-"""Composable cascade stage pipeline with survivor compaction (univariate).
+"""Composable cascade stage pipeline with survivor compaction.
 
 Port of ``repro.core.pipeline``.  Every bound is declared once as a
 :class:`Stage` (a dense ``(Q, B)`` form and a compacted per-lane-pair
-form) and listed in :data:`PIPELINES` per cascade method; the scan and
-host drivers consume the registry.
+form) and listed in :data:`PIPELINES` per cascade method; the scan,
+host and indexed drivers consume the registry.
 
 On CUDA tensors the stages launch the hand-written kernels: LB_Kim (K6),
 LB_Keogh and its projection (K2), LB_Improved pass 2 (K3), the banded DP
@@ -12,6 +12,17 @@ the reference, which runs it as jnp code outside any kernel, it runs as
 ``core.lb`` tensor code on the device (its envelopes come from K1), as
 does the per-pair LB_Kim form (LB_Kim is always a first, dense stage).
 On CPU tensors every stage runs the plain PyTorch versions.
+
+Rows may be multivariate: ``PipeContext.d`` channels in the
+channel-major flattened layout (``repro_torch.mv.layout``).  The
+envelopes are then per channel segment (K1 over the segment view),
+LB_Kim and LB_Keogh run verbatim on the flat rows, LB_Improved's pass 2
+folds the channels into K3's rows, and the DP runs K5's channel entry.
+The TC-DTW stages ``tc_box`` and ``tc_tri`` (``repro_torch.mv.tc``) are
+tensor code, as in the reference; ``tc_tri`` reads the reference-index
+context (:class:`TriContext`) that the indexed driver threads in, and
+without it is the zero bound, which prunes nothing.  At d = 1 every
+stage is the univariate one.
 
 After each LB stage the alive ``(query, candidate)`` lane pairs are
 compacted with a stable alive-first sort and processed in
@@ -41,11 +52,15 @@ from repro_torch.kernels.lb_improved.ops import (
 from repro_torch.kernels.lb_keogh.ops import lb_keogh_pairs_op, lb_keogh_qbatch_op
 from repro_torch.kernels.lb_kim.ops import lb_kim_qbatch_op
 from repro_torch.kernels.tuning.table import resolve_config
+from repro_torch.mv import tc as tc_mod
 
-Method = Literal["full", "lb_keogh", "lb_improved", "lb_webb", "kim_improved", "kim_webb"]
+Method = Literal[
+    "full", "lb_keogh", "lb_improved", "lb_webb", "kim_improved", "kim_webb",
+    "tc_box", "tc_tri",
+]
 
-#: multivariate cascades of the reference, ported with the mv tier
-MV_METHODS = ("tc_box", "tc_tri")
+#: the ROADMAP.md queue-1 item that ports multivariate streaming and serving
+MV_STREAM_ITEM = "9b (multivariate streaming and serving)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -56,24 +71,36 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def require_univariate(d: int) -> None:
-    if int(d) != 1:
-        raise not_ported(f"multivariate data (d={d})", "9 (multivariate)")
+class TriContext(NamedTuple):
+    """Reference-index context of the ``tc_tri`` stage (rooted distances;
+    ``c_w`` is Theorem 1's banded constant, a scalar tensor), supplied by
+    ``nn_search_indexed``."""
+
+    d_q_refs: torch.Tensor  # (Q, R) DTW^w(q, r)
+    d_q_refs_wide: torch.Tensor  # (Q, R) DTW^{2w}(q, r)
+    d_ref_db: torch.Tensor  # (R, N) DTW^w(r, s)
+    d_ref_db_wide: torch.Tensor  # (R, N) DTW^{2w}(r, s)
+    c_w: torch.Tensor
 
 
 class PipeContext(NamedTuple):
     """Per-call constants every stage closes over: the query batch, its
-    envelopes, the band half-width and norm order, and (only for
-    pipelines with ``lb_webb`` at finite p) the query envelopes of
-    envelopes."""
+    envelopes (per channel segment at ``d > 1``), the band half-width and
+    norm order, (only for pipelines with ``lb_webb`` at finite p) the
+    query envelopes of envelopes, the channel count, and (only for
+    ``tc_tri``) the block's global candidate ids and the reference-index
+    context."""
 
-    qs: torch.Tensor  # (Q, n)
-    upper: torch.Tensor  # (Q, n)
-    lower: torch.Tensor  # (Q, n)
+    qs: torch.Tensor  # (Q, d*n)
+    upper: torch.Tensor  # (Q, d*n)
+    lower: torch.Tensor  # (Q, d*n)
     w: int
     p: PNorm
-    q_ul: torch.Tensor | None = None  # (Q, n) upper envelope of lower
-    q_lu: torch.Tensor | None = None  # (Q, n) lower envelope of upper
+    q_ul: torch.Tensor | None = None  # (Q, d*n) upper envelope of lower
+    q_lu: torch.Tensor | None = None  # (Q, d*n) lower envelope of upper
+    d: int = 1
+    cand_i: torch.Tensor | None = None  # (B,) global candidate ids of the block
+    tri: TriContext | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +120,11 @@ class Stage:
     exact: bool = False
 
 
-def query_webb_envelopes(upper, lower, w: int):
-    """(UL, LU): the upper envelope of L and the lower envelope of U,
-    through the envelope kernel (``core.lb.envelope_of_envelopes``)."""
-    return envelope_op(lower, w)[0], envelope_op(upper, w)[1]
+def query_webb_envelopes(upper, lower, w: int, d: int = 1):
+    """(UL, LU): the upper envelope of L and the lower envelope of U (per
+    channel segment), through the envelope kernel
+    (``core.lb.envelope_of_envelopes``)."""
+    return envelope_op(lower, w, d)[0], envelope_op(upper, w, d)[1]
 
 
 # --------------------------------------------------------------- stages
@@ -119,7 +147,7 @@ def _lb_keogh_pair(ctx, blk, qi, ci, bound, prev):
 
 
 def _lb_improved_dense(ctx: PipeContext, blk):
-    return lb_improved_qbatch_op(blk, ctx.qs, ctx.upper, ctx.lower, ctx.w, ctx.p)
+    return lb_improved_qbatch_op(blk, ctx.qs, ctx.upper, ctx.lower, ctx.w, ctx.p, d=ctx.d)
 
 
 def _lb_improved_pair(ctx, blk, qi, ci, bound, prev):
@@ -127,7 +155,7 @@ def _lb_improved_pair(ctx, blk, qi, ci, bound, prev):
     K2 on the pairs (bit-equal to ``project(blk[ci], U[qi], L[qi])``), K3
     adds pass 2 to the stage-1 LB_Keogh values ``prev``."""
     _, h = lb_keogh_pairs_op(blk, ctx.upper, ctx.lower, qi, ci, ctx.p)
-    pass2 = lb_improved_pass2_pairs_op(h, ctx.qs, qi, ctx.w, ctx.p)
+    pass2 = lb_improved_pass2_pairs_op(h, ctx.qs, qi, ctx.w, ctx.p, ctx.d)
     return combine_passes(prev, pass2, ctx.p)
 
 
@@ -135,12 +163,12 @@ def _webb_q_envelopes(ctx: PipeContext):
     if ctx.p == math.inf:
         return None, None
     if ctx.q_ul is None:
-        return query_webb_envelopes(ctx.upper, ctx.lower, ctx.w)
+        return query_webb_envelopes(ctx.upper, ctx.lower, ctx.w, ctx.d)
     return ctx.q_ul, ctx.q_lu
 
 
 def _lb_webb_dense(ctx: PipeContext, blk):
-    cand_u, cand_l = envelope_op(blk, ctx.w)
+    cand_u, cand_l = envelope_op(blk, ctx.w, ctx.d)
     q_ul, q_lu = _webb_q_envelopes(ctx)
     return lb_mod.lb_webb_powered_qbatch(
         blk, ctx.qs, ctx.upper, ctx.lower, ctx.w, ctx.p,
@@ -152,7 +180,7 @@ def _lb_webb_pair(ctx, blk, qi, ci, bound, prev):
     """Webb query-side term per compacted lane pair, added to the gathered
     LB_Keogh values ``prev``."""
     c = blk[ci]
-    cand_u, cand_l = envelope_op(c, ctx.w)
+    cand_u, cand_l = envelope_op(c, ctx.w, ctx.d)
     q = ctx.qs[qi]
     if ctx.p == math.inf:
         zero = torch.zeros((), dtype=q.dtype, device=q.device)
@@ -164,7 +192,7 @@ def _lb_webb_pair(ctx, blk, qi, ci, bound, prev):
 
 
 def _dtw_dense(ctx: PipeContext, blk):
-    return dtw_qbatch_op(ctx.qs, blk, ctx.w, ctx.p)
+    return dtw_qbatch_op(ctx.qs, blk, ctx.w, ctx.p, d=ctx.d)
 
 
 def _dtw_pair(ctx, blk, qi, ci, bound, prev):
@@ -172,7 +200,54 @@ def _dtw_pair(ctx, blk, qi, ci, bound, prev):
     lane's powered bound at finite p; p = inf runs the full DP, as the
     reference's ``dtw_banded_diag`` path does."""
     bounds = None if ctx.p == math.inf else bound.contiguous()
-    return dtw_pairs_op(ctx.qs, blk, qi, ci, ctx.w, ctx.p, bounds)
+    return dtw_pairs_op(ctx.qs, blk, qi, ci, ctx.w, ctx.p, bounds, ctx.d)
+
+
+# ------------------------------------------------------- TC-DTW stages
+
+
+def _tc_box_dense(ctx: PipeContext, blk):
+    return tc_mod.tc_box_powered_qbatch(blk, ctx.upper, ctx.lower, ctx.p, ctx.d)
+
+
+def _tc_box_pair(ctx, blk, qi, ci, bound, prev):
+    """The envelope box per compacted lane pair; it comes before LB_Keogh
+    in its pipelines, so (like LB_Kim) it ignores ``prev``."""
+    return tc_mod.tc_box_powered_pair(blk[ci], ctx.upper[qi], ctx.lower[qi], ctx.p, ctx.d)
+
+
+def _tri_columns(ctx: PipeContext, ci=None):
+    """The reference columns of the block's candidates (or of the lanes
+    ``ci``), their ids clamped into the database (filler lanes are -1)."""
+    tri = ctx.tri
+    ids = ctx.cand_i if ci is None else ctx.cand_i[ci]
+    safe = ids.clamp(0, tri.d_ref_db.shape[1] - 1)
+    return tri.d_ref_db[:, safe], tri.d_ref_db_wide[:, safe]
+
+
+def _tc_tri_dense(ctx: PipeContext, blk):
+    if ctx.tri is None or ctx.cand_i is None:
+        # no reference context in this driver: the zero bound is sound on
+        # any non-negative distance and prunes nothing
+        return torch.zeros((ctx.qs.shape[0], blk.shape[0]), dtype=blk.dtype,
+                           device=blk.device)
+    tri = ctx.tri
+    cols, cols_wide = _tri_columns(ctx)
+    return tc_mod.tc_tri_powered_qbatch(
+        tri.d_q_refs, tri.d_q_refs_wide, cols, cols_wide, tri.c_w, ctx.p
+    )
+
+
+def _tc_tri_pair(ctx, blk, qi, ci, bound, prev):
+    """LB_tri per compacted lane pair: O(R) gathers a lane; it ignores
+    ``prev``."""
+    if ctx.tri is None or ctx.cand_i is None:
+        return torch.zeros(qi.shape[0], dtype=blk.dtype, device=blk.device)
+    tri = ctx.tri
+    cols, cols_wide = _tri_columns(ctx, ci)
+    return tc_mod.tc_tri_powered_pair(
+        tri.d_q_refs[qi], tri.d_q_refs_wide[qi], cols.T, cols_wide.T, tri.c_w, ctx.p
+    )
 
 
 STAGES: dict[str, Stage] = {
@@ -180,6 +255,8 @@ STAGES: dict[str, Stage] = {
     "lb_keogh": Stage("lb_keogh", _lb_keogh_dense, _lb_keogh_pair),
     "lb_improved": Stage("lb_improved", _lb_improved_dense, _lb_improved_pair),
     "lb_webb": Stage("lb_webb", _lb_webb_dense, _lb_webb_pair),
+    "tc_box": Stage("tc_box", _tc_box_dense, _tc_box_pair),
+    "tc_tri": Stage("tc_tri", _tc_tri_dense, _tc_tri_pair),
     "full": Stage("full", _dtw_dense, _dtw_pair, exact=True),
 }
 
@@ -191,12 +268,15 @@ PIPELINES: dict[str, tuple[str, ...]] = {
     "lb_webb": ("lb_keogh", "lb_webb", "full"),
     "kim_improved": ("lb_kim", "lb_keogh", "lb_improved", "full"),
     "kim_webb": ("lb_kim", "lb_keogh", "lb_webb", "full"),
+    # the TC-DTW cascades: the coarse envelope box gates the per-sample
+    # bounds; tc_tri puts the O(R) triangle bound first where the driver
+    # threads the reference context in (elsewhere it prunes nothing)
+    "tc_box": ("tc_box", "lb_keogh", "lb_improved", "full"),
+    "tc_tri": ("tc_tri", "tc_box", "lb_keogh", "lb_improved", "full"),
 }
 
 
 def check_method(method: str) -> None:
-    if method in MV_METHODS:
-        raise not_ported(f"method={method!r}", "9 (multivariate)")
     if method not in PIPELINES:
         raise ValueError(
             f"method={method!r} unknown; available stage pipelines: "
@@ -269,15 +349,19 @@ class BlockStages(NamedTuple):
 def run_block_stages(
     qs, upper, lower, w: int, p: PNorm, method: str, blk, bound, mask0,
     lane_chunk: int | None = None, d: int = 1, ctx: PipeContext | None = None,
-    first: torch.Tensor | None = None,
+    first: torch.Tensor | None = None, cand_i: torch.Tensor | None = None,
+    tri: TriContext | None = None,
 ) -> BlockStages:
     """One candidate block through the method's stage pipeline, query-major.
 
-    ``blk`` is a ``(block, n)`` candidate tile, ``bound`` a ``(Q,)`` powered
-    pruning bound, ``mask0`` a ``(Q, block)`` bool of lanes alive on entry.
-    The first LB stage runs on the whole tile; every later stage runs
+    ``blk`` is a ``(block, d*n)`` candidate tile (``d`` channels,
+    channel-major flattened), ``bound`` a ``(Q,)`` powered pruning bound,
+    ``mask0`` a ``(Q, block)`` bool of lanes alive on entry.  The first LB
+    stage runs on the whole tile; every later stage runs
     survivor-compacted.  ``ctx`` may carry a prebuilt context (drivers
-    build it once per query batch).  ``first`` may carry the first LB
+    build it once per query batch; its ``d`` then holds).  ``cand_i`` and
+    ``tri``, the block's global candidate ids and the reference-index
+    context, are read by the ``tc_tri`` stage only.  ``first`` may carry the first LB
     stage's (Q, block) powered values, already computed by the caller (the
     stream scanner's K7 over the block's flat segment); the stage then
     does not run on the tile.  ``lane_chunk`` left ``None``
@@ -285,17 +369,20 @@ def run_block_stages(
     the block's device type); it changes no distance or mask, only the
     chunk-padded ``dp_lane_work``.
     """
-    require_univariate(d)
+    if ctx is None:
+        ctx = make_context(qs, upper, lower, w, p, method, d, tri)
+    if cand_i is not None:
+        ctx = ctx._replace(cand_i=cand_i)
+    d = ctx.d
     nq, block = qs.shape[0], blk.shape[0]
     if lane_chunk is None:
         lane_chunk = resolve_config(
-            "pipeline", b=block, n=blk.shape[1], backend=blk.device.type
+            "pipeline", b=block, n=blk.shape[1] // d, backend=blk.device.type,
+            d=None if d == 1 else d,
         ).lane_chunk
     lane_chunk = int(lane_chunk)
     check_method(method)
     names = PIPELINES[method]
-    if ctx is None:
-        ctx = make_context(qs, upper, lower, w, p, method)
     stages = [STAGES[nm] for nm in names]
 
     alive = mask0
@@ -319,11 +406,13 @@ def run_block_stages(
     raise ValueError(f"pipeline for {method!r} has no terminal exact stage")
 
 
-def make_context(qs, upper, lower, w: int, p: PNorm, method: str) -> PipeContext:
-    """The stage context of one query batch; LB_Webb's correction
-    envelopes depend only on the queries, so they are built here once."""
-    ctx = PipeContext(qs, upper, lower, int(w), p)
+def make_context(qs, upper, lower, w: int, p: PNorm, method: str, d: int = 1,
+                 tri: TriContext | None = None) -> PipeContext:
+    """The stage context of one query batch of ``d``-channel rows; LB_Webb's
+    correction envelopes depend only on the queries, so they are built
+    here once."""
+    ctx = PipeContext(qs, upper, lower, int(w), p, d=int(d), tri=tri)
     if "lb_webb" in PIPELINES[method] and p != math.inf:
-        q_ul, q_lu = query_webb_envelopes(upper, lower, w)
+        q_ul, q_lu = query_webb_envelopes(upper, lower, w, int(d))
         ctx = ctx._replace(q_ul=q_ul, q_lu=q_lu)
     return ctx

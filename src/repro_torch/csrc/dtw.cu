@@ -53,6 +53,23 @@
 // by index, and the two diagonals in shared memory, or, past 2 (w + 3)
 // values, in a workspace slice per pair (the entries' workspace).  Its
 // cells are the same, so it is bit-equal to the staged paths.
+//
+// The channel entry (d > 1).  Rows are dependent multivariate series in
+// the channel-major flattened layout, d contiguous segments of n values
+// (repro_torch/mv/layout.py), one shared warping path over n x n cells.
+// A cell's cost is the channel sum of pair_cost (the max at p = inf),
+// combined in channel order with one rounding each, before dp_cell; the
+// rest of the DP is the one above, so a lane that runs to the end returns
+// the value of kernels/dtw/ops.py::dtw_wavefront_plain(d=...) bit for bit.
+// It runs the shared-memory wavefront (S = CHANNELS): each channel
+// segment staged with its own +-ROW_PAD margins, so index i - 1 of
+// channel 1 is a pad and not channel 0's last sample, and an off-grid
+// cell costs >= BIG in every channel (at p = 2 the square may overflow to
+// +inf; the sum stays +inf and the clamp makes the cell BIG).  Where the
+// d rows of each side and the diagonals overflow a block's shared
+// memory, the rows are read in place with the pads applied by index (S =
+// CHANNELS_LONG), the diagonals as on the long-row path.  d = 1 never
+// takes these paths: it launches the univariate instantiations.
 #include "block_merge.cuh"
 
 namespace repro {
@@ -63,6 +80,14 @@ constexpr int ABANDON_EVERY = 32;
 constexpr int MAX_SLOTS = 16;
 // The slot count that selects the long-row path.
 constexpr int LONG_ROWS = -1;
+// The slot counts of the channel entry (d > 1): the shared-memory
+// wavefront over staged channel segments, or over rows read in place.
+constexpr int CHANNELS = -2;
+constexpr int CHANNELS_LONG = -3;
+
+__host__ __device__ constexpr bool channel_path(int s) {
+  return s == CHANNELS || s == CHANNELS_LONG;
+}
 
 // Row padding: |ROW_PAD - x| and |x + ROW_PAD| exceed BIG for any row
 // value |x| < 1e34, so a cell with i or j outside 0..n-1 costs >= BIG and
@@ -253,6 +278,9 @@ template <typename T> struct StagedRows {
   const T* c;
   __device__ __forceinline__ T qv(int i) const { return q[i]; }
   __device__ __forceinline__ T cv(int j) const { return c[j]; }
+  template <int P> __device__ __forceinline__ T cost(int i, int j) const {
+    return pair_cost<T, P>(qv(i), cv(j));
+  }
 };
 
 // ... or read in place from device memory, the pads applied by index: the
@@ -266,6 +294,50 @@ template <typename T> struct GlobalRows {
   }
   __device__ __forceinline__ T cv(int j) const {
     return (unsigned)j < (unsigned)n ? __ldg(c + j) : -row_pad<T>();
+  }
+  template <int P> __device__ __forceinline__ T cost(int i, int j) const {
+    return pair_cost<T, P>(qv(i), cv(j));
+  }
+};
+
+// The channel-summed cost of cell (i, j) from the d aligned pairs of
+// values (p = inf: their max), in channel order.
+template <typename T, int P> __device__ __forceinline__ T join_cost(T acc, T v) {
+  return P == 0 ? dmax(acc, v) : add_rn(acc, v);
+}
+
+// The d channel segments of a pair's rows staged in shared memory, each
+// with its pads (channel ch of q at q[ch * len + i], -margin <= i < n +
+// margin) ...
+template <typename T> struct StagedChannelRows {
+  const T* q;
+  const T* c;
+  int len;
+  int d;
+  template <int P> __device__ __forceinline__ T cost(int i, int j) const {
+    T acc = pair_cost<T, P>(q[i], c[j]);
+    for (int ch = 1; ch < d; ++ch)
+      acc = join_cost<T, P>(acc, pair_cost<T, P>(q[ch * len + i], c[ch * len + j]));
+    return acc;
+  }
+};
+
+// ... or read in place from the flattened rows, the pads applied by index.
+template <typename T> struct GlobalChannelRows {
+  const T* __restrict__ q;
+  const T* __restrict__ c;
+  int n;
+  int d;
+  template <int P> __device__ __forceinline__ T cost(int i, int j) const {
+    const bool qin = (unsigned)i < (unsigned)n, cin = (unsigned)j < (unsigned)n;
+    T acc = T(0);
+    for (int ch = 0; ch < d; ++ch) {
+      const T qv = qin ? __ldg(q + (size_t)ch * n + i) : row_pad<T>();
+      const T cv = cin ? __ldg(c + (size_t)ch * n + j) : -row_pad<T>();
+      const T v = pair_cost<T, P>(qv, cv);
+      acc = ch == 0 ? v : join_cost<T, P>(acc, v);
+    }
+    return acc;
   }
 };
 
@@ -294,7 +366,7 @@ __device__ T wavefront_smem(const Rows& rows, int n, int w, T* da, T* db, bool c
     const T* src = (s & 1) ? da : db;
     const int I = (s - w + par) >> 1, J = (s + w - par) >> 1;
     for (int t = lane; t <= w; t += 32) {
-      T cost = pair_cost<T, P>(rows.qv(I + t), rows.cv(J - t));
+      T cost = rows.template cost<P>(I + t, J - t);
       if (t > w - par) cost = big<T>();
       const T up = par ? src[t] : src[t - 1];
       const T left = par ? src[t + 1] : src[t];
@@ -314,17 +386,39 @@ template <typename T> __host__ __device__ __forceinline__ bool long_diag_in_smem
 // The DP of one pair on one warp: stage the two rows and run the
 // wavefront.  S > 0: the band in registers, S slots per lane; S = 0: in
 // shared memory; S = LONG_ROWS: the rows in place, the diagonals in shared
-// memory or in the workspace slice `diag`.  Returns the pair's value in
-// lane 0.
+// memory or in the workspace slice `diag`.  S = CHANNELS and
+// CHANNELS_LONG: the same two shared-memory forms over d channel
+// segments (the rows are d n values).  Returns the pair's value in lane 0.
 template <typename T, int P, int S>
 __device__ __forceinline__ T dtw_pair(const T* __restrict__ qrow_g,
-                                      const T* __restrict__ crow_g, int n, int w,
+                                      const T* __restrict__ crow_g, int n, int w, int d,
                                       bool check, T bound, unsigned char* smem_raw,
                                       T* diag) {
-  if constexpr (S == LONG_ROWS) {
+  if constexpr (S == LONG_ROWS || S == CHANNELS_LONG) {
     T* da = (long_diag_in_smem<T>(w) ? reinterpret_cast<T*>(smem_raw) : diag) + 1;
-    return wavefront_smem<T, P>(GlobalRows<T>{qrow_g, crow_g, n}, n, w, da, da + (w + 3),
-                                check, bound);
+    if constexpr (S == LONG_ROWS)
+      return wavefront_smem<T, P>(GlobalRows<T>{qrow_g, crow_g, n}, n, w, da,
+                                  da + (w + 3), check, bound);
+    else
+      return wavefront_smem<T, P>(GlobalChannelRows<T>{qrow_g, crow_g, n, d}, n, w, da,
+                                  da + (w + 3), check, bound);
+  } else if constexpr (S == CHANNELS) {
+    constexpr int V = 16 / sizeof(T);
+    const int margin = row_margin(w, 1, V);
+    const int len = row_len(n, w, 1, V);
+    T* qrow = reinterpret_cast<T*>(smem_raw);
+    T* crow = qrow + (size_t)d * len;
+    const int lane = threadIdx.x;
+    for (int ch = 0; ch < d; ++ch) {
+      stage_row(qrow + (size_t)ch * len, qrow_g + (size_t)ch * n, n, margin, len,
+                row_pad<T>(), lane);
+      stage_row(crow + (size_t)ch * len, crow_g + (size_t)ch * n, n, margin, len,
+                -row_pad<T>(), lane);
+    }
+    __syncwarp();
+    T* da = crow + (size_t)d * len + 1;
+    return wavefront_smem<T, P>(StagedChannelRows<T>{qrow + margin, crow + margin, len, d},
+                                n, w, da, da + (w + 3), check, bound);
   } else {
     constexpr int V = 16 / sizeof(T);
     const int margin = row_margin(w, S > 0 ? S : 1, V);
@@ -357,7 +451,7 @@ __device__ __forceinline__ T dtw_pair(const T* __restrict__ qrow_g,
 // reading the slots through L2, and resets the counter.  Every block of q
 // read q's bound before its ticket, so the merger's writes to top_v never
 // change a bound that a DP of this launch reads.  ws: Q tickets, all 0
-// between launches.  Not inlined: one copy per T serves the 18 DP
+// between launches.  Not inlined: one copy per T serves the 27 DP
 // instances of that T, and the DP's registers are dead by the call.
 template <typename T>
 __device__ __noinline__ void merge_epilogue(const MergeOut<T>& m,
@@ -392,7 +486,7 @@ __global__ void __launch_bounds__(32)
 dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
            const int64_t* __restrict__ qidx, const int64_t* __restrict__ cidx,
            const uint8_t* __restrict__ stage, const T* bounds, int64_t bound_qstride,
-           int64_t bstride, int n, int w, T* __restrict__ out, MergeOut<T> merge,
+           int64_t bstride, int n, int w, int d, T* __restrict__ out, MergeOut<T> merge,
            unsigned long long* ws, T* __restrict__ diag_ws) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int64_t pair = blockIdx.x;
@@ -409,36 +503,41 @@ dtw_kernel(const T* __restrict__ qs, const T* __restrict__ cands,
     const T bound =
         !check ? big<T>() : bounds[bound_qstride > 0 ? q * bound_qstride : pair];
     T* diag = diag_ws ? diag_ws + (size_t)pair * 2 * (w + 3) : nullptr;
-    const T v = dtw_pair<T, P, S>(qs + q * n, cands + c * n, n, w, check, bound, smem_raw,
-                                  diag);
+    const int64_t row = channel_path(S) ? (int64_t)d * n : n;  // values per row
+    const T v = dtw_pair<T, P, S>(qs + q * row, cands + c * row, n, w, d, check, bound,
+                                  smem_raw, diag);
     if (lane == 0) out[pair] = v;
   }
   if (merge.top_v) merge_epilogue(merge, stage, out, ws, npairs / bstride, bstride, q, lane);
 }
 
-// Dynamic shared memory of one pair's block on path S.
-template <typename T> __host__ __device__ inline size_t dtw_smem(int n, int w, int S) {
-  if (S == LONG_ROWS) return long_diag_in_smem<T>(w) ? sizeof(T) * 2 * (size_t)(w + 3) : 0;
+// Dynamic shared memory of one pair's block on path S (d channel
+// segments a row on the channel paths).
+template <typename T> __host__ __device__ inline size_t dtw_smem(int n, int w, int S, int d) {
+  if (S == LONG_ROWS || S == CHANNELS_LONG)
+    return long_diag_in_smem<T>(w) ? sizeof(T) * 2 * (size_t)(w + 3) : 0;
   constexpr int V = 16 / sizeof(T);
   const size_t len = row_len(n, w, S > 0 ? S : 1, V);
-  return sizeof(T) * (2 * len + (S == 0 ? 2 * (size_t)(w + 3) : 0));
+  const size_t rows = S == CHANNELS ? 2 * (size_t)d : 2;
+  return sizeof(T) * (rows * len + (S <= 0 ? 2 * (size_t)(w + 3) : 0));
 }
 
 template <typename T, int P, int S>
 cudaError_t launch_dtw(const T* qs, const T* cands, const int64_t* qidx,
                        const int64_t* cidx, const uint8_t* stage, const T* bounds,
                        int64_t bound_qstride, int64_t npairs, int64_t bstride,
-                       int n, int w, T* out, const MergeOut<T>& merge,
+                       int n, int w, int d, T* out, const MergeOut<T>& merge,
                        unsigned long long* ws, T* diag_ws, cudaStream_t s) {
-  const size_t smem = dtw_smem<T>(n, w, S);
-  if (S == LONG_ROWS && !long_diag_in_smem<T>(w) && diag_ws == nullptr)
+  constexpr bool in_place = S == LONG_ROWS || S == CHANNELS_LONG;
+  const size_t smem = dtw_smem<T>(n, w, S, d);
+  if (in_place && !long_diag_in_smem<T>(w) && diag_ws == nullptr)
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(dtw_kernel<T, P, S>, smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)(npairs + (merge.top_v ? 1 : 0));
   dtw_kernel<T, P, S><<<blocks, 32, smem, s>>>(
-      qs, cands, qidx, cidx, stage, bounds, bound_qstride, bstride, n, w, out, merge, ws,
-      S == LONG_ROWS && !long_diag_in_smem<T>(w) ? diag_ws : nullptr);
+      qs, cands, qidx, cidx, stage, bounds, bound_qstride, bstride, n, w, d, out, merge, ws,
+      in_place && !long_diag_in_smem<T>(w) ? diag_ws : nullptr);
   return cudaGetLastError();
 }
 
@@ -446,20 +545,26 @@ cudaError_t launch_dtw(const T* qs, const T* cands, const int64_t* qidx,
 
 // The slot count per lane of the register path, 0 for the shared-memory
 // path (bands wider than 32 * MAX_SLOTS cells), or LONG_ROWS where that
-// path's shared memory would pass the card's limit.
-template <typename T> static int dtw_slots(int n, int w) {
+// path's shared memory would pass the card's limit.  d > 1: CHANNELS, or
+// CHANNELS_LONG where its 2 d staged segments and diagonals would.
+template <typename T> static int dtw_slots(int n, int w, int d) {
+  if (d > 1)
+    return repro::dtw_smem<T>(n, w, repro::CHANNELS, d) > repro::SMEM_LIMIT
+               ? repro::CHANNELS_LONG
+               : repro::CHANNELS;
   const int per_lane = (w + 1 + 31) / 32;
   int slots = 1;
   while (slots < per_lane) slots *= 2;
   if (slots > repro::MAX_SLOTS) slots = 0;
-  const size_t smem = repro::dtw_smem<T>(n, w, slots);
+  const size_t smem = repro::dtw_smem<T>(n, w, slots, 1);
   return smem > repro::SMEM_LIMIT ? repro::LONG_ROWS : slots;
 }
 
-// Bytes of workspace the long-row path needs for the diagonals of npairs
-// pairs (0 where it is not taken or they fit in shared memory).
-template <typename T> static size_t dtw_diag_bytes(int64_t npairs, int n, int w) {
-  if (npairs <= 0 || dtw_slots<T>(n, w) != repro::LONG_ROWS ||
+// Bytes of workspace the in-place paths need for the diagonals of npairs
+// pairs (0 where neither is taken or the diagonals fit in shared memory).
+template <typename T> static size_t dtw_diag_bytes(int64_t npairs, int n, int w, int d) {
+  const int slots = dtw_slots<T>(n, w, d);
+  if (npairs <= 0 || (slots != repro::LONG_ROWS && slots != repro::CHANNELS_LONG) ||
       repro::long_diag_in_smem<T>(w))
     return 0;
   return sizeof(T) * (size_t)npairs * 2 * (size_t)(w + 3);
@@ -469,37 +574,41 @@ template <typename T, int P>
 static cudaError_t dtw_dispatch(const T* q, const T* c, const int64_t* qidx,
                                 const int64_t* cidx, const uint8_t* stage,
                                 const T* bd, int64_t bound_qstride, int64_t npairs,
-                                int64_t bstride, int n, int w, T* o,
+                                int64_t bstride, int n, int w, int d, T* o,
                                 const repro::MergeOut<T>& m, unsigned long long* ws,
                                 T* dw, cudaStream_t s) {
-  switch (dtw_slots<T>(n, w)) {
-    case 1: return repro::launch_dtw<T, P, 1>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
-    case 2: return repro::launch_dtw<T, P, 2>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
-    case 4: return repro::launch_dtw<T, P, 4>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
-    case 8: return repro::launch_dtw<T, P, 8>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
-    case 16: return repro::launch_dtw<T, P, 16>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
-    case 0: return repro::launch_dtw<T, P, 0>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
-    default: return repro::launch_dtw<T, P, repro::LONG_ROWS>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, o, m, ws, dw, s);
+  switch (dtw_slots<T>(n, w, d)) {
+    case 1: return repro::launch_dtw<T, P, 1>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, d, o, m, ws, dw, s);
+    case 2: return repro::launch_dtw<T, P, 2>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, d, o, m, ws, dw, s);
+    case 4: return repro::launch_dtw<T, P, 4>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, d, o, m, ws, dw, s);
+    case 8: return repro::launch_dtw<T, P, 8>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, d, o, m, ws, dw, s);
+    case 16: return repro::launch_dtw<T, P, 16>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, d, o, m, ws, dw, s);
+    case 0: return repro::launch_dtw<T, P, 0>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, d, o, m, ws, dw, s);
+    case repro::CHANNELS: return repro::launch_dtw<T, P, repro::CHANNELS>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, d, o, m, ws, dw, s);
+    case repro::CHANNELS_LONG: return repro::launch_dtw<T, P, repro::CHANNELS_LONG>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, d, o, m, ws, dw, s);
+    default: return repro::launch_dtw<T, P, repro::LONG_ROWS>(q, c, qidx, cidx, stage, bd, bound_qstride, npairs, bstride, n, w, d, o, m, ws, dw, s);
   }
 }
 
-// qs (Q, n); cands (Nc, n); bounds (npairs,) powered, or nullptr for no
-// abandon test; out (npairs,) powered.  Dense mode: qidx = cidx = nullptr
-// and npairs = Q * bstride.  0 <= w <= n - 1.  The register path takes
-// S = the smallest power of two with 32 S >= w + 1 while S <= 16; wider
-// bands take the shared-memory path; rows whose path would pass the
-// card's shared memory take the long-row path, with their diagonals in
-// `workspace` (repro_dtw_workspace bytes; else unused and may be null).
+// qs (Q, d n); cands (Nc, d n); bounds (npairs,) powered, or nullptr for
+// no abandon test; out (npairs,) powered.  Dense mode: qidx = cidx =
+// nullptr and npairs = Q * bstride.  0 <= w <= n - 1, n the per-channel
+// length.  d = 1: the register path takes S = the smallest power of two
+// with 32 S >= w + 1 while S <= 16; wider bands take the shared-memory
+// path; rows whose path would pass the card's shared memory take the
+// long-row path, with their diagonals in `workspace` (repro_dtw_workspace
+// bytes; else unused and may be null).  d > 1: the channel paths.
 extern "C" int repro_dtw(int dtype, int pcode, const void* qs, const void* cands,
                          const int64_t* qidx, const int64_t* cidx,
                          const void* bounds, int64_t npairs, int64_t bstride,
-                         int n, int w, void* out, void* workspace, void* stream) {
+                         int n, int w, int d, void* out, void* workspace, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npairs == 0) return (int)cudaGetLastError();
+  if (d < 1) return (int)cudaErrorInvalidValue;
   REPRO_DISPATCH(dtype, pcode,
     cudaError_t err = dtw_dispatch<T, P>(
         static_cast<const T*>(qs), static_cast<const T*>(cands), qidx, cidx,
-        nullptr, static_cast<const T*>(bounds), 0, npairs, bstride, n, w,
+        nullptr, static_cast<const T*>(bounds), 0, npairs, bstride, n, w, d,
         static_cast<T*>(out), repro::MergeOut<T>{}, nullptr, static_cast<T*>(workspace), s);
     if (err != cudaSuccess) return (int)err;)
   return (int)cudaGetLastError();
@@ -515,11 +624,12 @@ extern "C" int repro_dtw(int dtype, int pcode, const void* qs, const void* cands
 // lo into top_v (Q, k), top_i, counts (n_lb + 1, Q) and totals (4,) as
 // repro_block_merge does (block_merge.cuh), bit for bit; `workspace` holds Q zeros (unsigned 64-bit), left so, then,
 // where the long-row path keeps its diagonals there, the
-// repro_dtw_workspace bytes of Q * nb pairs.
+// repro_dtw_workspace bytes of Q * nb pairs.  Rows of d > 1 channels
+// take the channel paths, as in repro_dtw.
 extern "C" int repro_dtw_masked(int dtype, int pcode, const void* qs,
                                 const void* cands, const uint8_t* stage,
                                 const void* bounds, int64_t bound_stride,
-                                int64_t nq, int64_t nb, int n, int w, void* out,
+                                int64_t nq, int64_t nb, int n, int w, int d, void* out,
                                 void* top_v, int64_t* top_i, int k, int64_t lo,
                                 int dtw_chunk, int n_lb, int64_t* counts,
                                 int64_t* totals, void* workspace, void* stream) {
@@ -527,14 +637,14 @@ extern "C" int repro_dtw_masked(int dtype, int pcode, const void* qs,
   if (nq * nb == 0) return (int)cudaGetLastError();
   if (stage == nullptr || (bounds != nullptr && bound_stride < 1) || top_v == nullptr ||
       top_i == nullptr || k < 1 || dtw_chunk < 1 || n_lb < 1 || n_lb > 3 ||
-      counts == nullptr || totals == nullptr || workspace == nullptr)
+      counts == nullptr || totals == nullptr || workspace == nullptr || d < 1)
     return (int)cudaErrorInvalidValue;
   REPRO_DISPATCH(dtype, pcode,
     const repro::MergeOut<T> m{static_cast<T*>(top_v), top_i, counts, totals, k,
                                dtw_chunk, lo, n_lb};
     cudaError_t err = dtw_dispatch<T, P>(
         static_cast<const T*>(qs), static_cast<const T*>(cands), nullptr, nullptr,
-        stage, static_cast<const T*>(bounds), bound_stride, nq * nb, nb, n, w,
+        stage, static_cast<const T*>(bounds), bound_stride, nq * nb, nb, n, w, d,
         static_cast<T*>(out), m, static_cast<unsigned long long*>(workspace),
         reinterpret_cast<T*>(static_cast<unsigned long long*>(workspace) + nq), s);
     if (err != cudaSuccess) return (int)err;)
@@ -544,13 +654,14 @@ extern "C" int repro_dtw_masked(int dtype, int pcode, const void* qs,
 // Bytes of workspace the long-row path needs for the diagonals of npairs
 // pairs (0: none); the masked entry's workspace holds them after its Q
 // tickets.
-extern "C" int64_t repro_dtw_workspace(int dtype, int64_t npairs, int n, int w) {
-  return (int64_t)(dtype == 0 ? dtw_diag_bytes<float>(npairs, n, w)
-                              : dtw_diag_bytes<double>(npairs, n, w));
+extern "C" int64_t repro_dtw_workspace(int dtype, int64_t npairs, int n, int w, int d) {
+  return (int64_t)(dtype == 0 ? dtw_diag_bytes<float>(npairs, n, w, d)
+                              : dtw_diag_bytes<double>(npairs, n, w, d));
 }
 
-// The path a launch at (n, w) takes: S > 0 the register path with S slots
-// per lane, 0 the shared-memory path, -1 (LONG_ROWS) the long-row path.
-extern "C" int repro_dtw_slots(int dtype, int n, int w) {
-  return dtype == 0 ? dtw_slots<float>(n, w) : dtw_slots<double>(n, w);
+// The path a launch at (n, w, d) takes: S > 0 the register path with S
+// slots per lane, 0 the shared-memory path, -1 (LONG_ROWS) the long-row
+// path; d > 1: -2 (CHANNELS) staged segments, -3 (CHANNELS_LONG) in place.
+extern "C" int repro_dtw_slots(int dtype, int n, int w, int d) {
+  return dtype == 0 ? dtw_slots<float>(n, w, d) : dtw_slots<double>(n, w, d);
 }

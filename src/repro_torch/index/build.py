@@ -20,7 +20,6 @@ import torch
 
 from repro_torch.core.dtw import PNorm
 from repro_torch.core.metrics import theorem1_bound
-from repro_torch.core.pipeline import require_univariate
 from repro_torch.index.cluster import Clustering, cluster_from_distances
 from repro_torch.index.references import _ref_row, select_references
 from repro_torch.index.triangle_lb import wide_band
@@ -55,7 +54,7 @@ class TriangleIndex:
     n: int  # per-channel series length
     n_db: int
     digest: str = ""  # db_digest of the database the index was built on
-    d: int = 1  # channel count (d > 1 waits for the multivariate tier)
+    d: int = 1  # channel count; distances are dependent mv DTW when > 1
 
     @property
     def n_refs(self) -> int:
@@ -131,20 +130,26 @@ def build_index(
     db, w: int, p: PNorm = 1, n_refs: int = 8, n_clusters: int | None = None,
     strategy: str = "maxmin", seed: int = 0, d: int = 1, device=None,
 ) -> TriangleIndex:
-    """Build a triangle-inequality reference index over ``db`` (N, n), a
-    numpy array or a tensor, on its device (or ``device``)."""
-    require_univariate(d)
+    """Build a triangle-inequality reference index over ``db``, a numpy
+    array or a tensor, on its device (or ``device``): (N, n) univariate,
+    or (N, d*n) channel-major flattened with ``d > 1``, whose distances
+    are then dependent mv DTW with n the per-channel length."""
     if db.ndim != 2:
         raise ValueError(f"db must be (N, n) or (N, d*n), got {tuple(db.shape)}")
+    d = int(d)
     dev = resolve_device(device, like=db)
     db_t = torch.as_tensor(db, device=dev).contiguous()
-    n_db, n = db_t.shape
+    n_db, n_flat = db_t.shape
+    if d < 1 or n_flat % d:
+        raise ValueError(f"flat length {n_flat} not a multiple of d={d}")
+    n = n_flat // d
     w = int(min(int(w), n - 1))
     rng = np.random.default_rng(seed)
-    ref_idx, d_ref_db = select_references(db_t, n_refs, w, p, strategy=strategy, rng=rng)
+    ref_idx, d_ref_db = select_references(db_t, n_refs, w, p, strategy=strategy, rng=rng,
+                                          d=d)
     # second sweep at the composed band 2w (side A/B of the bound)
     w2 = wide_band(w, n)
-    d_ref_db_wide = np.stack([_ref_row(db_t, int(i), w2, p) for i in ref_idx])
+    d_ref_db_wide = np.stack([_ref_row(db_t, int(i), w2, p, d) for i in ref_idx])
     # references are evaluated exactly at query time, so the cluster
     # side-B minimum may skip them — without the exclusion every
     # representative's self-distance of 0 would pin min_radii_wide to 0

@@ -9,7 +9,8 @@ banded DP with per-lane abandoning, also in a masked-dense form),
 phase alone, the query features of K4's kim entry) and ``block_merge`` (the host driver's top-k merge and
 counters on the device, no TPU counterpart).  ``dtw_merge`` counts the
 launches of K5's masked entry with the merge as its epilogue, the host
-driver's loop's second launch per block.  Each package holds
+driver's loop's second launch per block; ``dtw_mv`` and ``dtw_merge_mv``
+count those of K5's channel entry (multivariate rows, d > 1).  Each package holds
 ``ops.py`` — the wrappers, the plain PyTorch version and the kernel's
 launch function, which counts its launches — and, for a TPU kernel,
 ``ref.py``, the oracle.
@@ -19,7 +20,12 @@ wrappers resolve their launch shapes from.
 """
 
 from repro_torch.kernels.block_merge.ops import block_merge_launch
-from repro_torch.kernels.dtw.ops import dtw_launch, dtw_merge_launch
+from repro_torch.kernels.dtw.ops import (
+    dtw_launch,
+    dtw_merge_launch,
+    dtw_merge_mv_launch,
+    dtw_mv_launch,
+)
 from repro_torch.kernels.envelope.ops import envelope_launch
 from repro_torch.kernels.lb_fused.ops import lb_fused_launch
 from repro_torch.kernels.lb_improved.ops import lb_improved_pass2_launch
@@ -38,6 +44,8 @@ LAUNCHERS = {
     "lb_keogh_stream": lb_keogh_stream_launch,
     "block_merge": block_merge_launch,
     "dtw_merge": dtw_merge_launch,
+    "dtw_mv": dtw_mv_launch,
+    "dtw_merge_mv": dtw_merge_mv_launch,
 }
 
 

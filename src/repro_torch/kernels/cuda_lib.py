@@ -52,19 +52,21 @@ SIGNATURES = {
     "repro_lb_kim": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P, _P],
     # dtype, rows, nrows, n, warps, feats, stream
     "repro_lb_kim_features": [_INT, _P, _I64, _INT, _INT, _P, _P],
-    # dtype, p, qs, cands, qidx, cidx, bounds, npairs, bstride, n, w, out, workspace,
-    # stream
-    "repro_dtw": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
-    # dtype, p, qs, cands, stage, bounds, bound_stride, nq, nb, n, w, out,
+    # dtype, p, qs, cands, qidx, cidx, bounds, npairs, bstride, n, w, d, out,
+    # workspace, stream
+    "repro_dtw": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P, _P,
+                  _P],
+    # dtype, p, qs, cands, stage, bounds, bound_stride, nq, nb, n, w, d, out,
     # top_v, top_i, k, lo, dtw_chunk, n_lb, counts, totals, workspace, stream
-    "repro_dtw_masked": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P,
-                         _P, _P, _INT, _I64, _INT, _INT, _P, _P, _P, _P],
+    "repro_dtw_masked": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _INT,
+                         _P, _P, _P, _INT, _I64, _INT, _INT, _P, _P, _P, _P],
     # dtype, top_v, top_i, k, stage, dvals, nq, nb, lo, dtw_chunk, n_lb, counts, totals,
     # stream
     "repro_block_merge": [_INT, _P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _INT, _P, _P,
                           _P],
-    # dtype, n, w -> K5's path: slots per lane, 0 shared memory, -1 long rows
-    "repro_dtw_slots": [_INT, _INT, _INT],
+    # dtype, n, w, d -> K5's path: slots per lane, 0 shared memory, -1 long
+    # rows, -2 and -3 the channel entry's staged and in-place paths
+    "repro_dtw_slots": [_INT, _INT, _INT, _INT],
 }
 
 #: Bytes of workspace a launch needs at its shape (0: none), one query per
@@ -76,8 +78,8 @@ WORKSPACE_SIGNATURES = {
     "repro_lb_improved_pass2_workspace": [_INT, _I64, _INT, _INT],
     # dtype, nq, nb, n, w, tile_b, grid_bq
     "repro_lb_fused_workspace": [_INT, _I64, _I64, _INT, _INT, _INT, _INT],
-    # dtype, npairs, n, w
-    "repro_dtw_workspace": [_INT, _I64, _INT, _INT],
+    # dtype, npairs, n, w, d
+    "repro_dtw_workspace": [_INT, _I64, _INT, _INT, _INT],
 }
 
 

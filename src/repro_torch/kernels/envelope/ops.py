@@ -11,7 +11,9 @@ chunks (van Herk–Gil–Werman scans per chunk); the plain version cuts it
 into tiles of 2w + 1.  Max and min are exact, so all give the same bits.
 Where one warp's buffers overflow a block's shared memory (long rows),
 the warp per row keeps them in a workspace that the launch allocates
-(``cuda_lib.workspace``), so every length runs.
+(``cuda_lib.workspace``), so every length runs.  Multivariate rows
+(``d > 1``) are enveloped per channel segment: the op folds the segments
+into the batch, and the kernel is unchanged.
 """
 
 from __future__ import annotations
@@ -63,11 +65,21 @@ def envelope_launch(xs: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tenso
 envelope_launch.launches = 0
 
 
-def envelope_op(xs: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+def envelope_op(xs: torch.Tensor, w: int, d: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched warping envelope (U, L) of ``xs`` (..., n).
 
-    CUDA tensors go through the kernel (or raise); CPU tensors take the
-    plain version."""
+    ``d > 1`` takes channel-major flattened rows (..., d*n): each length-n
+    channel segment is enveloped as its own series (w clamped to n - 1),
+    the segments folded into the batch of one launch, as the reference's
+    op folds them.  CUDA tensors go through the kernel (or raise); CPU
+    tensors take the plain version."""
+    d = int(d)
+    if d > 1:
+        total = xs.shape[-1]
+        if total % d:
+            raise ValueError(f"flat length {total} not a multiple of d={d}")
+        u, l = envelope_op(xs.reshape(-1, total // d).contiguous(), w)
+        return u.reshape(xs.shape), l.reshape(xs.shape)
     n = xs.shape[-1]
     w = int(min(w, n - 1))
     if w == 0:

@@ -40,6 +40,14 @@ resolves everything once and returns a launcher that only passes a
 block's rows to the kernel.  The host driver's device-resident block
 loop calls that launcher once per block; ``lb_fused_launch`` is one
 call of it.
+
+Multivariate rows (``d > 1``, channel-major flattened with per-segment
+envelopes) do what the reference op does: K4 stays the d = 1 kernel, and
+the two passes are composed instead, K2 on the flat rows, then K3 with
+the channels folded into its rows (``lb_improved_pass2_qbatch_op(d=)``),
+``lb = where(lb1 < bound, lb1 + lb2, lb1)``; the prepared launcher also
+writes the stages (0/1/2, 255 for pad rows) on the device against the
+device-resident bound, with no synchronisation.
 """
 
 from __future__ import annotations
@@ -55,8 +63,12 @@ from repro_torch.kernels.common import (
     kernel_dtype,
     p_code,
 )
-from repro_torch.kernels.lb_improved.ops import combine_passes, lb_improved_pass2_plain
-from repro_torch.kernels.lb_keogh.ops import lb_keogh_plain
+from repro_torch.kernels.lb_improved.ops import (
+    combine_passes,
+    lb_improved_pass2_plain,
+    lb_improved_pass2_qbatch_op,
+)
+from repro_torch.kernels.lb_keogh.ops import lb_keogh_plain, lb_keogh_qbatch_op
 from repro_torch.kernels.lb_kim.ops import lb_kim_features_launch, lb_kim_plain
 from repro_torch.kernels.tuning.space import GRID_LAYOUTS
 from repro_torch.kernels.tuning.table import resolve_config
@@ -158,8 +170,17 @@ def _check_bounds(bounds, dev, dt, nq):
     return max(int(bounds.stride(0)), 1)
 
 
+def lb_fused_composed(cands, qs, upper, lower, w: int, bounds, p, d: int):
+    """Both passes for channel-major flattened rows of ``d > 1`` channels:
+    K2 on the flat rows, the folded K3, and pass 2 kept where lb1 < bound
+    -> (lb1 (Q, B), lb (Q, B)); the plain versions on CPU tensors."""
+    lb1, h = lb_keogh_qbatch_op(cands, upper, lower, p)
+    lb2 = lb_improved_pass2_qbatch_op(h, qs, w, p, d)
+    return lb1, torch.where(lb1 < bounds.reshape(-1, 1), lb1 + lb2, lb1)
+
+
 def lb_fused_prepare(qs, upper, lower, w: int, bounds, p, block: int, stage=None,
-                     tile_b=None, depth=None, grid=None, kim: bool = False):
+                     tile_b=None, depth=None, grid=None, kim: bool = False, d: int = 1):
     """K4 for launches on blocks of ``block`` candidate rows: checks the
     queries, envelopes, ``bounds`` (a (Q,) tensor of any stride, read at
     each launch) and the optional ``stage`` buffer (Q, block) uint8 once,
@@ -169,13 +190,26 @@ def lb_fused_prepare(qs, upper, lower, w: int, bounds, p, block: int, stage=None
     kim entry, whose query features K6's feature phase computes here,
     once.  On CPU tensors ``run`` is the plain version
     (``lb_kim_plain``, then ``lb_fused_plain`` and
-    ``lb_fused_stage_plain``)."""
+    ``lb_fused_stage_plain``).  ``d > 1`` (no kim entry) composes K2 and
+    the folded K3 (``lb_fused_composed``) and writes the stages with
+    tensor operations on the same device."""
     _check_p(p)
     dev, dt = qs.device, qs.dtype
     nq, n = qs.shape
-    w = int(min(w, n - 1))
     if bounds.dim() != 1:
         bounds = bounds.reshape(-1)
+    if int(d) > 1:
+        if kim:
+            raise ValueError("K4's kim entry serves d = 1 rows only")
+
+        def run_composed(cands, real=block):
+            lb1, lb = lb_fused_composed(cands, qs, upper, lower, w, bounds, p, int(d))
+            if stage is not None:
+                stage.copy_(lb_fused_stage_plain(lb1, lb, bounds, real))
+            return lb1, lb
+
+        return run_composed
+    w = int(min(w, n - 1))
     if dev.type == "cpu":
         def run_plain(cands, real=block):
             kim_lb = lb_kim_plain(cands, qs, None, p) if kim else None
@@ -242,12 +276,11 @@ def lb_fused_qbatch_op(cands, qs, upper, lower, w: int, bounds, p=1, tile_b=None
     """Both passes of the two-pass bound in one launch: candidates (B, n)
     vs queries (Q, n) with envelopes (Q, n) and per-query powered
     ``bounds`` (Q,) -> (lb1 (Q, B), lb (Q, B)), lb == lb1 on lanes with
-    lb1 >= bound."""
+    lb1 >= bound.  ``d > 1``: channel-major flattened rows, the two passes
+    composed (``lb_fused_composed``)."""
     _check_p(p)
-    if int(d) != 1:
-        from repro_torch.core.pipeline import require_univariate
-
-        require_univariate(d)
+    if int(d) > 1:
+        return lb_fused_composed(cands, qs, upper, lower, w, bounds, p, int(d))
     if cands.device.type == "cpu":
         return lb_fused_plain(cands, qs, upper, lower, w, bounds, p)
     if cands.device.type != "cuda":

@@ -14,10 +14,20 @@ launch allocates (``cuda_lib.workspace``), so every length runs.
 The full bound is lb1 + lb2 (the max of the two at p = inf), where the
 reference op adds them even at p = inf with lb1 = inf from its LB_Keogh
 kernel; here both passes use the max form at p = inf.
+
+Multivariate rows (``d > 1``, channel-major flattened (d*n,) with
+per-segment envelopes) follow the reference op's folding: each channel
+segment of H becomes a row of its own against the matching segment of
+its query, so pass 2's envelope stays inside its segment, and the
+per-channel terms are summed (maxed at p = inf) outside the launch.  The
+regrouping is indexing, not a copy: the (Q, B, d*n) stack is read as
+(Q*B*d, n) rows, each with its folded query row ``q*d + ch`` passed to
+the kernel's per-row query index.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -86,15 +96,53 @@ def _dispatch(h, qs, w, p, qidx):
     return lb_improved_pass2_launch(h, qs, w, p, qidx)
 
 
-def lb_improved_pass2_qbatch_op(h, qs, w: int, p=1):
-    """Second term of Corollary 4 for projections h (Q, B, n) against
-    queries (Q, n) -> (Q, B)."""
+@functools.lru_cache(maxsize=64)
+def _folded_qidx(nq: int, b: int, d: int, device: torch.device) -> torch.Tensor:
+    """The folded query row of each (q, b, ch) row of a dense (Q, B, d*n)
+    stack read as (Q*B*d, n): ``q*d + ch``."""
+    r = torch.arange(nq * b * d, device=device)
+    return (r // (b * d)) * d + r % d
+
+
+def _sum_channels(lb2, p):
+    """(..., d) per-channel pass-2 terms -> (...): their sum, the max at
+    p = inf."""
+    return lb2.amax(dim=-1) if p == math.inf else lb2.sum(dim=-1)
+
+
+def _folded(h, qs, w, p, qidx, d):
+    """Pass 2 of channel-major flattened rows, the channels folded into
+    the rows of one launch (module docstring)."""
+    total = h.shape[-1]
+    if total % d:
+        raise ValueError(f"row length {total} not a multiple of d={d}")
+    n = total // d
+    qs_ch = qs.reshape(qs.shape[0] * d, n)
+    lead = h.shape[:-1]
+    rows = h.reshape(-1, n)
+    if qidx is None:
+        nq, b = lead
+        if nq != qs.shape[0]:
+            raise ValueError(f"h has {nq} query rows, qs has {qs.shape[0]}")
+        qi = _folded_qidx(nq, b, d, h.device)
+    else:
+        qi = (qidx[:, None] * d + torch.arange(d, device=qidx.device)).reshape(-1)
+    return _sum_channels(_dispatch(rows, qs_ch, w, p, qi).reshape(*lead, d), p)
+
+
+def lb_improved_pass2_qbatch_op(h, qs, w: int, p=1, d: int = 1):
+    """Second term of Corollary 4 for projections h (Q, B, d*n) against
+    queries (Q, d*n) -> (Q, B)."""
+    if int(d) > 1:
+        return _folded(h, qs, w, p, None, int(d))
     return _dispatch(h, qs, w, p, None)
 
 
-def lb_improved_pass2_pairs_op(h, qs, qidx, w: int, p=1):
-    """Second term for projection rows h (P, n), row i against
+def lb_improved_pass2_pairs_op(h, qs, qidx, w: int, p=1, d: int = 1):
+    """Second term for projection rows h (P, d*n), row i against
     qs[qidx[i]] -> (P,)."""
+    if int(d) > 1:
+        return _folded(h, qs, w, p, qidx, int(d))
     return _dispatch(h, qs, w, p, qidx)
 
 
@@ -107,11 +155,12 @@ def combine_passes(lb1, lb2, p):
     return torch.maximum(lb1, lb2) if p == math.inf else lb1 + lb2
 
 
-def lb_improved_qbatch_op(cands, qs, upper, lower, w: int, p=1, tile_b=None):
-    """Full powered LB_Improved, candidates (B, n) vs queries (Q, n) ->
-    (Q, B): K2 emits the projection stack that K3 consumes."""
+def lb_improved_qbatch_op(cands, qs, upper, lower, w: int, p=1, tile_b=None, d: int = 1):
+    """Full powered LB_Improved, candidates (B, d*n) vs queries (Q, d*n)
+    -> (Q, B): K2 emits the projection stack that K3 consumes (folded per
+    channel at ``d > 1``)."""
     lb1, h = lb_keogh_qbatch_op(cands, upper, lower, p, tile_b)
-    return combine_passes(lb1, lb_improved_pass2_qbatch_op(h, qs, w, p), p)
+    return combine_passes(lb1, lb_improved_pass2_qbatch_op(h, qs, w, p, d), p)
 
 
 def lb_improved_op(cands, q, upper, lower, w: int, p=1):

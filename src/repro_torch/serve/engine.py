@@ -69,7 +69,7 @@ import numpy as np
 
 from repro_torch.core.cascade import SearchResult, SearchStats
 from repro_torch.core.microbatch import pad_rows
-from repro_torch.core.pipeline import not_ported
+from repro_torch.core.pipeline import MV_STREAM_ITEM, not_ported
 from repro_torch.serve.cache import AnswerCache, query_digest
 
 ANYTIME_ITEM = "10 (anytime tier)"
@@ -252,6 +252,9 @@ class QueryEngine:
       pre-built (possibly shared) :class:`AnswerCache`.
     * ``start=False`` defers the worker thread (tests use it to stage
       queue states); call :meth:`start` when ready.
+
+    A multivariate session (``db.channels > 1``) is not served yet: the
+    constructor raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -271,6 +274,11 @@ class QueryEngine:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if getattr(db, "channels", 1) > 1:
+            raise not_ported(
+                f"a QueryEngine over a multivariate session (d={db.channels})",
+                MV_STREAM_ITEM,
+            )
         self.db = db
         self.max_batch = int(max_batch)
         self.max_wait = float(max_wait_ms) / 1e3

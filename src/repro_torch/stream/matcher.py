@@ -63,7 +63,7 @@ class StreamMatcher:
       any chunk size works (oversized pushes are ingested in ring-sized
       bites with block sweeps interleaved, so no unevaluated window's
       samples are ever evicted).
-    * ``d`` — channel count; ``d > 1`` (the multivariate tier) is not
+    * ``d`` — channel count; ``d > 1`` (multivariate streaming) is not
       ported yet and raises ``NotImplementedError``.
     * ``device`` — where the templates live and the blocks run.
     """

@@ -65,9 +65,10 @@ import torch
 
 from repro_torch.core.dtw import PNorm
 from repro_torch.core.pipeline import (
+    MV_STREAM_ITEM,
     lb_stage_names,
     make_context,
-    require_univariate,
+    not_ported,
     run_block_stages,
 )
 from repro_torch.kernels.common import resolve_device
@@ -232,8 +233,8 @@ class SubsequenceScanner:
     online, ``windowed_matches`` offline) own window scheduling and
     trivial-match exclusion.  The templates, their envelopes and the
     gate live on ``device`` (default: the GPU; ``RuntimeError`` when
-    there is none), where every block's stages run.  ``d > 1`` (the
-    multivariate tier) is not ported yet and raises.
+    there is none), where every block's stages run.  ``d > 1``
+    (multivariate streaming) is not ported yet and raises.
     """
 
     def __init__(
@@ -255,7 +256,8 @@ class SubsequenceScanner:
     ):
         if int(d) < 1:
             raise ValueError(f"d must be >= 1 channels, got {d}")
-        require_univariate(d)
+        if int(d) > 1:
+            raise not_ported(f"a multivariate stream (d={d})", MV_STREAM_ITEM)
         templates = np.atleast_2d(np.asarray(templates, np.float32))
         self.nq, self.n = templates.shape
         if hop <= 0:

@@ -31,7 +31,11 @@ K3, K4 and K5 take long-row paths by shape; the ``long`` tests hold each
 to its plain version at float32 n = 12,288 and float64 n = 6,144 (w =
 n // 10 and n - 1), K5 also past its register path (n = 32,768) and with
 its diagonals in the workspace, and the device loop with K4 on its
-long-row path.
+long-row path.  K5's channel entry (multivariate rows, the cell cost
+summed over d channels) is bit-equal to ``dtw_wavefront_plain(d=)`` on
+its staged and in-place paths and, masked with the merge, to
+``dtw_merge_plain(d=)``; the multivariate device loop runs K2, the folded
+K3 and K5's channel entry per block with no synchronisation.
 """
 
 import math
@@ -908,3 +912,138 @@ def test_long_rows_fused_block_loop_without_sync(dev):
     assert torch.equal(out[1].cpu(), cpu[1])
     torch.testing.assert_close(out[0].cpu(), cpu[0], rtol=1e-12, atol=0)
     assert torch.equal(out[2].cpu(), cpu[2]) and torch.equal(out[3].cpu(), cpu[3])
+
+
+# ------------------------------------------- K5's channel entry (d > 1)
+
+
+def mv_rows(dev, seed, rows, n, d, dtype=torch.float32):
+    """(rows, d*n) channel-major flattened random walks, one per channel."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, d, n)).cumsum(axis=2).reshape(rows, d * n)
+    return torch.as_tensor(x, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d,n,w", [(3, 315, 31), (8, 315, 31), (2, 17, 16), (3, 40, 0)])
+@pytest.mark.parametrize("p", PS)
+def test_dtw_channel_entry_bit_equal_wavefront(dev, p, d, n, w, dtype):
+    """K5's channel entry (the cell cost summed over d channels, the max at
+    p = inf) is bit-equal to ``dtw_wavefront_plain(d=)`` on every lane,
+    dense and pair list, finished or abandoned, including a band that
+    reaches the grid's edge (w = n - 1); finished lanes are within 3e-4 of
+    the reference's row DP (``dtw_plain(d=)``)."""
+    qs, cs = mv_rows(dev, 60, 3, n, d, dtype), mv_rows(dev, 61, 9, n, d, dtype)
+    got = kd.dtw_launch(qs, cs, w, p, d=d)
+    assert torch.equal(got, kd.dtw_wavefront_plain(qs, cs, w, p, d=d))
+    torch.testing.assert_close(got, kd.dtw_plain(qs, cs, w, p, d=d), rtol=3e-4, atol=0)
+    qi = torch.tensor([0, 2, 1, 1, 0], device=dev)
+    ci = torch.tensor([8, 0, 4, 3, 3], device=dev)
+    exact = got[qi, ci]
+    bounds = (exact * torch.tensor([0.2, 0.9, 1.5, 0.5, 2.0], device=dev, dtype=dtype))
+    ab = kd.dtw_launch(qs, cs, w, p, qi, ci, bounds.contiguous(), d=d)
+    assert torch.equal(ab, kd.dtw_wavefront_plain(qs, cs, w, p, qi, ci, bounds, d=d))
+    below = exact < bounds
+    assert torch.equal(ab[below], exact[below]) and bool((ab[~below] >= bounds[~below]).all())
+
+
+@pytest.mark.parametrize("p", PS)
+def test_dtw_channel_entry_in_place_path(dev, p):
+    """Where 2 d staged segments overflow a block's shared memory the
+    channel entry reads the rows in place (path -3), bit-equal still."""
+    from repro_torch.kernels import cuda_lib
+
+    d, n, w = 8, 4000, 40
+    assert cuda_lib.library().repro_dtw_slots(0, n, w, d) == -3
+    assert cuda_lib.library().repro_dtw_slots(0, 315, 31, 3) == -2
+    qs, cs = mv_rows(dev, 62, 1, n, d), mv_rows(dev, 63, 2, n, d)
+    assert torch.equal(kd.dtw_launch(qs, cs, w, p, d=d),
+                       kd.dtw_wavefront_plain(qs, cs, w, p, d=d))
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize("d", [3, 8])
+@pytest.mark.parametrize("p", PS)
+def test_dtw_channel_entry_masked_with_merge(dev, p, d, bounded):
+    """The masked channel entry with the merge: bit-equal to
+    ``dtw_merge_plain(dp=dtw_wavefront_plain, d=)``, launches counted as
+    ``dtw_merge_mv``."""
+    nq, nb, n, w = 16, 32, 64, 6
+    qs, cs = mv_rows(dev, 64, nq, n, d), mv_rows(dev, 65, nb, n, d)
+    rng = np.random.default_rng(66)
+    stage = torch.as_tensor(rng.choice(np.array([0, 1, 2, 2], np.uint8), (nq, nb)),
+                            device=dev)
+
+    def state():
+        return (torch.full((nq, 2), 1e30, device=dev),
+                torch.full((nq, 2), -1, dtype=torch.int64, device=dev),
+                torch.zeros((3, nq), dtype=torch.int64, device=dev),
+                torch.zeros(4, dtype=torch.int64, device=dev))
+
+    got, want = state(), state()
+    out, out_w = (torch.full((nq, nb), math.nan, device=dev) for _ in range(2))
+    reset_launch_counts()
+    run = kd.dtw_masked_prepare(qs, w, p, stage, got[0][:, -1] if bounded else None, out,
+                                (*got, 16), d=d)
+    for t in range(2):
+        run(cs, t * nb)
+        kd.dtw_merge_plain(qs, cs, stage, w, p, want[0][:, -1] if bounded else None, out_w,
+                           *want, t * nb, 16, dp=kd.dtw_wavefront_plain, d=d)
+        live = stage == 2
+        assert torch.equal(out[live], out_w[live])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    counts = launch_counts()
+    assert counts["dtw_merge_mv"] == 2 and counts["dtw_merge"] == 0, counts
+
+
+@pytest.mark.parametrize("early_abandon", [False, True])
+@pytest.mark.parametrize("p", [1, 2])
+def test_mv_device_loop_without_sync(dev, p, early_abandon):
+    """At d = 3 the device loop composes its K4 step (K2, the folded K3,
+    tensor operations for pass 2's `where` and the stages), then K5's
+    masked channel entry with the merge, per block, with no
+    synchronisation; the answers and counters equal the CPU loop's."""
+    from repro_torch.core.cascade import fused_block_loop
+
+    d, n = 3, 48
+    x = mv_rows(dev, 67, 300, n, d)
+    qs = mv_rows(dev, 68, 5, n, d)
+    u, l = ke.envelope_op(qs, 5, d)
+    fused_block_loop(qs, x, u, l, 5, p, 3, 32, 16, early_abandon, d=d)  # build, load
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fused_block_loop(qs, x, u, l, 5, p, 3, 32, 16, early_abandon, d=d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = launch_counts()
+    blocks = -(-300 // 32)
+    assert counts["lb_keogh"] == counts["lb_improved_pass2"] == blocks, counts
+    assert counts["dtw_merge_mv"] == blocks and counts["lb_fused"] == 0, counts
+    cpu = fused_block_loop(qs.cpu(), x.cpu(), u.cpu(), l.cpu(), 5, p, 3, 32, 16,
+                           early_abandon, d=d)
+    assert torch.equal(out[1].cpu(), cpu[1])
+    torch.testing.assert_close(out[0].cpu(), cpu[0], rtol=2e-4, atol=0)
+    assert torch.equal(out[2].cpu(), cpu[2]) and torch.equal(out[3].cpu(), cpu[3])
+
+
+def test_mv_session_every_method_on_card(dev):
+    """A (N, n, 3) session on the card answers as on the CPU through every
+    method and driver, and launches the channel entries."""
+    rng = np.random.default_rng(69)
+    x = rng.normal(size=(200, 40, 3)).cumsum(axis=1).astype(np.float32)
+    q = rng.normal(size=(4, 40, 3)).cumsum(axis=1).astype(np.float32)
+    cfg = SearchConfig(k=3, block=16)
+    gpu = Database.build(x, cfg, index=True, n_refs=4, device=dev)
+    cpu = Database.build(x, cfg, index=True, n_refs=4, device="cpu")
+    reset_launch_counts()
+    for method in ("full", "lb_keogh", "lb_improved", "lb_webb", "kim_improved", "kim_webb",
+                   "tc_box", "tc_tri", "auto"):
+        for driver in ("scan", "host", "indexed"):
+            a = gpu.search(q, method=method, driver=driver)
+            b = cpu.search(q, method=method, driver=driver)
+            np.testing.assert_array_equal(a.indices, b.indices)
+            np.testing.assert_allclose(a.distances, b.distances, rtol=2e-4)
+    counts = launch_counts()
+    assert counts["dtw_mv"] > 0 and counts["dtw_merge_mv"] > 0, counts

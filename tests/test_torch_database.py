@@ -113,14 +113,16 @@ def test_bundles_of_unported_tiers_raise(tmp_path):
     x = walks(7, 60, 24)
     with pytest.raises(NotImplementedError, match="item 10"):
         Database.build(x, anytime=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Database.build(np.stack([x, x], axis=-1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SearchConfig(method="tc_box")
+    # the multivariate tier builds and searches; its streams wait (item 9b)
+    mv = Database.build(np.stack([x, x], axis=-1), device="cpu")
+    assert mv.channels == 2 and mv.search(np.stack([x[0], x[0]], axis=-1)).index == 0
+    assert SearchConfig(method="tc_box").method == "tc_box"
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        mv.stream(threshold=1.0)
     db = Database.build(x, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         db.use_mesh(None)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         db.stream(np.stack([x[:2], x[:2]], axis=-1), threshold=1.0)
     assert isinstance(db.stream(threshold=1.0), StreamMatcher)
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -108,8 +108,10 @@ def test_drivers_without_device_need_cuda(monkeypatch):
     db, qs = data(6)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcas.nn_search_scan(qs, db, W)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tcas.nn_search_host(qs, db, W, d=2, device="cpu")
+    # rows of 2 channels: the host driver serves them (the multivariate
+    # tier), with the reference's answers and counters
+    assert_same(jcas.nn_search_host(qs, db, W, d=2),
+                tcas.nn_search_host(qs, db, W, d=2, device="cpu"))
 
 
 def test_microbatch_and_classify():

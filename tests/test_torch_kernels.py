@@ -301,10 +301,18 @@ def test_cpu_wrappers_never_launch():
     block_merge_prepare(top_v, top_i, *counters, stage, dvals, 16)(0)
     tdtw.dtw_masked_prepare(xs[:2], 3, 1, stage, top_v[:, -1], dvals,
                             merge=(top_v, top_i, *counters, 16))(xs, 20)
+    # the channel entries (d = 2 channels of 10 values a row)
+    tenv.envelope_op(xs, 3, 2)
+    tli.lb_improved_pass2_qbatch_op(xs[None], xs[:1], 3, 1, 2)
+    tdtw.dtw_qbatch_op(xs[:2], xs, 3, 1, d=2)
+    t_fused(xs, xs[:2], xs[:2], xs[:2], 3, xs[:2, 0], 1, d=2)
+    lf_prepare(xs[:2], xs[:2], xs[:2], 3, top_v[:, -1], 1, xs.shape[0], stage, d=2)(xs, 3)
+    tdtw.dtw_masked_prepare(xs[:2], 3, 1, stage, top_v[:, -1], dvals,
+                            merge=(top_v, top_i, *counters, 16), d=2)(xs, 20)
     assert launch_counts() == {
         "envelope": 0, "lb_keogh": 0, "lb_improved_pass2": 0, "dtw": 0,
         "lb_fused": 0, "lb_kim": 0, "lb_kim_features": 0, "lb_keogh_stream": 0,
-        "block_merge": 0, "dtw_merge": 0,
+        "block_merge": 0, "dtw_merge": 0, "dtw_mv": 0, "dtw_merge_mv": 0,
     }
 
 

@@ -108,8 +108,18 @@ def test_lb_fused_p_inf_and_mv_raise():
     ):
         with pytest.raises(ValueError, match="p in"):
             op(*args, math.inf)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tf.lb_fused_qbatch_op(t(xs), t(qs), t(ju), t(jl), 2, t(bounds), 1, d=2)
+    # d = 2 channels of 10 values: the two passes composed, as the
+    # reference op composes them (lb1 1e-4, lb 2e-4)
+    from repro.mv.envelope import envelope_batch_mv as j_envelope_mv
+
+    mu, ml = j_envelope_mv(jnp.asarray(qs), 2, 2)
+    lb1, lb = tf.lb_fused_qbatch_op(t(xs), t(qs), t(mu), t(ml), 2, t(bounds), 1, d=2)
+    r1, r = j_fused_op(jnp.asarray(xs), jnp.asarray(qs), mu, ml, 2, jnp.asarray(bounds), 1,
+                       interpret=True, d=2)
+    close(lb1, r1, 1e-4)
+    close(lb, r, 2e-4)
+    dead = lb1.numpy() >= bounds[:, None]
+    np.testing.assert_array_equal(lb.numpy()[dead], lb1.numpy()[dead])
 
 
 # -------------------------------------------------------------- K6 lb_kim

@@ -106,12 +106,21 @@ def test_registry_matches_reference_and_rejects_mv():
         assert jpipe.PIPELINES[method] == stages
         assert tpipe.lb_stage_names(method) == jpipe.lb_stage_names(method)
     for method in ("tc_box", "tc_tri"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-            tpipe.lb_stage_names(method)
+        assert tpipe.lb_stage_names(method) == jpipe.lb_stage_names(method)
+    # d = 2 channels of 4 values: the block runs, with the reference's masks
+    from repro.mv.envelope import envelope_batch_mv as j_envelope_mv
+
     qs, blk, w = block_inputs(4, nq=1, block=4, n=8, w=1)
-    with pytest.raises(NotImplementedError):
-        tpipe.run_block_stages(
-            torch.as_tensor(qs), torch.as_tensor(qs), torch.as_tensor(qs), w, 1,
-            "lb_keogh", torch.as_tensor(blk), torch.ones(1), torch.ones(1, 4, dtype=bool),
-            d=2,
-        )
+    ju, jl = j_envelope_mv(jnp.asarray(qs), w, 2)
+    bound = np.full(1, 1e30, np.float32)
+    mask0 = np.ones((1, 4), bool)
+    js = jpipe.run_block_stages(jnp.asarray(qs), ju, jl, w, 1, "tc_box", jnp.asarray(blk),
+                                jnp.asarray(bound), jnp.asarray(mask0), d=2)
+    ts = tpipe.run_block_stages(
+        torch.as_tensor(qs), torch.as_tensor(np.array(ju)), torch.as_tensor(np.array(jl)),
+        w, 1, "tc_box", torch.as_tensor(blk), torch.as_tensor(bound),
+        torch.as_tensor(mask0), d=2,
+    )
+    for jm, tm in zip(js.masks, ts.masks):
+        np.testing.assert_array_equal(np.asarray(jm), tm.numpy())
+    np.testing.assert_allclose(ts.d.numpy(), np.asarray(js.d), rtol=3e-4)

@@ -318,7 +318,7 @@ def test_database_stream_matches_repro():
     """``db.stream`` in both packages: the rows as templates with the
     build envelopes reused (float32, no z-norm), explicit templates with
     their own, the same matches and stats; a multivariate stream raises
-    item 9."""
+    item 9b."""
     cfg = dict(w=W, p=2, block=32)
     tdb = Database.build(TEMPLATES, SearchConfig(**cfg), device="cpu")
     jdb = JDatabase.build(TEMPLATES, JConfig(**cfg))
@@ -334,9 +334,9 @@ def test_database_stream_matches_repro():
     assert_same_stats(tm.stats, jm.stats)
     explicit = tdb.stream(TEMPLATES[:1], threshold=thr, hop=2)
     assert explicit.scanner._upper is not tdb._upper
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         tdb.stream(np.stack([TEMPLATES, TEMPLATES], axis=-1), threshold=thr)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         tstream.StreamMatcher(TEMPLATES, W, thr, d=2, device="cpu")
 
 
