@@ -39,7 +39,10 @@ Phases (any failure raises, exits non-zero and prints no result line):
    schedule, at edge shapes and at long rows, with its stage output, and
    its kim entry (LB_Kim first, the kim_improved loop) to K6's plain
    LB_Kim then K2 + K3 on its short and long-row paths, both grids; the
-   stream entry (K7) to K2 on the copied windows; every schedule of a
+   stream entry (K7) to K2 on the copied windows, its channel entry (K7c,
+   a (d, L) segment) to K2 on the gathered (B, d*n) tile at d in {2, 3,
+   8}, n in {37, 128, 1,000}, hop in {1, 4}, p in {1, 2, inf}, float32
+   and float64, H to its plain version; every schedule of a
    family's tune space to its fallback; the standalone merge kernel
    (block_merge) to its plain version, ties included.  K2 and K3 are also
    timed at Q=16, B=1,024 and at Q=1 (the reference's single-query
@@ -137,12 +140,30 @@ Phases (any failure raises, exits non-zero and prints no result line):
    method (``tc_tri`` on an indexed build, R = 8), each giving ``full``'s
    indices, and an (N, n, 1) build of phase 3's rows with phase 3's
    pruning, top-1 rows and distance bits.
+10. Multivariate streaming and serving: phase 7's configuration at d = 3
+   (``Database.build`` of four (128, 3) templates, ``db.stream(hop=4)``)
+   over three random-walk channels of 262,144 rows (44 minutes of a
+   3-axis accelerometer at 100 Hz) with 128 plants in all channels at
+   the same starts, pushed in 4,096-row chunks and polled; znorm off (S1
+   by K7c over each block's (d, span) segment, once a block) and on (S1
+   by K2 on the copied tile, no K7c).  Each run's matches and counters
+   must equal the offline ``windowed_matches(d=3)``, every plant must be
+   found, every match's distance must be K5c's bits on its pair, and the
+   offline scan of the first 16,384 rows must equal a K5c brute force
+   over every window there; K7c on a few of the session's segments
+   against its plain version, K2 on the tile and the stages' S1.  Then a
+   ``QueryEngine`` (max_batch 16) over phase 9's session serves 32 (315,
+   3) requests from 4 threads (every answer a direct ``db.search``'s
+   bits), and a second engine's ``open_stream`` over a 16-row (128, 3)
+   session gives a direct ``db.stream``'s matches and counters, with
+   ``stream_samples`` counting rows x 3.
 
 Launches are counted per phase (3 build, 3 search, the long-row
 session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
 6 index build and indexed search, each summed over both p, 7 stream
 session, stream offline and stream example, 8 serve, 9 mv build, mv
-search, mv scan and mv d=1),
+search, mv scan and mv d=1, 10 mv stream session, mv stream offline and
+mv serve),
 each from zero, and the untuned ``kim_improved`` and ``kim_webb``
 searches; phase 2's
 comparisons are not counted.  The
@@ -196,7 +217,8 @@ MAIN_TOP1 = [43381, 21115]
 
 TOL = {"envelope": 0.0, "lb_keogh": 1e-4, "lb_improved_pass2": 2e-4, "dtw": 3e-4,
        "lb_kim": 0.0, "lb_kim_features": 0.0, "lb_keogh_stream": 1e-4, "lb_fused": 2e-4,
-       "block_merge": 0.0, "dtw_merge": 0.0, "dtw_mv": 0.0, "dtw_merge_mv": 0.0}
+       "block_merge": 0.0, "dtw_merge": 0.0, "dtw_mv": 0.0, "dtw_merge_mv": 0.0,
+       "lb_keogh_stream_mv": 1e-4}
 SOURCES = {
     "envelope": ("src/repro_torch/csrc/envelope.cu",
                  "src/repro/kernels/envelope/kernel.py:52"),
@@ -222,6 +244,9 @@ SOURCES = {
     # with the merge
     "dtw_mv": ("src/repro_torch/csrc/dtw.cu", "src/repro/kernels/dtw/kernel.py:119"),
     "dtw_merge_mv": ("src/repro_torch/csrc/dtw.cu", "src/repro/kernels/dtw/kernel.py:119"),
+    # K7's channel entry (a d-channel stream segment (d, L), d > 1)
+    "lb_keogh_stream_mv": ("src/repro_torch/csrc/lb_keogh.cu",
+                           "src/repro/kernels/lb_keogh/kernel.py:127"),
 }
 #: kernels on no path of this script, and why
 OFF_PATH = {"block_merge": "its routine (csrc/block_merge.cuh) runs as the epilogue of "
@@ -752,6 +777,7 @@ def phase_kernels_lb(dev, rec):
         lb_keogh_stream_launch,
         lb_keogh_stream_plain,
         materialize_windows,
+        stream_tile,
     )
     from repro_torch.kernels.lb_kim.ops import (
         lb_kim_features_launch,
@@ -874,6 +900,58 @@ def phase_kernels_lb(dev, rec):
                                   shape=f"Q={nq} B={b} n={n} hop=1 p=1")
     log(f"[kernel] lb_keogh_stream ok (bit-equal to K2 on the windows, every tile_b): "
         f"{ms:.4f} ms vs plain {plain:.3f} ms, bound {bnd:.5f} ms ({by})")
+
+    # K7c, K7's channel entry: the windows of a (d, L) segment read in
+    # place, each a flat row of d channel windows; lb and H bit-equal to K2
+    # on the gathered (B, d*n) tile, H to the plain version, lb within
+    # 1e-4 of it (bit-equal at p = inf, where no sum is taken)
+    err, cases = 0.0, 0
+    for dt in (torch.float32, torch.float64):
+        for d in (2, 3, 8):
+            for n_c in (37, 128, LENGTH):
+                qc = walks(4 * d, n_c, dt).reshape(4, d * n_c)
+                uc, lc = envelope_op(qc, max(1, n_c // 10), d)
+                for hop in (1, 4):
+                    segc = walks(d, (b - 1) * hop + n_c + 1, dt)
+                    tile = stream_tile(segc, n_c, hop, d).contiguous()
+                    for p in (1, 2, math.inf):
+                        what = f"d={d} n={n_c} hop={hop} p={p} {dt}"
+                        lb, h = lb_keogh_stream_launch(segc, uc, lc, n_c, hop, p, d=d)
+                        plb, ph = lb_keogh_stream_plain(segc, uc, lc, n_c, hop, p, d=d)
+                        e = check_close("lb_keogh_stream_mv", lb, plb,
+                                        TOL["lb_keogh_stream_mv"], what)
+                        err = max(err, e) if (dt, p) == (torch.float32, 1) else err
+                        if p == math.inf:
+                            check_equal("lb_keogh_stream_mv", lb, plb, f"{what} lb")
+                        check_equal("lb_keogh_stream_mv", h, ph, f"{what} H")
+                        check_equal("lb_keogh_stream_mv", (lb, h),
+                                    lb_keogh_launch(tile, uc, lc, p), f"{what} vs K2 on the tile")
+                        if (d, n_c, hop) == (3, 128, 4):
+                            for cfg in search_space("lb_keogh"):
+                                check_equal("lb_keogh_stream_mv", lb_keogh_stream_launch(
+                                    segc, uc, lc, n_c, hop, p, cfg.tile_b, d=d), (lb, h),
+                                    f"{what} tile_b={cfg.tile_b}")
+                        cases += 1
+    # timed at the mv stream session's block: Q=4, B=64, (128, 3), hop 4, p=2
+    nq_s, b_s, n_s, d_s, hop_s = 4, 64, 128, 3, 4
+    qc = walks(nq_s * d_s, n_s).reshape(nq_s, d_s * n_s)
+    uc, lc = envelope_op(qc, 12, d_s)
+    segc = walks(d_s, (b_s - 1) * hop_s + n_s)
+    ms = time_ms(lambda: lb_keogh_stream_launch(segc, uc, lc, n_s, hop_s, 2, d=d_s))
+    dms = device_ms(lambda: lb_keogh_stream_launch(segc, uc, lc, n_s, hop_s, 2, d=d_s))
+    plain = time_ms(lambda: lb_keogh_stream_plain(segc, uc, lc, n_s, hop_s, 2, d=d_s),
+                    iters=10)
+    flat = nq_s * b_s * d_s * n_s
+    bnd, by = bound_ms(4 * (segc.numel() + 2 * nq_s * d_s * n_s + nq_s * b_s + flat), 8 * flat)
+    rec["lb_keogh_stream_mv"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+        device_ms=dms, shape=f"Q={nq_s} B={b_s} d={d_s} n={n_s} hop={hop_s} p=2",
+        tolerance="bit-equal to K2 on the gathered tile; H bit-equal and lb rtol 1e-4 to "
+                  "the plain version (bit-equal at p = inf)")
+    log(f"[kernel] lb_keogh_stream_mv ok ({cases} cases: d in {{2, 3, 8}}, n in {{37, 128, "
+        f"{LENGTH}}}, hop in {{1, 4}}, p in {{1, 2, inf}}, float32 and float64; bit-equal "
+        f"to K2 on the gathered tile, every tile_b): {ms:.4f} ms per call, {dms:.5f} ms on "
+        f"the device vs plain {plain:.3f} ms, bound {bnd:.6f} ms ({by})")
 
     # K4 fused LB, one warp per pair: bounds at each query's median lb1
     # (about half the lanes reach pass 2), query 0 with no live lane, read
@@ -2150,16 +2228,19 @@ def captured_blocks(keep_first: int = 2, keep_dtw: int = 2):
 
 def check_stream_blocks(tag, scanner, blocks):
     """A stream session's kernels held against their plain versions on
-    blocks the session ran, at its own shapes: K7 on the block's flat
-    segment (lb rtol 1e-4, H bit-equal; bit-equal to K2 on the tile and to
-    the values the stages used), K2 dense and on the S0 survivors' pairs,
-    K3 (rtol 2e-4) on both, and K5 dense (bit-equal to
+    blocks the session ran, at its own shapes and channel count d: K7 (K7c
+    at d > 1) on the block's (d, span) segment (lb rtol 1e-4, H bit-equal;
+    bit-equal to K2 on the tile and to the values the stages used), K2
+    dense and on the S0 survivors' pairs, K3 (rtol 2e-4; at d > 1 over the
+    channel segments folded into its rows, as the stages launch it) on
+    both, and K5 (its channel entry at d > 1) dense (bit-equal to
     ``dtw_wavefront_plain``, rtol 3e-4 to ``dtw_plain``) and on the
     survivors' pairs with the gate as each lane's bound (bit-equal)."""
     import torch
 
     from repro_torch.kernels.dtw.ops import dtw_launch, dtw_plain, dtw_wavefront_plain
     from repro_torch.kernels.lb_improved.ops import (
+        _folded_qidx,
         lb_improved_pass2_launch,
         lb_improved_pass2_plain,
     )
@@ -2172,12 +2253,28 @@ def check_stream_blocks(tag, scanner, blocks):
 
     sc = scanner
     qs, upper, lower, w, p, n, hop = sc._qs, sc._upper, sc._lower, sc.w, sc.p, sc.n, sc.hop
-    gate = sc._gate
+    d, gate = sc.d, sc._gate
+    k7, k5 = ("lb_keogh_stream_mv", "dtw_mv") if d > 1 else ("lb_keogh_stream", "dtw")
+    nq = qs.shape[0]
+
+    def check_k3(h, qidx, what):
+        """K3 on H as the stages launch it: dense at d = 1, else over the
+        (rows*d, n) channel segments with each row's folded query index."""
+        if d == 1:
+            args = (h, qs, w, p) if qidx is None else (h, qs, w, p, qidx)
+        else:
+            ch = torch.arange(d, device=h.device)
+            qi = (_folded_qidx(nq, h.shape[1], d, h.device) if qidx is None
+                  else (qidx[:, None] * d + ch).reshape(-1))
+            args = (h.reshape(-1, n), qs.reshape(nq * d, n), w, p, qi)
+        check_close("lb_improved_pass2", lb_improved_pass2_launch(*args),
+                    lb_improved_pass2_plain(*args), TOL["lb_improved_pass2"], what)
+
     if not blocks:
         fail(f"{tag} no block was captured")
     for b in blocks:
         blk = b["blk"]
-        what = (f"{tag} block {b['index']} (Q={qs.shape[0]} B={blk.shape[0]} n={n} "
+        what = (f"{tag} block {b['index']} (Q={nq} B={blk.shape[0]} n={n} d={d} "
                 f"hop={hop} w={w} p={p})")
         lb, h = lb_keogh_launch(blk, upper, lower, p)
         lbp, hp = lb_keogh_plain(blk, upper, lower, p)
@@ -2185,20 +2282,20 @@ def check_stream_blocks(tag, scanner, blocks):
         check_close("lb_keogh", h, hp, 0.0, f"{what} H")
         if sc.stream_first:
             if b["seg"] is None:
-                fail(f"{what}: S1 did not come from K7")
-            slb, sh = lb_keogh_stream_launch(b["seg"], upper, lower, n, hop, p)
-            plb, ph = lb_keogh_stream_plain(b["seg"], upper, lower, n, hop, p)
-            check_close("lb_keogh_stream", slb, plb, TOL["lb_keogh_stream"], what)
-            check_equal("lb_keogh_stream", sh, ph, f"{what} H")
-            check_equal("lb_keogh_stream", (slb, sh), (lb, h), f"{what} vs K2 on the tile")
-            check_equal("lb_keogh_stream", b["first"], slb, f"{what} vs the stages' S1")
+                fail(f"{what}: S1 did not come from {k7}")
+            slb, sh = lb_keogh_stream_launch(b["seg"], upper, lower, n, hop, p, d=d)
+            plb, ph = lb_keogh_stream_plain(b["seg"], upper, lower, n, hop, p, d=d)
+            check_close(k7, slb, plb, TOL[k7], what)
+            check_equal(k7, sh, ph, f"{what} H")
+            check_equal(k7, (slb, sh), (lb, h), f"{what} vs K2 on the tile")
+            check_equal(k7, b["first"], slb, f"{what} vs the stages' S1")
         elif b["seg"] is not None:
-            fail(f"{what}: K7 ran where S1 is K2's")
-        check_close("lb_improved_pass2", lb_improved_pass2_launch(h, qs, w, p),
-                    lb_improved_pass2_plain(h, qs, w, p), TOL["lb_improved_pass2"], what)
-        d = dtw_launch(qs, blk, w, p)
-        check_equal("dtw", d, dtw_wavefront_plain(qs, blk, w, p), f"{what} vs wavefront plain")
-        check_close("dtw", d, dtw_plain(qs, blk, w, p), TOL["dtw"], f"{what} vs dtw_plain")
+            fail(f"{what}: {k7} ran where S1 is K2's")
+        check_k3(h, None, what)
+        dd = dtw_launch(qs, blk, w, p, d=d)
+        check_equal(k5, dd, dtw_wavefront_plain(qs, blk, w, p, d=d),
+                    f"{what} vs wavefront plain")
+        check_close(k5, dd, dtw_plain(qs, blk, w, p, d=d), TOL["dtw"], f"{what} vs dtw_plain")
         qi, ci = b["mask0"].nonzero(as_tuple=True)
         if qi.numel():
             what = f"{what}, {qi.numel()} S0 survivors"
@@ -2206,17 +2303,18 @@ def check_stream_blocks(tag, scanner, blocks):
             lbp, hp = lb_keogh_plain(blk, upper, lower, p, qi, ci)
             check_close("lb_keogh", lb, lbp, TOL["lb_keogh"], f"{what} pairs")
             check_close("lb_keogh", h, hp, 0.0, f"{what} pairs H")
-            check_close("lb_improved_pass2", lb_improved_pass2_launch(h, qs, w, p, qi),
-                        lb_improved_pass2_plain(h, qs, w, p, qi),
-                        TOL["lb_improved_pass2"], f"{what} pairs")
+            check_k3(h, qi, f"{what} pairs")
             bounds = gate[qi].contiguous()
-            check_equal("dtw", dtw_launch(qs, blk, w, p, qi, ci, bounds),
-                        dtw_wavefront_plain(qs, blk, w, p, qi, ci, bounds),
+            check_equal(k5, dtw_launch(qs, blk, w, p, qi, ci, bounds, d=d),
+                        dtw_wavefront_plain(qs, blk, w, p, qi, ci, bounds, d=d),
                         f"{what} pairs with the gate as bound")
-    log(f"{tag} {len(blocks)} of the session's blocks (Q={qs.shape[0]} B={sc.block} n={n} "
+    k7_name = "K7c" if d > 1 else "K7"
+    log(f"{tag} {len(blocks)} of the session's blocks (Q={nq} B={sc.block} n={n} d={d} "
         f"hop={hop} w={w} p={p}): "
-        + ("K7 == plain == K2 on the tile == the stages' S1; " if sc.stream_first else "")
-        + "K2, K3 and K5, dense and on the S0 survivors' pairs, == their plain versions")
+        + (f"{k7_name} == plain == K2 on the tile == the stages' S1; " if sc.stream_first
+           else "")
+        + ("K2, K3 and K5" if d == 1 else "K2, the folded K3 and K5's channel entry")
+        + ", dense and on the S0 survivors' pairs, == their plain versions")
 
 
 def subnormal_envelope_check(dev):
@@ -2847,8 +2945,8 @@ def phase_mv(dev, launches, main, rec):
         f"dtw_reference_mv: max rel err {worst:.3g}; early_abandon=True: the same indices "
         f"and distance bits")
     mv_block_checks(dev, db, qs, res, rec)
+    kept = {"db": db, "x": x}  # phase 10 serves this session
     del db, x
-    torch.cuda.empty_cache()
 
     # the scan route: every method gives full's indices; tc_tri indexed
     rows, n2, d2 = MV_SCAN
@@ -2903,6 +3001,310 @@ def phase_mv(dev, launches, main, rec):
         f"{r1.stats.full_dtw}, top-1 {r1.indices[:2, 0].tolist()}, phase 3's distance bits")
     del db1
     log(f"[mv] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return kept
+
+
+# ------------------------------------------------------------- phase 10
+
+#: the multivariate stream session, phase 7's configuration at d = 3: rows
+#: (44 minutes of a 3-axis accelerometer at 100 Hz, 3 MB), rows a push,
+#: hop, plants, template length n and channels d
+MV_STREAM = (262_144, 4096, 4, 128, 128, 3)
+#: the rows the K5c brute force covers (every window there)
+MV_STREAM_HEAD = 16_384
+#: the noise on a plant, and the rooted thresholds (p = 2), znorm off and on
+MV_PLANT_NOISE = 0.02
+MV_THRESHOLDS = {False: 2.0, True: 3.0}
+#: the mv serve: requests of phase 9's (315, 3), client threads, max_batch;
+#: the second engine's session rows (of (128, 3)) and its stream's rows
+MV_SERVE = (32, 4, 16)
+MV_SERVE_STREAM = (16, 65_536)
+
+
+def mv_stream_data(rng):
+    """Four (128, 3) templates (channel c of template t is the bank's shape
+    (t + c) % 4) and a stream of three random-walk channels, the templates
+    planted in all channels at the same starts (multiples of the hop, one
+    template length apart at least), replacing the walk, with a little
+    noise.  Returns (templates, stream (rows, 3), plants [(tid, start)])."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import random_walks, template_bank
+
+    n_rows, _, hop, n_plants, n, d = MV_STREAM
+    bank = template_bank(n, kinds=("sine", "cosine", "gaussian", "gaussian_inverted"))
+    templates = np.stack([np.stack([bank[(t + c) % 4] for c in range(d)], axis=1)
+                          for t in range(4)]).astype(np.float32)
+    stream = np.ascontiguousarray(random_walks(rng, d, n_rows).T)
+    plants = []
+    for slot in sorted(rng.choice(n_rows // (2 * n), size=n_plants, replace=False)):
+        pos = int(slot) * 2 * n + hop * int(rng.integers(0, n // (2 * hop) + 1))
+        tid = int(rng.integers(0, len(templates)))
+        noise = MV_PLANT_NOISE * rng.standard_normal((n, d)).astype(np.float32)
+        stream[pos : pos + n] = templates[tid] + noise
+        plants.append((tid, pos))
+    return templates, stream, plants
+
+
+def mv_rows_of(templates, stream, starts, znorm):
+    """The flattened (Q, d*n) template rows and the (B, d*n) window rows at
+    ``starts``, channel-major, z-normalized per channel as the scanner
+    does it (the templates by ``znorm_series``, the windows from float64
+    prefix sums) where ``znorm``."""
+    import numpy as np
+
+    from repro_torch.mv.layout import flatten_channels
+    from repro_torch.stream import (
+        prefix_sums,
+        window_mean_std_from_prefix,
+        znorm_series,
+        znorm_windows,
+    )
+
+    q, n, d = templates.shape
+    qrows = np.ascontiguousarray(flatten_channels(templates))
+    if znorm:
+        qrows = np.stack([znorm_series(r) for r in qrows.reshape(q * d, n)]).reshape(q, d * n)
+    parts = []
+    for c in range(d):
+        col = np.ascontiguousarray(stream[:, c])
+        wins = np.lib.stride_tricks.sliding_window_view(col, n)[starts]
+        if znorm:
+            wins = znorm_windows(wins, *window_mean_std_from_prefix(*prefix_sums(col), starts,
+                                                                     n))
+        parts.append(np.asarray(wins, np.float32))
+    return qrows, np.concatenate(parts, axis=1)
+
+
+def phase_mv_stream_serve(dev, launches, mv):
+    """Multivariate streaming and serving: a (128, 3) template bank over a
+    3-channel planted stream, znorm off (S1 by K7c) and on (S1 by K2 on the
+    copied tile), each equal to the offline scan, to K5c on every match's
+    pair and, over the head, to a K5c brute force; then a QueryEngine over
+    phase 9's session and one over a 16-row session's stream."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Database, SearchConfig
+    from repro_torch.kernels.dtw.ops import dtw_pairs_op, dtw_qbatch_op
+    from repro_torch.launch.serve import replay
+    from repro_torch.serve import QueryEngine
+    from repro_torch.stream import Match, greedy_suppress, windowed_matches
+    from repro_torch.stream.subsequence import finish_np, powered_threshold
+
+    t_phase = time.perf_counter()
+    n_rows, chunk, hop, _, n, d = MV_STREAM
+    rng = np.random.default_rng(SEED + 11)
+    templates, stream, plants = mv_stream_data(rng)
+    base = SearchConfig(w=12, p=2, block=64, method="lb_improved")
+    p = base.p
+    key = lambda h: (h.tid, h.start)  # noqa: E731
+    for znorm in (False, True):
+        tag = f"[mv stream znorm={znorm}]"
+        db = Database.build(templates, dataclasses.replace(base, znorm=znorm))
+        thr = MV_THRESHOLDS[znorm]
+        before = dict(launches.get("mv stream session", {}))
+
+        spent = {"lanes": 0.0, "block": 0.0}
+
+        def run(part=stream):
+            t0 = time.perf_counter()
+            m = db.stream(threshold=thr, hop=hop)
+            sc = m.scanner
+            lanes_fn, block_fn = sc._window_lanes, sc.process_block
+            spent.update(lanes=0.0, block=0.0)
+
+            def timed_lanes(*a):  # the block's lanes and S0, on the host
+                t = time.perf_counter()
+                out = lanes_fn(*a)
+                spent["lanes"] += time.perf_counter() - t
+                return out
+
+            def timed_block(*a):
+                t = time.perf_counter()
+                out = block_fn(*a)
+                spent["block"] += time.perf_counter() - t
+                return out
+
+            sc._window_lanes, sc.process_block = timed_lanes, timed_block
+            polled = []
+            for lo in range(0, part.shape[0], chunk):
+                m.push(part[lo : lo + chunk])
+                polled += m.poll()
+            m.flush()
+            polled += m.poll()
+            torch.cuda.synchronize()
+            return m, polled, time.perf_counter() - t0
+
+        with captured_blocks() as sample:
+            m, polled, run_s = counted(launches, "mv stream session", run)
+        lanes_s, block_s = spent["lanes"], spent["block"]
+        got = {k: v - before.get(k, 0) for k, v in launches["mv stream session"].items()}
+        s = m.stats
+        blocks = s.blocks_total
+        hits = m.matches()
+        if sorted(polled, key=lambda h: (h.start, h.tid)) != hits:
+            fail(f"{tag} the polled matches differ from matches()")
+        if not np.array_equal(s.env_pruned + s.stage_pruned.sum(axis=0) + s.full_dtw,
+                              s.n_windows):
+            fail(f"{tag} env + stages + dtw != windows: {s}")
+        want_k7c = 0 if znorm else blocks
+        if (got["lb_keogh_stream_mv"], got["lb_keogh_stream"]) != (want_k7c, 0):
+            fail(f"{tag} S1: {got['lb_keogh_stream_mv']} K7c and {got['lb_keogh_stream']} K7 "
+                 f"launches in {blocks} blocks, expected {want_k7c} and 0")
+        # the offline scan: the same matches and counters (S0 and S1 may
+        # split the same lanes otherwise: the live stream's tail envelopes
+        # are right-truncated, so only their sum is held)
+        t0 = time.perf_counter()
+        offline, ostats = counted(launches, "mv stream offline", lambda: windowed_matches(
+            stream, templates, db.w, thr, p=p, hop=hop, znorm=znorm, block=base.block, d=d,
+            device=dev))
+        offline_s = time.perf_counter() - t0
+        if offline != hits:
+            fail(f"{tag} streamed matches != offline windowed_matches(d={d})")
+        same = all(np.array_equal(getattr(s, f), getattr(ostats, f))
+                   for f in ("n_windows", "full_dtw", "matched"))
+        same &= np.array_equal(s.stage_pruned[1:], ostats.stage_pruned[1:])
+        same &= np.array_equal(s.env_pruned + s.stage_pruned[0],
+                               ostats.env_pruned + ostats.stage_pruned[0])
+        same &= all(getattr(s, f) == getattr(ostats, f) for f in (
+            "blocks_total", "blocks_lb2", "blocks_dtw", "dp_lane_work", "dp_lane_useful"))
+        if not same:
+            fail(f"{tag} stats differ from the offline scan's: {s} vs {ostats}")
+        found = sum(any(h.tid == tid and abs(h.start - pos) <= 2 * hop for h in hits)
+                    for tid, pos in plants)
+        exact = sum((tid, pos) in {key(h) for h in hits} for tid, pos in plants)
+        if found != len(plants):
+            fail(f"{tag} found {found} of {len(plants)} plants")
+        # every match's distance: K5c on its pair, the same bits
+        qrows, wrows = mv_rows_of(templates, stream, np.array([h.start for h in hits]), znorm)
+        qs_t = torch.as_tensor(qrows, device=dev)
+        tids = torch.as_tensor([h.tid for h in hits], device=dev)
+        pair_d = dtw_pairs_op(qs_t, torch.as_tensor(wrows, device=dev), tids,
+                              torch.arange(len(hits), device=dev), db.w, p, d=d)
+        rooted = finish_np(pair_d.cpu().numpy().astype(np.float64), p)
+        if rooted.tolist() != [h.dist for h in hits]:
+            fail(f"{tag} match distances are not K5c's bits on their pairs")
+        # the head: the offline scan against a K5c brute force over every window
+        head = stream[:MV_STREAM_HEAD]
+        starts = np.arange(0, MV_STREAM_HEAD - n + 1, hop)
+        _, hrows = mv_rows_of(templates, head, starts, znorm)
+        brute = dtw_qbatch_op(qs_t, torch.as_tensor(hrows, device=dev), db.w, p, d=d)
+        bd = brute.cpu().numpy()
+        hit = bd <= powered_threshold(np.full(len(templates), thr), p)[:, None]
+        brooted = finish_np(bd.astype(np.float64), p)
+        braw = [Match(int(q), int(starts[b]), float(brooted[q, b])) for q, b in zip(*np.nonzero(hit))]
+        bmatches = greedy_suppress(braw, m.exclusion)
+        hmatches, _ = counted(launches, "mv stream offline", lambda: windowed_matches(
+            head, templates, db.w, thr, p=p, hop=hop, znorm=znorm, block=base.block, d=d,
+            device=dev))
+        if hmatches != bmatches:
+            fail(f"{tag} the first {MV_STREAM_HEAD:,} rows' matches != a K5c brute force "
+                 f"over their {len(templates) * starts.size:,} windows")
+        # idle share: a quarter of the stream, profiled
+        walls = []
+
+        def part_run():
+            walls.append(run(stream[: n_rows // 4])[2])
+
+        prof = profiled_kernels(part_run, f"{tag} profiled quarter")
+        busy = sum(us for us, _ in prof.values()) / 1e3
+        idle = (f"idle share {1 - busy / (walls[-1] * 1e3):.3f} (device busy {busy:.1f} ms of "
+                f"{walls[-1] * 1e3:.1f} ms over {n_rows // 4:,} rows)" if prof
+                else "idle share not measured (the profiler saw no device time)")
+        windows = int(s.n_windows[0])
+        log(f"{tag} {n_rows:,} rows x {d} channels in {chunk}-row chunks, {windows:,} windows x "
+            f"{s.n_templates} templates in {blocks} blocks: {run_s:.2f} s = "
+            f"{n_rows / run_s:,.0f} rows/s = {n_rows * d / run_s:,.0f} values/s, "
+            f"{run_s / blocks * 1e3:.3f} ms a block; {idle}")
+        log(f"{tag} per block: lanes and S0 on the host {lanes_s / blocks * 1e3:.3f} ms, "
+            f"uploads + stages + syncs + copy back {(block_s - lanes_s) / blocks * 1e3:.3f} "
+            f"ms, the rest (pushes into {d} StreamStates, polls, exclusion) "
+            f"{(run_s - block_s) / blocks * 1e3:.3f} ms")
+        log(f"{tag} matches {len(hits)} (raw hits {int(s.matched.sum())}), plants found "
+            f"{found}/{len(plants)} ({exact} at their exact start); pruned S0 "
+            f"{int(s.env_pruned.sum()):,}, "
+            + ", ".join(f"{k} {int(v.sum()):,}" for k, v in s.pruned_by.items())
+            + f", dtw {int(s.full_dtw.sum()):,} of {int(s.n_windows.sum()):,} lanes; launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        log(f"{tag} == offline windowed_matches(d={d}) ({offline_s:.2f} s; counters equal, S0 "
+            f"{'equal' if np.array_equal(s.env_pruned, ostats.env_pruned) else 'split otherwise'})"
+            f"; every match's distance == K5c on its pair, bit for bit; the first "
+            f"{MV_STREAM_HEAD:,} rows' {len(hmatches)} matches == a K5c brute force over "
+            f"{len(templates) * starts.size:,} windows")
+        check_stream_blocks(tag, m.scanner, sample)
+        del db, m
+    require_launched(launches, "mv stream session", ("lb_keogh_stream_mv", "lb_keogh",
+                                                     "dtw_mv"), "mv stream session")
+
+    # serve: phase 9's session behind a QueryEngine, and a second engine's
+    # stream session over a 16-row (128, 3) session
+    mv_db, x = mv["db"], mv["x"]
+    n_req, n_clients, max_batch = MV_SERVE
+    n_tpl, s_rows = MV_SERVE_STREAM
+    workload = mv_walks(rng, n_req, mv_db.length, mv_db.channels)
+    near = rng.integers(0, x.shape[0], n_req // 2)
+    workload[::2] = x[near] + 0.1 * rng.standard_normal(x[near].shape).astype(np.float32)
+    rows16 = np.concatenate([templates, mv_walks(rng, n_tpl - len(templates), n, d)])
+    db16 = Database.build(rows16, base)
+    signal = stream[:s_rows]
+
+    def serve():
+        engine = QueryEngine(mv_db, max_batch=max_batch)
+        t0 = time.perf_counter()
+        served = replay(engine, workload, n_clients)
+        q_s = time.perf_counter() - t0
+        stats = engine.stats()
+        engine.close()
+        eng16 = QueryEngine(db16, max_batch=4)
+        sess = eng16.open_stream(threshold=MV_THRESHOLDS[False], hop=hop)
+        streamed = []
+        t0 = time.perf_counter()
+        for lo in range(0, s_rows, chunk):
+            streamed += sess.feed(signal[lo : lo + chunk])
+        streamed += sess.close()
+        stream_s = time.perf_counter() - t0
+        stats16 = eng16.stats()
+        eng16.close()
+        torch.cuda.synchronize()
+        return served, q_s, stats, sess, streamed, stream_s, stats16
+
+    with captured_blocks() as sample:
+        served, q_s, stats, sess, streamed, stream_s, stats16 = counted(launches, "mv serve",
+                                                                        serve)
+    direct = mv_db.search(workload)
+    for qi, _, ans in served:
+        if not (np.array_equal(ans.distances, direct.distances[qi])
+                and np.array_equal(ans.indices, direct.indices[qi])):
+            fail(f"[mv serve] request {qi}: the engine's answer is not a direct db.search's")
+    ref = db16.stream(threshold=MV_THRESHOLDS[False], hop=hop)
+    for lo in range(0, s_rows, chunk):
+        ref.push(signal[lo : lo + chunk])
+    ref.flush()
+    if sorted(streamed, key=lambda h: (h.start, h.tid)) != ref.matches():
+        fail("[mv serve] the stream session's matches differ from a direct db.stream's")
+    for f in ("n_windows", "env_pruned", "stage_pruned", "full_dtw", "matched"):
+        if not np.array_equal(getattr(sess.stats, f), getattr(ref.stats, f)):
+            fail(f"[mv serve] the stream session's {f} differs from a direct db.stream's")
+    if stats16.stream_samples != s_rows * d:
+        fail(f"[mv serve] stream_samples {stats16.stream_samples} != {s_rows} rows x {d}")
+    lat_ms = np.sort([1e3 * dt for _, dt, _ in served])
+    log(f"[mv serve] {len(served)} requests of ({mv_db.length}, {mv_db.channels}) from "
+        f"{n_clients} clients (max_batch {max_batch}) over {mv_db.n_rows:,} rows in "
+        f"{q_s:.3f} s = {len(served) / q_s:.2f} qps; latency p50 "
+        f"{np.percentile(lat_ms, 50):.1f} ms, p99 {np.percentile(lat_ms, 99):.1f} ms; batches "
+        f"{stats.batches}, occupancy {stats.batch_occupancy:.2f}; every answer == a direct "
+        f"db.search (indices and distance bits)")
+    log(f"[mv serve] open_stream on a {n_tpl}-row ({n}, {d}) session: {s_rows:,} rows in "
+        f"{stream_s:.2f} s = {s_rows / stream_s:,.0f} rows/s, {len(streamed)} matches == a "
+        f"direct db.stream's, stats equal, stream_samples {stats16.stream_samples:,} = rows x "
+        f"{d}; launches {({k: v for k, v in launches['mv serve'].items() if v})}")
+    require_launched(launches, "mv serve", ("lb_keogh", "lb_improved_pass2", "dtw_merge_mv",
+                                            "lb_keogh_stream_mv"), "mv serve")
+    check_stream_blocks("[mv serve stream]", sess.matcher.scanner, sample)
+    log(f"[mv stream] phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2945,7 +3347,9 @@ def main() -> int:
     timed("7 stream session", phase_stream_session, dev, launches)
     timed("8 serve", phase_serve, dev, launches, main_out)
     timed("8 stream and serve CLIs", phase_stream_serve_cli)
-    timed("9 multivariate", phase_mv, dev, launches, main_out, rec)
+    mv_out = timed("9 multivariate", phase_mv, dev, launches, main_out, rec)
+    timed("10 mv stream and serve", phase_mv_stream_serve, dev, launches, mv_out)
+    del mv_out
     log("[time] seconds by phase: " + "; ".join(f"{k} {v:.1f}" for k, v in spent.items()))
     kernels = []
     for name, r in rec.items():

@@ -52,7 +52,7 @@ from repro_torch.core.cascade import (
     nn_search_indexed,
     nn_search_scan,
 )
-from repro_torch.core.pipeline import MV_STREAM_ITEM, not_ported
+from repro_torch.core.pipeline import not_ported
 from repro_torch.index.build import TriangleIndex, build_index
 from repro_torch.index.store import index_arrays, index_from_arrays
 from repro_torch.kernels.common import resolve_device
@@ -573,13 +573,12 @@ class Database:
         and the build-time envelopes are reused — constructing matchers
         per signal stops re-deriving them.  Explicit ``templates`` get
         their envelopes computed on construction (the envelope kernel).
-        Multivariate streaming (a d-channel session, or templates (Q, n,
-        d > 1)) is not ported yet and raises.
+        A d-channel session streams d-channel signals: its rows (N, n, d)
+        are the bank, explicit templates are (n, d) or (Q, n, d), and
+        ``push`` takes (m, d) chunks.
         """
         from repro_torch.stream.matcher import StreamMatcher
 
-        if self.d > 1:
-            raise not_ported(f"a multivariate stream (d={self.d})", MV_STREAM_ITEM)
         cfg, _ = self._resolve_method(self.config)
         envelopes = None
         if templates is None:
@@ -591,10 +590,6 @@ class Database:
                 not self.config.znorm or eps == STD_EPS
             ):
                 envelopes = (self._upper, self._lower)
-        else:
-            shape = np.shape(templates)
-            if len(shape) == 3 and shape[-1] > 1:
-                raise not_ported(f"a multivariate stream (d={shape[-1]})", MV_STREAM_ITEM)
         return StreamMatcher(
             templates,
             self.w,
@@ -609,6 +604,7 @@ class Database:
             capacity=capacity,
             eps=eps,
             envelopes=envelopes,
+            d=self.d,
             device=self.device,
         )
 

@@ -59,10 +59,6 @@ Method = Literal[
     "tc_box", "tc_tri",
 ]
 
-#: the ROADMAP.md queue-1 item that ports multivariate streaming and serving
-MV_STREAM_ITEM = "9b (multivariate streaming and serving)"
-
-
 def not_ported(what: str, item: str) -> NotImplementedError:
     """The error for a reference feature a later slice of the port adds."""
     return NotImplementedError(

@@ -36,6 +36,16 @@
 // Candidate row c starts at cands + c * cstride: cstride = n for a (B, n)
 // batch, and the hop for the windows of a flat stream segment (K7), which
 // are never copied out of it.
+//
+// K7's channel entry (K7c, repro_lb_keogh_stream_mv) serves a d-channel
+// stream: the segment is (d, L), one row per channel (row stride
+// cstride >= L), and window b's flat row of d * n values is, at index j,
+// segment[j / n][b * hop + j % n], the channel-major layout of the
+// templates' envelopes (Q, d * n).  It runs keogh_pair_batched over that
+// flat row (CH: the loads follow the channel rows), so lb and H are
+// bit-equal to K2 on the gathered (B, d * n) tile.  The reference has no
+// kernel at d > 1: its scanner copies the windows and runs K2's function
+// on them (repro/stream/subsequence.py).  d = 1 launches K7 unchanged.
 #include "lb_routines.cuh"
 
 namespace repro {
@@ -58,25 +68,65 @@ __global__ void lb_keogh_kernel(const T* __restrict__ cands,
   if (lane == 0) lb[pair] = acc;
 }
 
+// K7c: window b of a (d, L) segment against query q; pair = q * nb + b.
+template <typename T, int P>
+__global__ void lb_keogh_stream_mv_kernel(const T* __restrict__ segment,
+                                          const T* __restrict__ upper,
+                                          const T* __restrict__ lower, int64_t npairs,
+                                          int64_t nb, int64_t hop, int64_t cstride, int n,
+                                          int d, T* __restrict__ lb, T* __restrict__ h) {
+  const int lane = threadIdx.x & 31;
+  const int64_t pair = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (pair >= npairs) return;
+  const int64_t q = pair / nb, b = pair % nb;
+  const int flat = d * n;
+  const T acc = keogh_pair_batched<T, P, true>(segment + b * hop, upper + q * flat,
+                                               lower + q * flat, h + pair * flat, flat,
+                                               lane, n, cstride);
+  if (lane == 0) lb[pair] = acc;
+}
+
+// The warps a block of `kernel` may hold: `warps`, capped at what the
+// kernel's registers allow (the float64 batches of loads take more than 64
+// a thread, so not 32 warps); fewer warps a block change no output bit.
+// No launch bound instead: one (1,024) slowed the float32 kernel by 8-16%
+// (tools/ab_lb_pass.py).  `max_warps` caches the cap per kernel.
+template <typename Kernel>
+cudaError_t cap_warps(Kernel kernel, int& warps, int& max_warps) {
+  if (warps < 1 || warps > 32) return cudaErrorInvalidValue;
+  if (max_warps == 0) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    max_warps = attr.maxThreadsPerBlock / 32;
+  }
+  if (warps > max_warps) warps = max_warps;
+  return cudaSuccess;
+}
+
+template <typename T, int P>
+cudaError_t launch_lb_keogh_stream_mv(const T* segment, const T* upper, const T* lower,
+                                      int64_t nq, int64_t nb, int64_t hop,
+                                      int64_t cstride, int n, int d, int warps, T* lb,
+                                      T* h, cudaStream_t s) {
+  static int max_warps = 0;
+  const cudaError_t err = cap_warps(lb_keogh_stream_mv_kernel<T, P>, warps, max_warps);
+  if (err != cudaSuccess) return err;
+  const int64_t npairs = nq * nb;
+  const unsigned blocks = (unsigned)((npairs + warps - 1) / warps);
+  lb_keogh_stream_mv_kernel<T, P><<<blocks, 32 * warps, 0, s>>>(
+      segment, upper, lower, npairs, nb, hop, cstride, n, d, lb, h);
+  return cudaGetLastError();
+}
+
 template <typename T, int P>
 cudaError_t launch_lb_keogh(const T* cands, const T* upper, const T* lower,
                             const int64_t* qidx, const int64_t* cidx,
                             int64_t npairs, int64_t bstride, int64_t cstride,
                             int n, int warps, T* lb, T* h, cudaStream_t s) {
-  if (warps < 1 || warps > 32) return cudaErrorInvalidValue;
-  // A block of `warps` pairs cannot pass what the kernel's registers
-  // allow (the float64 batches of loads take more than 64 a thread, so
-  // not 32 warps): fewer warps a block change no output bit.  No launch
-  // bound instead: one (1,024) slowed the float32 kernel by 8-16%
-  // (tools/ab_lb_pass.py).
   static int max_warps = 0;
-  if (max_warps == 0) {
-    cudaFuncAttributes attr;
-    const cudaError_t err = cudaFuncGetAttributes(&attr, lb_keogh_kernel<T, P>);
-    if (err != cudaSuccess) return err;
-    max_warps = attr.maxThreadsPerBlock / 32;
-  }
-  if (warps > max_warps) warps = max_warps;
+  const cudaError_t err = cap_warps(lb_keogh_kernel<T, P>, warps, max_warps);
+  if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)((npairs + warps - 1) / warps);
   lb_keogh_kernel<T, P><<<blocks, 32 * warps, 0, s>>>(
       cands, upper, lower, qidx, cidx, npairs, bstride, cstride, n, lb, h);
@@ -116,5 +166,24 @@ extern "C" int repro_lb_keogh_stream(int dtype, int pcode, const void* segment,
         static_cast<const T*>(segment), static_cast<const T*>(upper),
         static_cast<const T*>(lower), nullptr, nullptr, nq * nb, nb, hop, n,
         warps, static_cast<T*>(lb), static_cast<T*>(h), s));
+  return (int)cudaGetLastError();
+}
+
+// K7c: segment (d rows of >= (nb - 1) * hop + n values, row stride
+// cstride); window b's flat row is segment[j / n][b * hop + j % n] for
+// j < d * n.  upper, lower (Q, d * n); lb (Q, nb); h (Q, nb, d * n).
+extern "C" int repro_lb_keogh_stream_mv(int dtype, int pcode, const void* segment,
+                                        int64_t cstride, const void* upper,
+                                        const void* lower, int64_t nq, int64_t nb,
+                                        int64_t hop, int n, int d, int warps, void* lb,
+                                        void* h, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nq * nb == 0) return (int)cudaGetLastError();
+  if (d < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  REPRO_DISPATCH(dtype, pcode,
+    return (int)repro::launch_lb_keogh_stream_mv<T, P>(
+        static_cast<const T*>(segment), static_cast<const T*>(upper),
+        static_cast<const T*>(lower), nq, nb, hop, cstride, n, d, warps,
+        static_cast<T*>(lb), static_cast<T*>(h), s));
   return (int)cudaGetLastError();
 }

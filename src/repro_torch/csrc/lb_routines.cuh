@@ -62,12 +62,17 @@ __device__ __forceinline__ T keogh_pair(const T* __restrict__ cr,
 // through the read-only path (a block's warps share the query's U and L
 // rows, which stay in L1), and H written with streaming stores (st.cs:
 // written once, read by K3 later, so it should not evict the candidate
-// rows from L2).  Bit-equal to keogh_pair.
-template <typename T, int P>
+// rows from L2).  Bit-equal to keogh_pair.  With CH the candidate row is
+// not contiguous: it is a flat row of n / seg channel segments of seg
+// values each, segment k starting at cr + k * cstride (K7's channel
+// entry, whose windows of a (d, L) segment are never copied out); the
+// terms and their order are those of the gathered flat row.
+template <typename T, int P, bool CH = false>
 __device__ __forceinline__ T keogh_pair_batched(const T* __restrict__ cr,
                                                 const T* __restrict__ ur,
                                                 const T* __restrict__ lr,
-                                                T* __restrict__ hr, int n, int lane) {
+                                                T* __restrict__ hr, int n, int lane,
+                                                int seg = 0, int64_t cstride = 0) {
   T acc = T(0);
   for (int base = lane; base < n; base += 32 * KEOGH_BATCH) {
     T v[KEOGH_BATCH], uu[KEOGH_BATCH], ll[KEOGH_BATCH];
@@ -75,7 +80,11 @@ __device__ __forceinline__ T keogh_pair_batched(const T* __restrict__ cr,
     for (int e = 0; e < KEOGH_BATCH; ++e) {
       const int i = base + 32 * e;
       const bool in = i < n;
-      v[e] = in ? __ldg(cr + i) : T(0);
+      if constexpr (CH) {
+        v[e] = in ? __ldg(cr + (i / seg) * cstride + i % seg) : T(0);
+      } else {
+        v[e] = in ? __ldg(cr + i) : T(0);
+      }
       uu[e] = in ? __ldg(ur + i) : T(0);
       ll[e] = in ? __ldg(lr + i) : T(0);
     }

@@ -10,7 +10,8 @@ phase alone, the query features of K4's kim entry) and ``block_merge`` (the host
 counters on the device, no TPU counterpart).  ``dtw_merge`` counts the
 launches of K5's masked entry with the merge as its epilogue, the host
 driver's loop's second launch per block; ``dtw_mv`` and ``dtw_merge_mv``
-count those of K5's channel entry (multivariate rows, d > 1).  Each package holds
+count those of K5's channel entry (multivariate rows, d > 1), and
+``lb_keogh_stream_mv`` those of K7's (a d-channel stream segment).  Each package holds
 ``ops.py`` — the wrappers, the plain PyTorch version and the kernel's
 launch function, which counts its launches — and, for a TPU kernel,
 ``ref.py``, the oracle.
@@ -29,7 +30,11 @@ from repro_torch.kernels.dtw.ops import (
 from repro_torch.kernels.envelope.ops import envelope_launch
 from repro_torch.kernels.lb_fused.ops import lb_fused_launch
 from repro_torch.kernels.lb_improved.ops import lb_improved_pass2_launch
-from repro_torch.kernels.lb_keogh.ops import lb_keogh_launch, lb_keogh_stream_launch
+from repro_torch.kernels.lb_keogh.ops import (
+    lb_keogh_launch,
+    lb_keogh_stream_launch,
+    lb_keogh_stream_mv_launch,
+)
 from repro_torch.kernels.lb_kim.ops import lb_kim_features_launch, lb_kim_launch
 
 #: kernel name -> its launch function (which carries ``.launches``)
@@ -46,6 +51,7 @@ LAUNCHERS = {
     "dtw_merge": dtw_merge_launch,
     "dtw_mv": dtw_mv_launch,
     "dtw_merge_mv": dtw_merge_mv_launch,
+    "lb_keogh_stream_mv": lb_keogh_stream_mv_launch,
 }
 
 

@@ -42,6 +42,9 @@ SIGNATURES = {
     "repro_lb_keogh": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
     # dtype, p, segment, upper, lower, nq, nb, hop, n, warps, lb, h, stream
     "repro_lb_keogh_stream": [_INT, _INT, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P, _P, _P],
+    # dtype, p, segment, cstride, upper, lower, nq, nb, hop, n, d, warps, lb, h, stream
+    "repro_lb_keogh_stream_mv": [_INT, _INT, _P, _I64, _P, _P, _I64, _I64, _I64, _INT, _INT,
+                                 _INT, _P, _P, _P],
     # dtype, p, h, qs, qidx, rows, bstride, n, w, lb2, workspace, stream
     "repro_lb_improved_pass2": [_INT, _INT, _P, _P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
     # dtype, p, cands, qs, upper, lower, bounds, bound_stride, qfeat, nq, nb, n, w,

@@ -7,7 +7,10 @@ Q = 1 case, ``lb_keogh_pallas``.  It takes either the dense (Q, B) grid
 of (query, candidate) pairs or explicit (qidx, cidx) pair lists.  Its
 strided entry (K7) replaces ``lb_keogh_stream_qbatch_pallas``: the
 candidates are the hop-strided windows of one flat stream segment, read
-in place and never copied out.
+in place and never copied out.  Its channel entry (K7c) takes a
+d-channel segment (d, L): window b's flat row is the d channel windows
+at b * hop, channel-major, as the templates' (Q, d * n) rows are laid
+out; its launches count as ``lb_keogh_stream_mv``.
 
 At p = inf the reference kernel computes ``d ** p`` and returns inf; the
 kernels and the plain versions here use the max form of
@@ -119,48 +122,95 @@ def stream_windows(segment, n: int, hop: int = 1) -> int:
     return (length - n) // hop + 1
 
 
-def lb_keogh_stream_plain(segment, upper, lower, n: int, hop: int = 1, p=1):
-    """Plain PyTorch version of K7: the windows as a strided view of the
-    segment, then the dense plain version -> (lb (Q, B), H (Q, B, n))."""
-    segment = segment.reshape(-1)
-    stream_windows(segment, n, hop)
-    return lb_keogh_plain(segment.unfold(0, n, hop), upper, lower, p)
+def stream_channels(segment, d: int):
+    """A stream segment as its ``(d, L)`` channel rows: at d = 1 the L
+    values of a flat segment as one row, at d > 1 a (d, L) segment."""
+    d = int(d)
+    if d < 1:
+        raise ValueError(f"d must be >= 1 channels, got {d}")
+    if d == 1:
+        return segment.reshape(1, -1)
+    if segment.dim() != 2 or segment.shape[0] != d:
+        raise ValueError(
+            f"a {d}-channel stream segment is (d, L) = ({d}, L), got "
+            f"{tuple(segment.shape)}"
+        )
+    return segment
+
+
+def stream_tile(segment, n: int, hop: int = 1, d: int = 1):
+    """The (B, d * n) tile of a segment's hop-strided windows, each the d
+    channel windows at one start, channel-major: what K7 reads in place."""
+    seg = stream_channels(segment, d)
+    nb = stream_windows(seg, n, hop)
+    wins = seg.unfold(1, n, hop)  # (d, B, n)
+    return wins.transpose(0, 1).reshape(nb, d * n)
+
+
+def lb_keogh_stream_plain(segment, upper, lower, n: int, hop: int = 1, p=1, d: int = 1):
+    """Plain PyTorch version of K7 (and K7c at ``d > 1``): the windows
+    gathered into their (B, d * n) tile, then the dense plain version ->
+    (lb (Q, B), H (Q, B, d * n))."""
+    return lb_keogh_plain(stream_tile(segment, n, hop, d), upper, lower, p)
 
 
 def lb_keogh_stream_launch(segment, upper, lower, n: int, hop: int = 1, p=1,
-                           tile_b=None):
-    """Launch K7 on CUDA tensors; shapes follow lb_keogh_stream_plain."""
-    segment = segment.reshape(-1)
-    dev, dt = segment.device, segment.dtype
-    nb = stream_windows(segment, n, hop)
-    nq = upper.shape[0]
-    check_cuda_tensor("segment", segment, dev, dt)
-    check_cuda_tensor("upper", upper, dev, dt, (nq, n))
-    check_cuda_tensor("lower", lower, dev, dt, (nq, n))
-    warps = _warps(tile_b, nb, n)
+                           tile_b=None, d: int = 1):
+    """Launch K7 on CUDA tensors; shapes follow lb_keogh_stream_plain.
+    ``d > 1`` launches the channel entry K7c on a (d, L) segment (counted
+    as ``lb_keogh_stream_mv_launch``)."""
+    seg = stream_channels(segment, d)
+    dev, dt = seg.device, seg.dtype
+    nb = stream_windows(seg, n, hop)
+    nq, flat = upper.shape[0], d * n
+    check_cuda_tensor("segment", seg, dev, dt)
+    check_cuda_tensor("upper", upper, dev, dt, (nq, flat))
+    check_cuda_tensor("lower", lower, dev, dt, (nq, flat))
+    warps = _warps(tile_b, nb, flat)
     lb = torch.empty((nq, nb), dtype=dt, device=dev)
-    h = torch.empty((nq, nb, n), dtype=dt, device=dev)
-    code = cuda_lib.library().repro_lb_keogh_stream(
-        kernel_dtype(segment), p_code(p), segment.data_ptr(), upper.data_ptr(),
-        lower.data_ptr(), nq, nb, hop, n, warps, lb.data_ptr(), h.data_ptr(),
-        cuda_lib.stream_of(dev),
-    )
+    h = torch.empty((nq, nb, flat), dtype=dt, device=dev)
+    lib = cuda_lib.library()
+    if d == 1:
+        code = lib.repro_lb_keogh_stream(
+            kernel_dtype(seg), p_code(p), seg.data_ptr(), upper.data_ptr(),
+            lower.data_ptr(), nq, nb, hop, n, warps, lb.data_ptr(), h.data_ptr(),
+            cuda_lib.stream_of(dev),
+        )
+    else:
+        code = lib.repro_lb_keogh_stream_mv(
+            kernel_dtype(seg), p_code(p), seg.data_ptr(), seg.stride(0),
+            upper.data_ptr(), lower.data_ptr(), nq, nb, hop, n, d, warps,
+            lb.data_ptr(), h.data_ptr(), cuda_lib.stream_of(dev),
+        )
     cuda_lib.check("lb_keogh_stream", code)
     if nq * nb:
-        count_launch(lb_keogh_stream_launch)
+        count_launch(lb_keogh_stream_launch if d == 1 else lb_keogh_stream_mv_launch)
     return lb, h
 
 
 lb_keogh_stream_launch.launches = 0
 
 
+def lb_keogh_stream_mv_launch(segment, upper, lower, n: int, hop: int = 1, p=1,
+                              tile_b=None, d: int = 2):
+    """K7's channel entry on CUDA tensors: ``lb_keogh_stream_launch`` at
+    ``d > 1`` channels, which counts its launches here."""
+    if d < 2:
+        raise ValueError(f"the channel entry takes d > 1 channels, got d={d}")
+    return lb_keogh_stream_launch(segment, upper, lower, n, hop, p, tile_b, d)
+
+
+lb_keogh_stream_mv_launch.launches = 0
+
+
 def lb_keogh_stream_qbatch_op(segment, upper, lower, n: int, hop: int = 1, p=1,
-                              tile_b=None):
+                              tile_b=None, d: int = 1):
     """Stream-packed LB_Keogh: the ``B = (L - n) // hop + 1`` hop-strided
-    windows of a flat segment (L,) vs envelopes (Q, n) ->
-    (lb (Q, B), H (Q, B, n)), the windows read in place."""
+    windows of a segment, flat (L,) or (d, L) at ``d > 1`` channels, vs
+    envelopes (Q, d * n) -> (lb (Q, B), H (Q, B, d * n)), the windows read
+    in place."""
     if segment.device.type == "cpu":
-        return lb_keogh_stream_plain(segment, upper, lower, n, hop, p)
+        return lb_keogh_stream_plain(segment, upper, lower, n, hop, p, d)
     if segment.device.type != "cuda":
         raise ValueError(f"lb_keogh_stream runs on cuda or cpu, got {segment.device}")
-    return lb_keogh_stream_launch(segment, upper, lower, n, hop, p, tile_b)
+    return lb_keogh_stream_launch(segment, upper, lower, n, hop, p, tile_b, d)

@@ -69,7 +69,7 @@ import numpy as np
 
 from repro_torch.core.cascade import SearchResult, SearchStats
 from repro_torch.core.microbatch import pad_rows
-from repro_torch.core.pipeline import MV_STREAM_ITEM, not_ported
+from repro_torch.core.pipeline import not_ported
 from repro_torch.serve.cache import AnswerCache, query_digest
 
 ANYTIME_ITEM = "10 (anytime tier)"
@@ -142,7 +142,7 @@ class EngineStats:
     max_batch: int
     queue_depth: int  # requests admitted but not yet executed
     streams_open: int
-    stream_samples: int  # samples pushed through open_stream sessions
+    stream_samples: int  # values pushed through open_stream sessions (m*d)
     wait_ms_mean: float  # mean admission->execution delay of batch-served
     uptime_s: float
     # anytime-tier telemetry (the tier is not ported yet: always 0):
@@ -171,7 +171,7 @@ class EngineStats:
 @dataclasses.dataclass
 class _Request:
     tenant: str
-    query: np.ndarray  # raw precision-cast (n,): what db.search consumes
+    query: np.ndarray  # raw precision-cast (n,) or (n, d): what db.search consumes
     digest: str  # over the *prepared* (z-normed) form
     exec_key: tuple  # (k, method, driver): one db.search call per key
     deadline: float | None  # absolute monotonic, None = no deadline
@@ -253,8 +253,8 @@ class QueryEngine:
     * ``start=False`` defers the worker thread (tests use it to stage
       queue states); call :meth:`start` when ready.
 
-    A multivariate session (``db.channels > 1``) is not served yet: the
-    constructor raises ``NotImplementedError``.
+    A multivariate session (``db.channels > 1``) takes one (n, d) query
+    per request; the coalesced batch is searched as (Q, n, d).
     """
 
     def __init__(
@@ -274,11 +274,6 @@ class QueryEngine:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
-        if getattr(db, "channels", 1) > 1:
-            raise not_ported(
-                f"a QueryEngine over a multivariate session (d={db.channels})",
-                MV_STREAM_ITEM,
-            )
         self.db = db
         self.max_batch = int(max_batch)
         self.max_wait = float(max_wait_ms) / 1e3
@@ -352,8 +347,8 @@ class QueryEngine:
         mode: str = "exact",
         budget: int | None = None,
     ) -> Future:
-        """Admit one (n,) query; returns a Future resolving to an
-        :class:`Answer`.
+        """Admit one (n,) query (one (n, d) query on a d-channel session);
+        returns a Future resolving to an :class:`Answer`.
 
         ``deadline`` is a latency budget in seconds from now: a request
         still queued when it lapses fails with :class:`DeadlineExceeded`.
@@ -368,7 +363,17 @@ class QueryEngine:
         """
         db = self.db
         raw = np.asarray(query, dtype=db.config.precision)
-        if raw.ndim != 1:
+        if db.channels > 1:
+            # multivariate session: one (n, d) query per request; the
+            # prepared form below is the channel-major flattened row
+            if raw.ndim != 2:
+                raise ValueError(
+                    f"submit takes one (n, {db.channels}) query per "
+                    f"request on this {db.channels}-channel session, got "
+                    f"shape {raw.shape}; submit a batch as individual "
+                    f"requests and let the coalescer form the batch"
+                )
+        elif raw.ndim != 1:
             raise ValueError(
                 f"submit takes one (n,) query per request, got shape "
                 f"{raw.shape}; submit a batch as individual requests and "

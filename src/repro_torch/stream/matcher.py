@@ -1,5 +1,5 @@
 """StreamMatcher: push-samples / poll-matches service (port of
-``repro.stream.matcher``, univariate; DESIGN.md §3.5).
+``repro.stream.matcher``; DESIGN.md §3.5).
 
 The serving shape of the stream subsystem: a caller owns an unbounded
 signal and wants every subsequence matching any of its templates, as
@@ -63,8 +63,11 @@ class StreamMatcher:
       any chunk size works (oversized pushes are ingested in ring-sized
       bites with block sweeps interleaved, so no unevaluated window's
       samples are ever evicted).
-    * ``d`` — channel count; ``d > 1`` (multivariate streaming) is not
-      ported yet and raises ``NotImplementedError``.
+    * ``d`` — channel count.  ``d > 1`` takes (n, d) / (Q, n, d)
+      templates and a d-channel stream: ``push`` accepts (m, d) sample
+      chunks (or flat sample-major interleaved arrays whose size
+      divides by d); one ring per channel advances in lockstep, and
+      windows run through the dependent-DTW cascade (DESIGN.md §3.12).
     * ``device`` — where the templates live and the blocks run.
     """
 
@@ -87,6 +90,7 @@ class StreamMatcher:
         d: int = 1,
         device=None,
     ):
+        self.d = int(d)
         self.scanner = SubsequenceScanner(
             templates,
             w,
@@ -113,7 +117,12 @@ class StreamMatcher:
             raise ValueError(
                 f"capacity {cap} must exceed the block span {span}"
             )
-        self.state = StreamState(cap, self.scanner.w)
+        # one ring per channel, pushed in lockstep; `state` stays the
+        # canonical position axis (and the only ring at d = 1)
+        self.states = [
+            StreamState(cap, self.scanner.w) for _ in range(self.d)
+        ]
+        self.state = self.states[0]
         self._next_start = 0  # next window start not yet evaluated
         # the resolve pool stays small on an unbounded stream: a stable
         # accepted hit retires to _archive once nothing pending or
@@ -145,20 +154,47 @@ class StreamMatcher:
         return self.scanner.stats
 
     def push(self, samples) -> None:
-        """Ingest samples; sweeps every window block that completed."""
+        """Ingest samples; sweeps every window block that completed.
+
+        At ``d > 1`` samples arrive as an (m, d) chunk — or a flat
+        sample-major interleaved array whose size divides by d — and
+        each column feeds its channel's ring, keeping all rings at the
+        same position count.
+        """
         if self._flushed:
             raise RuntimeError("push after flush: the stream is closed")
         bite = self.state.capacity - self.scanner.span
-        arr = np.asarray(samples).ravel()
-        for lo in range(0, arr.size, bite):
-            self.state.push(arr[lo : lo + bite])
+        if self.d == 1:
+            arr = np.asarray(samples).ravel()
+            for lo in range(0, arr.size, bite):
+                self.state.push(arr[lo : lo + bite])
+                self._sweep_full_blocks()
+            return
+        arr = np.asarray(samples)
+        if arr.ndim == 1:
+            if arr.size % self.d:
+                raise ValueError(
+                    f"flat push of {arr.size} samples does not divide by "
+                    f"d={self.d} channels; push (m, {self.d}) chunks"
+                )
+            arr = arr.reshape(-1, self.d)
+        if arr.ndim != 2 or arr.shape[1] != self.d:
+            raise ValueError(
+                f"multivariate push expects (m, {self.d}) samples, got "
+                f"shape {np.asarray(samples).shape}"
+            )
+        for lo in range(0, arr.shape[0], bite):
+            chunk = arr[lo : lo + bite]
+            for st, col in zip(self.states, chunk.T):
+                st.push(col)
             self._sweep_full_blocks()
 
     def _sweep_full_blocks(self) -> None:
         sc = self.scanner
+        src = self.state if self.d == 1 else self.states
         while self.state.count >= self._next_start + sc.span:
             self._pending.extend(
-                sc.process_block(self.state, self._next_start, sc.block)
+                sc.process_block(src, self._next_start, sc.block)
             )
             self._next_start += sc.block * sc.hop
 
@@ -168,13 +204,14 @@ class StreamMatcher:
         if self._flushed:
             return
         sc = self.scanner
+        src = self.state if self.d == 1 else self.states
         total = num_windows(self.state.count, sc.n, sc.hop)
         left = max(0, total - self._next_start // sc.hop)
         # the tail may still hold more than one (partial) block
         while left > 0:
             n_valid = min(left, sc.block)
             self._pending.extend(
-                sc.process_block(self.state, self._next_start, n_valid)
+                sc.process_block(src, self._next_start, n_valid)
             )
             self._next_start += n_valid * sc.hop
             left -= n_valid
@@ -263,9 +300,20 @@ def windowed_matches(
     """Offline windowed scan of an in-memory stream: every hop-strided
     window through the cascade, trivial-match exclusion applied.
     Returns ``(matches, stats)``; the match set equals a chunked
-    ``StreamMatcher`` run over the same array bit for bit."""
-    stream = np.asarray(stream, np.float32).ravel()
-    n = np.atleast_2d(np.asarray(templates)).shape[1]
+    ``StreamMatcher`` run over the same array bit for bit.  At ``d > 1``
+    the stream is (m, d) samples and templates are (n, d) / (Q, n, d)."""
+    d = int(d)
+    if d > 1:
+        stream = np.asarray(stream, np.float32)
+        if stream.ndim == 1:
+            stream = stream.reshape(-1, d)
+        n_samples = stream.shape[0]
+        t = np.asarray(templates)
+        n = t.shape[-2] if t.ndim >= 2 else t.shape[0]
+    else:
+        stream = np.asarray(stream, np.float32).ravel()
+        n_samples = stream.size
+        n = np.atleast_2d(np.asarray(templates)).shape[1]
     span = (block - 1) * hop + n
     m = StreamMatcher(
         templates,
@@ -278,7 +326,7 @@ def windowed_matches(
         method=method,
         prefilter=prefilter,
         exclusion=exclusion,
-        capacity=max(stream.size + 1, 2 * span),
+        capacity=max(n_samples + 1, 2 * span),
         eps=eps,
         d=d,
         device=device,

@@ -1,5 +1,5 @@
 """Windowed subsequence matching over the shared cascade (port of
-``repro.stream.subsequence``, univariate; DESIGN.md §3.5).
+``repro.stream.subsequence``; DESIGN.md §3.5).
 
 The database search answers "which series is nearest to q"; the stream
 workload asks "*where* in an unbounded signal does any template match".
@@ -38,6 +38,19 @@ float64 arithmetic) and copied as a tile, and S1 is the pipeline's own
 dense stage (K2).  The distances and masks come back in one copy a
 block.
 
+Multivariate streams (``d > 1``, DESIGN.md §3.12): templates (n, d) or
+(Q, n, d) are flattened channel-major to (Q, d*n) rows, z-normalized per
+(template, channel) segment, and enveloped per segment (K1 with the
+segments folded into its batch).  Each channel has its own
+``StreamState``, pushed in lockstep; a window's lanes are the d channel
+windows at one start, concatenated channel-major.  S0 runs on the
+concatenated stream-envelope slices, in the reference's float32 order.
+Without z-normalization the block's d channel segments are uploaded once
+as a (d, span) tensor and S1 is K7's channel entry (K7c), which reads
+each window's flat row out of it in place; the (block, d*n) tile is
+gathered from the same upload on the device.  With z-normalization the
+host builds the normalized tile and S1 is K2, as at d = 1.
+
 A window matches template ``t`` when its powered DTW distance is
 ``<= threshold[t]^p``; pruning uses ``nextafter(threshold^p)`` so the
 strict ``lb < bound`` compare of the shared staging keeps boundary
@@ -64,16 +77,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.dtw import PNorm
-from repro_torch.core.pipeline import (
-    MV_STREAM_ITEM,
-    lb_stage_names,
-    make_context,
-    not_ported,
-    run_block_stages,
-)
+from repro_torch.core.pipeline import lb_stage_names, make_context, run_block_stages
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.envelope.ops import envelope_op
-from repro_torch.kernels.lb_keogh.ops import lb_keogh_stream_qbatch_op
+from repro_torch.kernels.lb_keogh.ops import lb_keogh_stream_qbatch_op, stream_tile
+from repro_torch.mv.layout import flatten_channels
 from repro_torch.stream.state import STD_EPS
 
 
@@ -233,8 +241,9 @@ class SubsequenceScanner:
     online, ``windowed_matches`` offline) own window scheduling and
     trivial-match exclusion.  The templates, their envelopes and the
     gate live on ``device`` (default: the GPU; ``RuntimeError`` when
-    there is none), where every block's stages run.  ``d > 1``
-    (multivariate streaming) is not ported yet and raises.
+    there is none), where every block's stages run.  ``d > 1`` takes
+    (n, d) or (Q, n, d) templates and a d-channel stream (one
+    ``StreamState`` per channel).
     """
 
     def __init__(
@@ -254,12 +263,26 @@ class SubsequenceScanner:
         d: int = 1,
         device=None,
     ):
-        if int(d) < 1:
+        self.d = int(d)
+        if self.d < 1:
             raise ValueError(f"d must be >= 1 channels, got {d}")
-        if int(d) > 1:
-            raise not_ported(f"a multivariate stream (d={d})", MV_STREAM_ITEM)
-        templates = np.atleast_2d(np.asarray(templates, np.float32))
-        self.nq, self.n = templates.shape
+        templates = np.asarray(templates, np.float32)
+        if self.d > 1:
+            # multivariate templates: (n, d) single or (Q, n, d) batch,
+            # flattened channel-major to the (Q, d*n) row layout every
+            # driver shares (DESIGN.md §3.12)
+            if templates.ndim == 2:
+                templates = templates[None]
+            if templates.ndim != 3 or templates.shape[-1] != self.d:
+                raise ValueError(
+                    f"multivariate templates must be (n, {self.d}) or "
+                    f"(Q, n, {self.d}); got shape {templates.shape}"
+                )
+            self.nq, self.n = templates.shape[0], templates.shape[1]
+            templates = np.ascontiguousarray(flatten_channels(templates))
+        else:
+            templates = np.atleast_2d(templates)
+            self.nq, self.n = templates.shape
         if hop <= 0:
             raise ValueError(f"hop must be positive, got {hop}")
         if block <= 0:
@@ -275,7 +298,11 @@ class SubsequenceScanner:
         self.prefilter = bool(prefilter)
         self.eps = float(eps)
         if znorm:
-            templates = np.stack([znorm_series(t, eps) for t in templates])
+            # per (template, channel): each channel segment of the
+            # flattened row is its own series (a no-op reshape at d=1)
+            seg = templates.reshape(self.nq * self.d, self.n)
+            seg = np.stack([znorm_series(t, eps) for t in seg])
+            templates = seg.reshape(self.nq, self.d * self.n)
         self.templates = templates
         thr = np.broadcast_to(
             np.asarray(threshold, np.float64), (self.nq,)
@@ -289,7 +316,7 @@ class SubsequenceScanner:
         dev = self.device
         qs = torch.as_tensor(templates, device=dev)
         if envelopes is None:
-            upper, lower = envelope_op(qs, self.w)  # K1 on the device
+            upper, lower = envelope_op(qs, self.w, self.d)  # K1 on the device
         else:
             # prebuilt template envelopes (a repro_torch.api.Database build
             # artifact): must match the post-znorm templates at band w
@@ -313,10 +340,10 @@ class SubsequenceScanner:
                     "normalization and would make the LB cascade unsound"
                 )
         self._qs, self._upper, self._lower = qs, upper, lower
-        self._ctx = make_context(qs, upper, lower, self.w, p, method)
+        self._ctx = make_context(qs, upper, lower, self.w, p, method, d=self.d)
         self._gate = torch.as_tensor(self.gate, device=dev)
-        # S1 by K7 over the flat segment: windows that are slices of the
-        # raw stream, and LB_Keogh as the first LB stage
+        # S1 by K7 over the block's segment (K7c at d > 1): windows that
+        # are slices of the raw stream, and LB_Keogh as the first LB stage
         self.stream_first = not self.znorm and self.stage_names[:1] == ("lb_keogh",)
         self.stats = StreamStats.zeros(self.nq, self.stage_names)
 
@@ -330,31 +357,43 @@ class SubsequenceScanner:
     ) -> list[Match]:
         """Evaluate windows starting at ``start0 + hop*i`` for
         ``i < n_valid`` (the rest of the block is masked padding).
-        Returns raw sub-threshold hits, exclusion not yet applied."""
+        Returns raw sub-threshold hits, exclusion not yet applied.
+
+        ``state`` is one :class:`StreamState` for univariate scanners
+        and a sequence of ``d`` channel states (pushed in lockstep) for
+        multivariate ones.
+        """
         if n_valid <= 0:
             return []
-        n, hop, block = self.n, self.hop, self.block
+        n, hop, block, d = self.n, self.hop, self.block, self.d
+        states = [state] if d == 1 else list(state)
+        if len(states) != d:
+            raise ValueError(
+                f"multivariate scanner needs {d} channel states, "
+                f"got {len(states)}"
+            )
         starts = start0 + hop * np.arange(block, dtype=np.int64)
         valid = np.arange(block) < n_valid
         avail = starts[n_valid - 1] + n - start0  # samples really present
-        seg, wins, mask0 = self._window_lanes(state, start0, avail, starts, valid)
+        seg, wins, mask0 = self._window_lanes(states, start0, avail, starts, valid)
 
         dev = self.device
         first = None
         if wins is None:
-            # the flat segment, once: K7 reads its windows in place, and
-            # the tile the compacted stages gather from is cut from it
+            # the (d, span) segment, once: K7 (K7c at d > 1) reads its
+            # windows in place, and the tile the compacted stages gather
+            # from is cut from it on the device
             seg_t = torch.from_numpy(seg).to(dev)
-            blk = seg_t.unfold(0, n, hop)[:block].contiguous()
+            blk = stream_tile(seg_t, n, hop, d).contiguous()
             if self.stream_first:
                 first = lb_keogh_stream_qbatch_op(
-                    seg_t, self._upper, self._lower, n, hop, self.p
+                    seg_t, self._upper, self._lower, n, hop, self.p, d=d
                 )[0]
         else:
             blk = torch.from_numpy(wins).to(dev)
         res = run_block_stages(
             self._qs, self._upper, self._lower, self.w, self.p, self.method,
-            blk, self._gate, torch.from_numpy(mask0).to(dev), ctx=self._ctx,
+            blk, self._gate, torch.from_numpy(mask0).to(dev), d=d, ctx=self._ctx,
             first=first,
         )
         # the distances and every mask back in one copy
@@ -362,7 +401,7 @@ class SubsequenceScanner:
         packed = torch.cat(
             [res.d.reshape(-1)] + [m.reshape(-1).to(res.d.dtype) for m in res.masks]
         ).cpu().numpy()
-        d = packed[:lanes].reshape(self.nq, block)
+        dist = packed[:lanes].reshape(self.nq, block)
         masks = packed[lanes:].reshape(len(res.masks), self.nq, block) != 0
 
         st = self.stats
@@ -376,53 +415,71 @@ class SubsequenceScanner:
         st.dp_lane_work += int(res.dp_lane_work)
         st.dp_lane_useful += int(res.dp_lane_useful)
 
-        hit = d <= self.thr_pow[:, None]
+        hit = dist <= self.thr_pow[:, None]
         st.matched += hit.sum(axis=1)
-        rooted = finish_np(d.astype(np.float64), self.p)
+        rooted = finish_np(dist.astype(np.float64), self.p)
         out = []
         for qi, bi in zip(*np.nonzero(hit)):
             out.append(Match(int(qi), int(starts[bi]), float(rooted[qi, bi])))
         return out
 
-    def _window_lanes(self, state, start0, avail, starts, valid):
-        """The block's lanes and S0 mask: ``(segment, None, mask0)`` with
-        the flat (span,) segment when windows are raw slices of it, else
-        ``(None, windows, mask0)`` with the (block, n) z-normalized tile."""
+    def _window_lanes(self, states, start0, avail, starts, valid):
+        """The block's lanes and S0 mask from the ``d`` channel states:
+        ``(segment, None, mask0)`` with the (d, span) channel segments when
+        windows are raw slices of them, else ``(None, windows, mask0)``
+        with the (block, d*n) z-normalized tile (channel-major lanes).
+
+        Each channel's windows, rolling z-norm stats and stream-envelope
+        slices are cut as in the univariate scanner, then concatenated in
+        channel order, the layout the templates were flattened to.  S0
+        stays sound channel-wise: each channel's stream envelope contains
+        the window's own channel envelope, and ``envelope_prefilter`` on
+        the concatenated rows is the channel-summed (p < inf) /
+        channel-maxed (p = inf) LB_Keogh, in the reference's float32
+        order.
+        """
         n, hop, block = self.n, self.hop, self.block
         sw = np.lib.stride_tricks.sliding_window_view
-        seg = state.view(start0, avail)
-        if avail < self.span:  # tail block: pad so strides stay static
-            seg = np.concatenate(
-                [seg, np.zeros(self.span - avail, seg.dtype)]
-            )
+        pad = max(self.span - avail, 0)  # tail block: pad so strides stay static
+
+        def padded(x):
+            return np.concatenate([x, np.zeros(pad, x.dtype)]) if pad else x
+
+        segs = [padded(st.view(start0, avail)) for st in states]
         wins = None
         if self.znorm:
-            mean, std = state.window_mean_std(
-                np.where(valid, starts, starts[0]), n, self.eps
+            valid_starts = np.where(valid, starts, starts[0])
+            ch_stats = [st.window_mean_std(valid_starts, n, self.eps) for st in states]
+            wins = np.concatenate(
+                [znorm_windows(sw(seg, n)[::hop][:block], mean, std)
+                 for seg, (mean, std) in zip(segs, ch_stats)],
+                axis=1,
             )
-            wins = znorm_windows(sw(seg, n)[::hop][:block], mean, std)
 
         mask0 = np.broadcast_to(valid[None, :], (self.nq, block)).copy()
         if self.prefilter:
-            u_seg, l_seg = state.envelope_view(start0, avail)
-            if avail < self.span:
-                pad = self.span - avail
-                u_seg = np.concatenate([u_seg, np.zeros(pad, u_seg.dtype)])
-                l_seg = np.concatenate([l_seg, np.zeros(pad, l_seg.dtype)])
-            u_w = sw(u_seg, n)[::hop][:block]
-            l_w = sw(l_seg, n)[::hop][:block]
-            if self.znorm:
-                u_w = ((u_w - mean[:, None]) / std[:, None]).astype(
-                    np.float32
-                )
-                l_w = ((l_w - mean[:, None]) / std[:, None]).astype(
-                    np.float32
-                )
-            lb0 = envelope_prefilter(self.templates, u_w, l_w, self.p)
+            u_parts, l_parts = [], []
+            for ci, st in enumerate(states):
+                u_seg, l_seg = st.envelope_view(start0, avail)
+                u_w = sw(padded(u_seg), n)[::hop][:block]
+                l_w = sw(padded(l_seg), n)[::hop][:block]
+                if self.znorm:
+                    mean, std = ch_stats[ci]
+                    u_w = ((u_w - mean[:, None]) / std[:, None]).astype(
+                        np.float32
+                    )
+                    l_w = ((l_w - mean[:, None]) / std[:, None]).astype(
+                        np.float32
+                    )
+                u_parts.append(u_w)
+                l_parts.append(l_w)
+            u_all = np.concatenate(u_parts, axis=1)
+            l_all = np.concatenate(l_parts, axis=1)
+            lb0 = envelope_prefilter(self.templates, u_all, l_all, self.p)
             alive0 = mask0 & (lb0 < self.gate[:, None])
             self.stats.env_pruned += (mask0 & ~alive0).sum(axis=1)
             mask0 = alive0
-        return (None if self.znorm else seg), wins, mask0
+        return (None if self.znorm else np.stack(segs)), wins, mask0
 
 
 # ------------------------------------------------- trivial-match exclusion

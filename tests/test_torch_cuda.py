@@ -35,7 +35,10 @@ long-row path.  K5's channel entry (multivariate rows, the cell cost
 summed over d channels) is bit-equal to ``dtw_wavefront_plain(d=)`` on
 its staged and in-place paths and, masked with the merge, to
 ``dtw_merge_plain(d=)``; the multivariate device loop runs K2, the folded
-K3 and K5's channel entry per block with no synchronisation.
+K3 and K5's channel entry per block with no synchronisation.  K7's
+channel entry (K7c, a (d, L) stream segment) is bit-equal to its plain
+version and to K2 on the gathered (B, d*n) tile, and a d-channel stream
+scanner on the card gives the CPU scanner's matches and counters.
 """
 
 import math
@@ -1047,3 +1050,64 @@ def test_mv_session_every_method_on_card(dev):
             np.testing.assert_allclose(a.distances, b.distances, rtol=2e-4)
     counts = launch_counts()
     assert counts["dtw_mv"] > 0 and counts["dtw_merge_mv"] > 0, counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", PS)
+@pytest.mark.parametrize("d,n,hop", [(2, 37, 1), (3, 128, 4), (8, 37, 4), (3, 1000, 1)])
+def test_lb_keogh_stream_channels(dev, d, n, hop, p, dtype):
+    """K7c reads window b's flat row out of the (d, L) segment in place:
+    lb and H bit-equal to K2 on the gathered tile, at every tile_b; H
+    bit-equal to its plain version and lb within 1e-4 (bit-equal at p =
+    inf, where no sum is taken); counted as lb_keogh_stream_mv, not K7."""
+    nb = 37
+    seg = mv_rows(dev, 70 + d, d, (nb - 1) * hop + n + 1, 1, dtype).reshape(d, -1)
+    qs = mv_rows(dev, 71, 3, n, d, dtype)
+    u, l = ke.envelope_op(qs, max(1, n // 10), d)
+    reset_launch_counts()
+    lb, h = kk.lb_keogh_stream_launch(seg, u, l, n, hop, p, d=d)
+    counts = launch_counts()
+    assert (counts["lb_keogh_stream_mv"], counts["lb_keogh_stream"]) == (1, 0), counts
+    plb, ph = kk.lb_keogh_stream_plain(seg, u, l, n, hop, p, d=d)
+    torch.testing.assert_close(lb, plb, rtol=1e-4, atol=0)
+    assert torch.equal(h, ph) and (p != math.inf or torch.equal(lb, plb))
+    nb_exp = (seg.shape[1] - n) // hop + 1  # the segment holds nb + 1 windows at hop 1
+    assert lb.shape == (3, nb_exp) and h.shape == (3, nb_exp, d * n)
+    tile = kk.stream_tile(seg, n, hop, d).contiguous()
+    assert tile.shape == (nb_exp, d * n)
+    klb, kh = kk.lb_keogh_launch(tile, u, l, p)
+    assert torch.equal(lb, klb) and torch.equal(h, kh)
+    for cfg in search_space("lb_keogh"):
+        got = kk.lb_keogh_stream_launch(seg, u, l, n, hop, p, cfg.tile_b, d=d)
+        assert torch.equal(got[0], lb) and torch.equal(got[1], h), cfg
+
+
+@pytest.mark.parametrize("znorm", [False, True])
+def test_mv_stream_scanner_on_card(dev, znorm):
+    """A d = 3 stream matcher on the card gives the CPU matcher's matches
+    (the same pairs; distances within rtol 3e-4, K5 against the CPU's row
+    DP) and counters; without znorm S1 is K7c once a block, with it K2's
+    dense stage and no K7c."""
+    from repro_torch.stream import StreamMatcher
+
+    rng = np.random.default_rng(72)
+    d, n = 3, 32
+    stream = np.cumsum(rng.normal(size=(2000, d)), axis=0).astype(np.float32)
+    templates = np.stack([stream[400 : 400 + n], stream[1200 : 1200 + n]])
+    out = {}
+    for device in (dev, "cpu"):
+        m = StreamMatcher(templates, 4, 3.0, p=2, hop=2, znorm=znorm, block=16, d=d,
+                          device=device)
+        reset_launch_counts()
+        for lo in range(0, stream.shape[0], 333):
+            m.push(stream[lo : lo + 333])
+        m.flush()
+        out[str(device)] = (m.matches(), m.stats, launch_counts())
+    (g, gs, gc), (c, cs, _) = out[str(dev)], out["cpu"]
+    assert [(h.tid, h.start) for h in g] == [(h.tid, h.start) for h in c]
+    np.testing.assert_allclose([h.dist for h in g], [h.dist for h in c], rtol=3e-4)
+    assert {(0, 400), (1, 1200)} <= {(h.tid, h.start) for h in g}
+    for f in ("n_windows", "env_pruned", "stage_pruned", "full_dtw", "matched"):
+        np.testing.assert_array_equal(getattr(gs, f), getattr(cs, f), err_msg=f)
+    assert gc["lb_keogh_stream"] == 0, gc
+    assert gc["lb_keogh_stream_mv"] == (0 if znorm else gs.blocks_total), gc

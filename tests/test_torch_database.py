@@ -113,17 +113,23 @@ def test_bundles_of_unported_tiers_raise(tmp_path):
     x = walks(7, 60, 24)
     with pytest.raises(NotImplementedError, match="item 10"):
         Database.build(x, anytime=True, device="cpu")
-    # the multivariate tier builds and searches; its streams wait (item 9b)
+    # the multivariate tier builds, searches and streams
     mv = Database.build(np.stack([x, x], axis=-1), device="cpu")
     assert mv.channels == 2 and mv.search(np.stack([x[0], x[0]], axis=-1)).index == 0
     assert SearchConfig(method="tc_box").method == "tc_box"
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        mv.stream(threshold=1.0)
+    mv_stream = mv.stream(threshold=1.0)
+    assert isinstance(mv_stream, StreamMatcher) and mv_stream.d == 2
+    assert len(mv_stream.states) == 2 and mv_stream.scanner._upper is mv._upper
     db = Database.build(x, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         db.use_mesh(None)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        db.stream(np.stack([x[:2], x[:2]], axis=-1), threshold=1.0)
+    # (Q, n, 2) templates on a univariate session end as the reference's
+    # call ends: a ValueError, not a missing port
+    mv_tpl = np.stack([x[:2], x[:2]], axis=-1)
+    with pytest.raises(ValueError):
+        JDatabase.build(x).stream(mv_tpl, threshold=1.0)
+    with pytest.raises(ValueError):
+        db.stream(mv_tpl, threshold=1.0)
     assert isinstance(db.stream(threshold=1.0), StreamMatcher)
     with pytest.raises(NotImplementedError, match="item 10"):
         db.search(x[:2], mode="anytime")

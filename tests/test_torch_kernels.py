@@ -309,10 +309,12 @@ def test_cpu_wrappers_never_launch():
     lf_prepare(xs[:2], xs[:2], xs[:2], 3, top_v[:, -1], 1, xs.shape[0], stage, d=2)(xs, 3)
     tdtw.dtw_masked_prepare(xs[:2], 3, 1, stage, top_v[:, -1], dvals,
                             merge=(top_v, top_i, *counters, 16), d=2)(xs, 20)
+    tlk.lb_keogh_stream_qbatch_op(xs[:2], xs[:2], xs[:2], 10, 3, 1, d=2)
     assert launch_counts() == {
         "envelope": 0, "lb_keogh": 0, "lb_improved_pass2": 0, "dtw": 0,
         "lb_fused": 0, "lb_kim": 0, "lb_kim_features": 0, "lb_keogh_stream": 0,
         "block_merge": 0, "dtw_merge": 0, "dtw_mv": 0, "dtw_merge_mv": 0,
+        "lb_keogh_stream_mv": 0,
     }
 
 

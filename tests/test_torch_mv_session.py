@@ -229,13 +229,18 @@ def test_mv_contract_errors():
     # pre-flattened (Q, d*n) rows are accepted as they are
     prep = sess.prepare_queries(qs)
     np.testing.assert_array_equal(sess.prepare_queries(prep), prep)
-    # streaming and serving of mv sessions wait for their queue-1 item
+    # mv sessions stream and serve: the rows are the stream's template
+    # bank, and the engine takes one (n, d) query per request
     from repro_torch.serve import QueryEngine
 
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        sess.stream(threshold=1.0)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        QueryEngine(sess, start=False)
+    matcher = sess.stream(threshold=1.0)
+    assert matcher.d == D and matcher.scanner._upper is sess._upper
+    engine = QueryEngine(sess, start=False)
+    with pytest.raises(ValueError, match="channel"):
+        engine.submit(qs[0, :, 0])
+    with pytest.raises(ValueError, match="channel"):
+        engine.submit(qs)
+    engine.close()
 
 
 def test_mv_float64_host_matches_repro_x64():

@@ -317,8 +317,10 @@ def test_first_pass_route(monkeypatch, znorm):
 def test_database_stream_matches_repro():
     """``db.stream`` in both packages: the rows as templates with the
     build envelopes reused (float32, no z-norm), explicit templates with
-    their own, the same matches and stats; a multivariate stream raises
-    item 9b."""
+    their own, the same matches and stats; (Q, n, 2) templates on this
+    univariate session, and 2-D templates for a 2-channel matcher, raise
+    the reference's ValueError, and a 2-channel matcher gives the
+    reference's matches and stats."""
     cfg = dict(w=W, p=2, block=32)
     tdb = Database.build(TEMPLATES, SearchConfig(**cfg), device="cpu")
     jdb = JDatabase.build(TEMPLATES, JConfig(**cfg))
@@ -334,10 +336,24 @@ def test_database_stream_matches_repro():
     assert_same_stats(tm.stats, jm.stats)
     explicit = tdb.stream(TEMPLATES[:1], threshold=thr, hop=2)
     assert explicit.scanner._upper is not tdb._upper
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        tdb.stream(np.stack([TEMPLATES, TEMPLATES], axis=-1), threshold=thr)
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    mv_tpl = np.stack([TEMPLATES, 0.5 * TEMPLATES], axis=-1)
+    for db in (tdb, jdb):
+        with pytest.raises(ValueError):
+            db.stream(mv_tpl, threshold=thr)
+    with pytest.raises(ValueError, match="multivariate templates"):
         tstream.StreamMatcher(TEMPLATES, W, thr, d=2, device="cpu")
+    with pytest.raises(ValueError, match="multivariate templates"):
+        jstream.StreamMatcher(TEMPLATES, W, thr, d=2)
+    two = np.stack([STREAM, 0.5 * STREAM], axis=-1)
+    tm2 = tstream.StreamMatcher(mv_tpl, W, 1.25 * thr, p=2, hop=2, block=32, d=2,
+                                device="cpu")
+    jm2 = jstream.StreamMatcher(mv_tpl, W, 1.25 * thr, p=2, hop=2, block=32, d=2)
+    for m in (tm2, jm2):
+        m.push(two)
+        m.flush()
+    assert len(jm2.matches()) > 0
+    assert_same_matches(tm2.matches(), jm2.matches())
+    assert_same_stats(tm2.stats, jm2.stats)
 
 
 def test_database_stream_znorm_reuse_rule():
