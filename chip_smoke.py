@@ -91,9 +91,11 @@ Phases (any failure raises, exits non-zero and prints no result line):
    unindexed session at the same p on its own route (phase 3's at p = 1,
    the host loop at p = inf): the same indices, the same distance bits.
    Then ``python -m repro_torch.launch.search`` as a subprocess, with
-   ``--index --p inf --n-refs 16`` and with its defaults, each query's
-   ``nn`` against a direct ``db.search``, and ``python
-   examples/quickstart_torch.py`` at its full 2,000 x 512.
+   ``--index --p inf --n-refs 16`` and with its defaults (which serve
+   through a one-rank NCCL mesh: the ``mesh={'data': 1, 'model': 1}``
+   line and ``driver: sharded``), each query's ``nn`` against a direct
+   ``db.search``, and ``python examples/quickstart_torch.py`` at its full
+   2,000 x 512.
 7. The stream session: ``Database.build`` of four templates of 128
    (``SearchConfig(w=12, p=2, block=64)``) and ``db.stream(hop=4)`` over a
    planted stream of 1,048,576 samples pushed in 4,096-sample chunks and
@@ -157,13 +159,26 @@ Phases (any failure raises, exits non-zero and prints no result line):
    bits), and a second engine's ``open_stream`` over a 16-row (128, 3)
    session gives a direct ``db.stream``'s matches and counters, with
    ``stream_samples`` counting rows x 3.
+11. The sharded driver (after phase 10, its own session): phase 3's rows
+   and queries through ``make_host_mesh()`` (one NCCL rank) and
+   ``Database.use_mesh(mesh, sync_every=4)``; the plan must say
+   ``sharded``, the answers must be ``nn_search_scan``'s indices and
+   distance bits on the same rows and every counter its own but LB_Keogh's,
+   which counts the pad and poison lanes more (3 poison blocks of 32 a
+   query), with no K4 and no K5m launch.  Then two gloo ranks on the one
+   card (subprocesses; NCCL takes one rank a device), each making phase
+   3's rows and sweeping half: both ranks' results equal, the one-rank
+   run's indices and distance bits, the counters closing over the lanes
+   swept.  K2 (dense and on the pairs past LB_Keogh), K3 and K5 (on the
+   DP pairs, the block's bound as each lane's) against their plain
+   versions on five captured blocks of the sweep, the last a poison block.
 
 Launches are counted per phase (3 build, 3 search, the long-row
 session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
 6 index build and indexed search, each summed over both p, 7 stream
 session, stream offline and stream example, 8 serve, 9 mv build, mv
 search, mv scan and mv d=1, 10 mv stream session, mv stream offline and
-mv serve),
+mv serve, 11 sharded),
 each from zero, and the untuned ``kim_improved`` and ``kim_webb``
 searches; phase 2's
 comparisons are not counted.  The
@@ -2107,6 +2122,9 @@ def phase_cli():
         if nn != direct.indices[:, 0].tolist():
             fail(f"launch.search {args}: nn {nn} != direct db.search {direct.indices[:, 0]}")
         served = [ln for ln in out.splitlines() if ln.startswith(("served", "mesh="))]
+        if not index and ("mesh={'data': 1, 'model': 1}" not in out.splitlines()
+                          or "driver: sharded" not in out):
+            fail(f"launch.search (defaults) did not serve through the one-rank mesh:\n{out}")
         log(f"[index cli] launch.search {' '.join(args) or '(defaults)'}: exit 0 in "
             f"{cli_s:.1f} s, nn {nn} == direct db.search; {lines[0]} | {' | '.join(served)}")
     t0 = time.perf_counter()
@@ -3307,6 +3325,259 @@ def phase_mv_stream_serve(dev, launches, mv):
     log(f"[mv stream] phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------- phase 11
+
+#: the sharded phase: blocks between bound exchanges, ranks of the gloo
+#: run on the one card and each rank's process timeout (s)
+SYNC_EVERY, GLOO_RANKS, RANK_TIMEOUT = 4, 2, 240
+
+#: one rank of the gloo run: phase 3's rows from SEED, padded for
+#: GLOO_RANKS shards, its shard swept on cuda:0; its result as JSON
+GLOO_RANK = r"""
+import dataclasses, datetime, json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, store, out, n_rows, length, n_queries, seed, w, sync_every = sys.argv[1:]
+rank, world = int(rank), int(world)
+torch.set_num_threads(1)  # the stages run on the card; two ranks share the host
+dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                        world_size=world, timeout=datetime.timedelta(seconds=120))
+from repro_torch.core.distributed import Mesh, pad_database, sharded_nn_search
+from repro_torch.data.synthetic import random_walks
+
+rng = np.random.default_rng(int(seed))
+x = random_walks(rng, int(n_rows), int(length))
+queries = random_walks(rng, int(n_queries), int(length))
+mesh = Mesh((world,), ("data",), device="cuda:0")
+dbp, _ = pad_database(x, mesh, block=32)
+torch.cuda.synchronize()
+dist.barrier()
+t0 = time.perf_counter()
+res = sharded_nn_search(queries, dbp, mesh, w=int(w), p=1, k=1, block=32,
+                        sync_every=int(sync_every))
+seconds = time.perf_counter() - t0
+dist.destroy_process_group()
+json.dump(dict(idx=res.indices.tolist(), dist=res.distances.astype(float).tolist(),
+               stats=dataclasses.asdict(res.stats), seconds=seconds,
+               per_query=[dataclasses.asdict(s) for s in res.per_query]), open(out, "w"))
+"""
+
+
+@contextlib.contextmanager
+def captured_scan_blocks(keep_first: int = 2, keep_dtw: int = 2):
+    """Keep a few of the blocks the scan body runs while the context is
+    open: the first ``keep_first``, the first ``keep_dtw`` after them whose
+    DP ran, and the last one; each with its tile, its bound and the
+    stages' masks.  Yields the list, filled when the context ends."""
+    from repro_torch.core import pipeline as pipe
+
+    stages = pipe.run_block_stages
+    kept, last, seen = [], [], [0, 0]
+
+    def run_stages(*a, **kw):
+        res = stages(*a, **kw)
+        blk = dict(blk=a[6], bound=a[7], masks=res.masks, index=seen[0])
+        seen[0] += 1
+        if blk["index"] < keep_first:
+            kept.append(blk)
+        elif res.need_dtw and seen[1] < keep_dtw:
+            seen[1] += 1
+            kept.append(blk)
+        else:
+            last[:] = [blk]
+        return res
+
+    pipe.run_block_stages = run_stages
+    try:
+        yield kept
+    finally:
+        pipe.run_block_stages = stages
+        kept += last
+
+
+def check_scan_blocks(tag, qs, upper, lower, w, p, blocks):
+    """The sharded route's kernels against their plain versions on blocks
+    it ran: K2 dense (rtol 1e-4, H bit-equal), K2 and K3 on the pairs that
+    passed LB_Keogh (K3 rtol 2e-4), and K5 on the pairs that reached the
+    DP with the block's bound as each lane's bound (bit-equal to
+    ``dtw_wavefront_plain``).  Returns the pairs checked by K3 and K5."""
+    from repro_torch.kernels.dtw.ops import dtw_launch, dtw_wavefront_plain
+    from repro_torch.kernels.lb_improved.ops import (
+        lb_improved_pass2_launch,
+        lb_improved_pass2_plain,
+    )
+    from repro_torch.kernels.lb_keogh.ops import lb_keogh_launch, lb_keogh_plain
+
+    pairs = [0, 0]
+    for b in blocks:
+        blk, bound, masks = b["blk"], b["bound"], b["masks"]
+        what = f"{tag} block {b['index']} (Q={qs.shape[0]} B={blk.shape[0]} w={w} p={p})"
+        lb, h = lb_keogh_launch(blk, upper, lower, p)
+        lbp, hp = lb_keogh_plain(blk, upper, lower, p)
+        check_close("lb_keogh", lb, lbp, TOL["lb_keogh"], what)
+        check_close("lb_keogh", h, hp, 0.0, f"{what} H")
+        qi, ci = masks[1].nonzero(as_tuple=True)
+        if qi.numel():
+            lb, h = lb_keogh_launch(blk, upper, lower, p, qi, ci)
+            lbp, hp = lb_keogh_plain(blk, upper, lower, p, qi, ci)
+            check_close("lb_keogh", lb, lbp, TOL["lb_keogh"], f"{what} pairs")
+            check_close("lb_keogh", h, hp, 0.0, f"{what} pairs H")
+            check_close("lb_improved_pass2", lb_improved_pass2_launch(h, qs, w, p, qi),
+                        lb_improved_pass2_plain(h, qs, w, p, qi), TOL["lb_improved_pass2"],
+                        f"{what}, {qi.numel()} pairs past LB_Keogh")
+            pairs[0] += qi.numel()
+        qi, ci = masks[-1].nonzero(as_tuple=True)
+        if qi.numel():
+            bounds = bound[qi].contiguous()
+            check_equal("dtw", dtw_launch(qs, blk, w, p, qi, ci, bounds),
+                        dtw_wavefront_plain(qs, blk, w, p, qi, ci, bounds),
+                        f"{what}, {qi.numel()} DP pairs with the bound")
+            pairs[1] += qi.numel()
+    if not all(pairs):
+        fail(f"{tag}: the captured blocks held no pair for K3 or K5 ({pairs})")
+    return pairs
+
+
+def phase_sharded(dev, launches, main):
+    """The sharded driver on phase 3's rows: one NCCL rank through
+    ``make_host_mesh`` and ``Database.use_mesh`` against the scan driver
+    on the same rows, then two gloo ranks on the one card against it."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Database
+    from repro_torch.core.cascade import nn_search_scan
+    from repro_torch.kernels.envelope.ops import envelope_op
+    from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes
+
+    t_phase = time.perf_counter()
+    x, queries = main["x"], main["queries"]
+    mesh = make_host_mesh()
+    if mesh.backend != "nccl" or mesh_axis_sizes(mesh) != {"data": 1, "model": 1}:
+        fail(f"make_host_mesh() on one card gave {mesh!r}")
+    db = Database.build(x).use_mesh(mesh, sync_every=SYNC_EVERY)
+    plan = db.plan(queries)
+    if plan.driver != "sharded":
+        fail(f"a session with a mesh did not route to the sharded driver:\n{plan.explain()}")
+
+    def search():
+        t0 = time.perf_counter()
+        res = db.search(queries)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # NCCL sets its communicator up at the first collective: not in the timing
+    mesh.shard_group(mesh.axis_names).all_reduce(torch.zeros(1, device=dev),
+                                                 torch.distributed.ReduceOp.MIN)
+    with captured_scan_blocks() as blocks:
+        res, search_s = counted(launches, "sharded", search)
+    got = launches["sharded"]
+    log(f"[sharded] one NCCL rank, {db!r}, sync_every={SYNC_EVERY}: search of {N_QUERIES} "
+        f"queries {search_s:.2f} s = {N_QUERIES / search_s:.2f} qps; launches "
+        f"{({k: v for k, v in got.items() if v})}")
+    require_launched(launches, "sharded", ("envelope", "lb_keogh", "lb_improved_pass2", "dtw"),
+                     "sharded search")
+    if got["lb_fused"] or got["dtw_merge"]:
+        fail(f"the sharded search ran the host driver's loop: {got}")
+
+    # the scan driver on the same rows and queries: the same sweep, but pad
+    # and poison lanes are neither swept nor counted
+    qs = torch.as_tensor(db.prepare_queries(queries), device=dev)
+    t0 = time.perf_counter()
+    scan = nn_search_scan(qs, db.rows_tensor, db.w, db.p, k=1, block=BLOCK)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    if not np.array_equal(res.indices, scan.indices):
+        fail(f"sharded indices != nn_search_scan's: {res.indices[:, 0]} vs {scan.indices[:, 0]}")
+    if res.distances.tobytes() != scan.distances.tobytes():
+        fail("sharded distances are not nn_search_scan's bits")
+    n_pad = -(-N_ROWS // BLOCK) * BLOCK
+    nb = n_pad // BLOCK
+    poison = (-(-nb // SYNC_EVERY) * SYNC_EVERY - nb) * BLOCK
+    extra = n_pad - N_ROWS + poison  # pad and poison lanes, pruned by LB_Keogh
+    s, t = res.stats, scan.stats
+    for a, b in zip(res.per_query, scan.per_query):
+        want = dataclasses.replace(b, n_candidates=n_pad, stage_pruned=(
+            b.stage_pruned[0] + extra, *b.stage_pruned[1:]))
+        if a != want:
+            fail(f"sharded counters {a} != nn_search_scan's plus {extra} pad and poison "
+                 f"lanes {want}")
+    log(f"[sharded] == nn_search_scan ({scan_s:.2f} s): indices, distance bits, every counter, "
+        f"lb_keogh + {extra} pad and poison lanes a query ({nb} blocks, {poison // BLOCK} "
+        f"poison blocks); pruned {s.pruned_by}, full_dtw {s.full_dtw}, DP lanes "
+        f"{s.dp_lane_useful}/{s.dp_lane_work}")
+    host = main["res"]
+    held = {"lb_keogh": t.pruned_by["lb_keogh"] == MAIN_PRUNED["lb_keogh"],
+            "lb_improved": t.pruned_by["lb_improved"] == MAIN_PRUNED["lb_improved"],
+            "full_dtw": t.full_dtw == MAIN_FULL_DTW}
+    log(f"[sharded] the scan body's counts against the host loop's (phase 3): "
+        + ", ".join(f"{k} {'held' if v else 'differs'}" for k, v in held.items())
+        + f" (scan {t.pruned_by} / {t.full_dtw}; host {MAIN_PRUNED} / {MAIN_FULL_DTW}); "
+        f"indices {'==' if np.array_equal(res.indices, host.indices) else '!='} phase 3's, "
+        f"distance bits {'==' if res.distances.tobytes() == host.distances.tobytes() else '!='}")
+    if not np.array_equal(res.indices, host.indices):
+        fail(f"sharded top-1 {res.indices[:, 0]} != phase 3's {host.indices[:, 0]}")
+    upper, lower = envelope_op(qs, db.w)
+    pairs = check_scan_blocks("[sharded]", qs, upper, lower, db.w, db.p, blocks)
+    log(f"[sharded] {len(blocks)} of the sweep's blocks (the last "
+        f"{'a poison block' if poison else 'the last real block'}): K2 dense, "
+        f"K2 and K3 on {pairs[0]} pairs past LB_Keogh, K5 on {pairs[1]} DP pairs with the "
+        f"block's bound == their plain versions")
+
+    # two gloo ranks on the one card (NCCL takes one rank a device): each
+    # makes phase 3's rows, sweeps its half and returns the merged result
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(GLOO_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", GLOO_RANK, str(r), str(GLOO_RANKS), os.path.join(tmp, "store"),
+             outs[r], str(N_ROWS), str(LENGTH), str(N_QUERIES), str(SEED), str(db.w),
+             str(SYNC_EVERY)],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(GLOO_RANKS)]
+        errors = []
+        for r, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(timeout=RANK_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                for other in procs:
+                    other.kill()
+                out, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"gloo rank {r}: exit {proc.returncode}\n{out}\n{err}")
+        if errors:
+            fail("\n".join(errors))
+        ranks = [json.loads(pathlib.Path(o).read_text()) for o in outs]
+        gloo_s = time.perf_counter() - t0
+    first = ranks[0]
+    if any({k: v for k, v in r.items() if k != "seconds"}
+           != {k: v for k, v in first.items() if k != "seconds"} for r in ranks[1:]):
+        fail("the gloo ranks returned different results")
+    if first["idx"] != res.indices.tolist():
+        fail(f"gloo ranks' indices != the one-rank run's: {first['idx']} vs {res.indices}")
+    if np.asarray(first["dist"], np.float32).tobytes() != res.distances.tobytes():
+        fail("gloo ranks' distances are not the one-rank run's bits")
+    n_pad = -(-N_ROWS // (GLOO_RANKS * BLOCK)) * GLOO_RANKS * BLOCK
+    nb_local = n_pad // GLOO_RANKS // BLOCK
+    lanes = GLOO_RANKS * -(-nb_local // SYNC_EVERY) * SYNC_EVERY * BLOCK
+    for q in first["per_query"]:
+        if sum(q["stage_pruned"]) + q["full_dtw"] != lanes or q["n_candidates"] != n_pad:
+            fail(f"gloo rank counters do not close over the {lanes} lanes swept: {q}")
+    g = first["stats"]
+    log(f"[sharded] {GLOO_RANKS} gloo ranks on cuda:0, {n_pad:,} padded rows: "
+        f"{gloo_s:.1f} s with start-up, the search {max(r['seconds'] for r in ranks):.2f} s; "
+        f"both ranks' results equal, indices and distance bits == the one-rank run; counters "
+        f"close over {lanes:,} lanes a query (pruned {g['stage_pruned']}, full_dtw "
+        f"{g['full_dtw']})")
+    log(f"[sharded] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3350,6 +3621,7 @@ def main() -> int:
     mv_out = timed("9 multivariate", phase_mv, dev, launches, main_out, rec)
     timed("10 mv stream and serve", phase_mv_stream_serve, dev, launches, mv_out)
     del mv_out
+    timed("11 sharded", phase_sharded, dev, launches, main_out)
     log("[time] seconds by phase: " + "; ".join(f"{k} {v:.1f}" for k, v in spent.items()))
     kernels = []
     for name, r in rec.items():

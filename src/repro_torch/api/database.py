@@ -9,6 +9,7 @@
     Database.build(data, tune=True)             # + the kernel tune sweep
     Database.build(data, index=True)            # + the stage-0 triangle index
     db.stream(threshold=3.0, hop=2)             # rows as a stream's templates
+    db.use_mesh(make_host_mesh())               # + the sharded driver
 
 ``build`` computes every database-side artifact once: the (z-normalized,
 precision-cast) rows on the device, their warping envelopes (envelope
@@ -23,8 +24,12 @@ Multivariate data ``(N, n, d)`` is stored channel-major flattened, one
 ``(d*n,)`` row per series (``repro_torch.mv.layout``), z-normalized per
 (row, channel), and searched under dependent DTW; queries are ``(n, d)``
 or ``(Q, n, d)`` (or already flattened ``(Q, d*n)``).  ``(N, n, 1)`` data
-is the univariate session, byte for byte.  Streaming and serving of
-multivariate sessions are not ported yet and raise.
+is the univariate session, byte for byte.
+
+``use_mesh`` attaches a ``repro_torch.core.distributed.Mesh``: every
+rank of the mesh holds the same session, uploads its shard of the padded
+rows once, and the planner routes its searches through the sharded
+driver, which every rank must then issue alike and in the same order.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from repro_torch.core.cascade import (
     nn_search_indexed,
     nn_search_scan,
 )
+from repro_torch.core.distributed import pad_database, shard_database, sharded_nn_search
 from repro_torch.core.pipeline import not_ported
 from repro_torch.index.build import TriangleIndex, build_index
 from repro_torch.index.store import index_arrays, index_from_arrays
@@ -132,6 +138,7 @@ class Database:
         self._calibration = calibration
         self._cascade_cache: dict[int, CascadePlan] = {}
         self._fingerprint: str | None = None
+        self.mesh = None  # set by use_mesh; bundles save no mesh
 
     # ------------------------------------------------------ constructors
 
@@ -408,13 +415,23 @@ class Database:
             f"Database({shape}, w={self.w}, "
             f"p={self.config.p}, method={self.config.method!r}, "
             f"index={'R=%d' % self.index.n_refs if self.index else 'none'}, "
+            f"mesh={'attached' if self.mesh is not None else 'none'}, "
             f"device={self.device})"
         )
 
-    # --------------------------------------------------------- not ported
+    # ---------------------------------------------------------- sharding
 
-    def use_mesh(self, *args, **kwargs):
-        raise not_ported("Database.use_mesh", "11 (sharded driver)")
+    def use_mesh(self, mesh, axis_names=None, sync_every: int = 4) -> "Database":
+        """Attach a device mesh: the planner then routes queries through
+        the sharded driver.  The rows are padded to whole blocks of every
+        shard and this rank's shard is copied to its device here, once."""
+        axis_names = mesh.axes(axis_names)
+        dbp, _ = pad_database(self.data, mesh, axis_names, block=self.config.block)
+        self._db_sharded = shard_database(dbp, mesh, axis_names)
+        self.mesh = mesh
+        self._axis_names = axis_names
+        self._sync_every = int(sync_every)
+        return self
 
     # ----------------------------------------------------------- queries
 
@@ -514,14 +531,16 @@ class Database:
         cfg, cascade = self._resolve_method(self._config_for(method), k)
         return plan_search(
             cfg, self.n_rows, n_queries, has_index=self.index is not None,
-            driver=driver, cascade=cascade, mode=mode, channels=self.d,
+            has_mesh=self.mesh is not None, driver=driver, cascade=cascade, mode=mode,
+            channels=self.d,
         )
 
     def search(self, queries, *, k: int | None = None, driver: str | None = None,
                method: str | None = None, mode: str = "exact"):
-        """Nearest-neighbour search through the planned driver.  One (n,)
-        series -> ``SearchResult``; a (Q, n) batch -> ``BatchSearchResult``
-        ((n, d) and (Q, n, d) on a d-channel session)."""
+        """Nearest-neighbour search through the planned driver (scan, host,
+        indexed or sharded).  One (n,) series -> ``SearchResult``; a (Q, n)
+        batch -> ``BatchSearchResult`` ((n, d) and (Q, n, d) on a d-channel
+        session)."""
         qs = self.prepare_queries(queries)
         k = self.config.validate_k(self.config.k if k is None else k, self.n_rows)
         plan = self.plan(qs, driver=driver, method=method, k=k, mode=mode)
@@ -529,6 +548,12 @@ class Database:
         if plan.driver == "indexed":
             return nn_search_indexed(
                 qs, self._data, self.index, k=k, block=cfg.block, method=cfg.method,
+            )
+        if plan.driver == "sharded":
+            return sharded_nn_search(
+                qs, self._db_sharded, self.mesh, axis_names=self._axis_names, w=self.w,
+                p=cfg.p, k=k, block=cfg.block, sync_every=self._sync_every,
+                method=cfg.method, d=self.d,
             )
         fn = nn_search_scan if plan.driver == "scan" else nn_search_host
         return fn(

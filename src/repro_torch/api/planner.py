@@ -1,14 +1,15 @@
 """Planner: pick a driver and a stage order, explainably (port of
-``repro.api.planner``, the scan/host/indexed part).
+``repro.api.planner``, the scan/host/indexed/sharded part).
 
 ``Database.search`` routes every query batch through ``plan_search``: the
 indexed driver when the session has a stage-0 triangle index, else the
+sharded driver when a mesh is attached (``Database.use_mesh``), else the
 scan driver below ``SMALL_DB_ROWS`` rows (and for ``method="full"``), the
 host driver otherwise.  ``calibrate`` measures every registered bound on a
 small probe sample at build time and ``choose_cascade`` picks the cheapest
 predicted pipeline for ``method="auto"``; every pipeline returns the same
-answers, only cost differs.  The sharded and anytime routes of the
-reference are queued in ROADMAP.md.  A tuned session
+answers, only cost differs.  The anytime route of the reference is
+queued in ROADMAP.md.  A tuned session
 (``Database.build(tune=...)``) plans with its measured stage costs.
 """
 
@@ -27,11 +28,11 @@ DRIVERS = {
     "scan": "repro_torch.core.cascade.nn_search_scan",
     "host": "repro_torch.core.cascade.nn_search_host",
     "indexed": "repro_torch.core.cascade.nn_search_indexed",
+    "sharded": "repro_torch.core.distributed.sharded_nn_search",
 }
 
 #: the reference's other drivers and the ROADMAP.md queue-1 item porting each
 UNPORTED_DRIVERS = {
-    "sharded": "11 (sharded driver)",
     "anytime": "10 (anytime tier)",
     "subsequence": "10 (anytime tier)",
 }
@@ -317,6 +318,7 @@ def plan_search(
     n_queries: int,
     *,
     has_index: bool = False,
+    has_mesh: bool = False,
     driver: str | None = None,
     cascade: CascadePlan | None = None,
     mode: str = "exact",
@@ -324,7 +326,8 @@ def plan_search(
 ) -> Plan:
     """Choose the driver for a query batch against one database session:
     an explicit ``driver`` override wins; then the stage-0 index (the most
-    specific prebuilt artifact); then ``method="full"`` and databases below
+    specific prebuilt artifact); then an attached mesh (the sharded
+    driver); then ``method="full"`` and databases below
     ``SMALL_DB_ROWS`` rows go to the scan driver, the rest to the host
     driver.  ``channels`` (the session's d) rides the plan for
     ``explain()``."""
@@ -357,6 +360,11 @@ def plan_search(
                     "with one)"
                 )
             stages = ("lb_tri",) + stages
+        if driver == "sharded" and not has_mesh:
+            raise ValueError(
+                "driver='sharded' but no mesh is attached: call "
+                "Database.use_mesh(mesh) first"
+            )
         return Plan(driver, stages, ("caller override",) + because,
                     n_queries, config, cascade, channels)
     if has_index:
@@ -366,6 +374,14 @@ def plan_search(
              "arithmetic per candidate kills most lanes before any "
              "envelope work, and the reference distances seed the "
              "top-k exactly",) + because,
+            n_queries, config, cascade, channels,
+        )
+    if has_mesh:
+        return Plan(
+            "sharded", stages,
+            ("mesh attached via Database.use_mesh: the database is "
+             "sharded over its devices and per-query best bounds are "
+             "pmin-exchanged between block rounds",) + because,
             n_queries, config, cascade, channels,
         )
     if config.method == "full":

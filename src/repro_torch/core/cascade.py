@@ -195,16 +195,18 @@ def _pad_db(db: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
 
 
 def init_carry(k: int, nq: int, n_lb: int, dtype, device, top_v=None, top_i=None):
-    """Fresh query-major carry: (top_v (Q, k), top_i (Q, k),
+    """Fresh query-major carry: (top_v (Q, k), top_i (Q, k), gbound (Q,),
     stage_pruned (S, Q), dtw_count (Q,), lb2_blocks, dtw_blocks,
     dp_lane_work, dp_lane_useful); optionally seeded with an already
     known (Q, k) top-k (the indexed search seeds it with the exact
-    reference distances)."""
+    reference distances).  ``gbound`` starts at BIG: only the sharded
+    search lowers it, to the bound its shards exchange."""
     return (
         torch.full((nq, k), BIG, dtype=dtype, device=device) if top_v is None
         else torch.as_tensor(top_v, dtype=dtype, device=device),
         torch.full((nq, k), -1, dtype=torch.int64, device=device) if top_i is None
         else torch.as_tensor(top_i, dtype=torch.int64, device=device),
+        torch.full((nq,), BIG, dtype=dtype, device=device),
         torch.zeros((n_lb, nq), dtype=torch.int64, device=device),
         torch.zeros((nq,), dtype=torch.int64, device=device),
         0, 0, 0, 0,
@@ -213,25 +215,28 @@ def init_carry(k: int, nq: int, n_lb: int, dtype, device, top_v=None, top_i=None
 
 def make_block_step(ctx: pipe.PipeContext, k: int, block: int, method: str,
                     n_real: int | None = None):
-    """The per-block body of the scan and indexed drivers: run the
-    block's stages against each query's k-th best, merge into the top-k
-    by a stable sort, and count.
+    """The per-block body of the scan, indexed and sharded drivers: run
+    the block's stages against each query's k-th best (or the carry's
+    ``gbound``, where lower), merge into the top-k by a stable sort, and
+    count.
 
     ``body(carry, blk, cand_i, mask0=None)``: ``cand_i`` is the (block,)
     vector of candidate ids (a contiguous range for the plain scan, a
     compacted survivor gather for ``nn_search_indexed``), and ``mask0`` a
     (Q, block) bool of the lanes alive on entry (each query's stage-0
     survivors).  Without ``mask0``, lanes with ``cand_i >= n_real``
-    (database pad rows) are masked off.  Masked lanes are neither
-    evaluated nor counted."""
+    (database pad rows) are masked off, and with no ``n_real`` either
+    every lane is alive.  Masked lanes are neither evaluated nor
+    counted."""
     nq = ctx.qs.shape[0]
     n_lb = len(pipe.lb_stage_names(method))
+    every_lane = torch.ones((nq, block), dtype=torch.bool, device=ctx.qs.device)
 
     def body(carry, blk, cand_i, mask0=None):
-        top_v, top_i, c_stage, c_dtw, b_lb2, b_dtw, w_dp, u_dp = carry
+        top_v, top_i, gbound, c_stage, c_dtw, b_lb2, b_dtw, w_dp, u_dp = carry
         if mask0 is None:
-            mask0 = (cand_i < n_real)[None, :].expand(nq, block)
-        bound = top_v[:, -1]
+            mask0 = every_lane if n_real is None else (cand_i < n_real)[None, :].expand(nq, block)
+        bound = torch.minimum(top_v[:, -1], gbound)
         st = pipe.run_block_stages(
             ctx.qs, ctx.upper, ctx.lower, ctx.w, ctx.p, method, blk, bound,
             mask0, ctx=ctx, cand_i=cand_i,
@@ -247,7 +252,7 @@ def make_block_step(ctx: pipe.PipeContext, k: int, block: int, method: str,
             )
         c_dtw = c_dtw + st.masks[-1].sum(dim=1)
         return (
-            top_v, top_i, c_stage, c_dtw,
+            top_v, top_i, gbound, c_stage, c_dtw,
             b_lb2 + int(st.need_lb2), b_dtw + int(st.need_dtw),
             w_dp + st.dp_lane_work, u_dp + st.dp_lane_useful,
         )
@@ -329,7 +334,7 @@ def nn_search_scan(
     lanes = torch.arange(block, device=db_t.device)
     for t in range(nb):
         carry = body(carry, dbp[t * block : (t + 1) * block], t * block + lanes)
-    top_v, top_i, cs, c3, b2, b3, w_dp, u_dp = carry
+    top_v, top_i, _, cs, c3, b2, b3, w_dp, u_dp = carry
     agg, per_query = _batch_stats(
         n_db, pipe.lb_stage_names(method), cs.cpu().numpy(), c3.cpu().numpy(),
         b2, b3, blocks_total=nb, dp_lane_work=w_dp, dp_lane_useful=u_dp,
@@ -692,7 +697,7 @@ def nn_search_indexed(
         if real < block:  # filler rows never win: masked off on entry
             blk = torch.cat([blk, blk.new_full((block - real, n), 0.5 * BIG ** 0.25)])
         carry = body(carry, blk, idx_t[lanes], mask_t[:, lanes])
-    top_v_t, top_i_t, cs, c3, b2, b3, w_dp, u_dp = carry
+    top_v_t, top_i_t, _, cs, c3, b2, b3, w_dp, u_dp = carry
     # the R band-w reference DPs count as full_dtw: they seed the top-k
     # with true distances
     agg, per_query = _batch_stats(

@@ -2,17 +2,18 @@
 
 Serves nearest-neighbour queries through one ``repro_torch.api.Database``
 session: artifacts (envelopes, powered norms, optionally the stage-0
-triangle index) are built once, the planner picks the driver — the
-4-stage indexed cascade with ``--index``, else the scan or host driver —
-and the query queue drains through query-major microbatches, every batch
-riding one sweep.  The session runs on the GPU unless ``--device cpu``.
+triangle index) are built once, the planner picks the pipeline —
+sharded over the host mesh by default, the 4-stage indexed cascade with
+``--index`` — and the query queue drains through query-major
+microbatches, every batch riding one sweep.  The session runs on the GPU
+unless ``--device cpu``.
 
-The reference serves without ``--index`` through a host mesh (its
-sharded driver); one GPU is one shard, and the sharded driver waits for
-ROADMAP.md queue 1, item 11, so this launcher attaches no mesh and says
-so where the reference prints its mesh.  ``--anytime``, ``--mode
-anytime`` and a ``--query-length`` other than the session's need the
-anytime tier (item 10) and raise ``NotImplementedError``.
+The host mesh (``launch.mesh.make_host_mesh``) spans the ranks of the
+default ``torch.distributed`` group, or one rank (NCCL on the GPU, gloo
+on the CPU) when the launcher is started alone.  ``--anytime``,
+``--mode anytime`` and a ``--query-length`` other than the session's
+need the anytime tier (ROADMAP.md queue 1, item 10) and raise
+``NotImplementedError``.
 
 Persistence: ``--db-path x.npz`` saves/loads the whole session bundle
 (data + envelopes + index + config, the reference's keys), so a
@@ -43,6 +44,7 @@ from repro_torch.core.pipeline import not_ported
 from repro_torch.data.synthetic import random_walks
 from repro_torch.index import load_index, save_index
 from repro_torch.index.store import npz_path
+from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes
 
 __all__ = ["drain_queries", "iter_query_batches", "main"]
 
@@ -139,11 +141,10 @@ def main(argv=None):
                     help="stage pipeline (repro_torch.core.pipeline.PIPELINES), or "
                     "'auto' to let the calibrated cascade planner order the bounds")
     ap.add_argument("--sync-every", type=int, default=4,
-                    help="bound-exchange period of the sharded driver (not ported: "
-                    "ROADMAP item 11)")
+                    help="blocks between the sharded driver's bound exchanges")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--index", action="store_true",
-                    help="serve through the stage-0 triangle index")
+                    help="serve through the stage-0 triangle index instead of the mesh scan")
     ap.add_argument("--n-refs", type=int, default=16)
     ap.add_argument("--n-clusters", type=int, default=0, help="0 = n_refs")
     ap.add_argument("--db-path", type=str, default="",
@@ -187,8 +188,9 @@ def main(argv=None):
     batch = max(1, min(args.query_batch, args.queries))
     indexed = db.index is not None
     if not indexed:
-        print(f"mesh=none (sharded driver: ROADMAP item 11; --sync-every="
-              f"{args.sync_every} applies there)")
+        mesh = make_host_mesh(device=args.device)
+        db.use_mesh(mesh, sync_every=args.sync_every)
+        print(f"mesh={mesh_axis_sizes(mesh)}")
     print(f"db={db.n_rows} series x {db.length} w={db.w} p={db.p} query_batch={batch}")
     print(db.plan(batch).explain())
 

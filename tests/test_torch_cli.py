@@ -6,10 +6,10 @@
 through the stage-0 triangle index: the same ``nn``, ``stage0=``,
 ``clusters=``, ``pruned_*`` and ``dtw=`` counts, and ``dist`` within rtol
 2e-4 (plus half of the line's 3-decimal rounding).  Without ``--index``
-the reference serves through its host mesh (the sharded driver, which
-syncs its bounds across shards), so only ``nn`` and ``dist`` are held:
-the port has no sharded driver yet and serves through its planner.  The
-quickstart twin runs small, its exactness asserts included.
+both serve through a one-device host mesh (the sharded driver) and print
+the same mesh line, ``nn``, ``dist``, ``pruned_*`` and ``dtw=``; the
+port's one-rank gloo group is destroyed after the test.  The quickstart
+twin runs small, its exactness asserts included.
 """
 
 import importlib.util
@@ -23,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+import torch.distributed as dist  # noqa: E402
 from repro.launch import search as j_cli  # noqa: E402
 from repro_torch.api.planner import SMALL_DB_ROWS  # noqa: E402
 from repro_torch.launch import search as t_cli  # noqa: E402
@@ -66,21 +67,27 @@ def close(a: float, b: float) -> bool:
 @pytest.mark.parametrize("indexed", [True, False], ids=["index", "no_index"])
 def test_cli_lines_match_reference(capsys, monkeypatch, indexed):
     args = SMALL + (INDEXED if indexed else [])
-    port_out = run_port(capsys, args)
+    try:
+        port_out = run_port(capsys, args)
+    finally:
+        if dist.is_initialized():  # the mesh route's one-rank group
+            dist.destroy_process_group()
     ref_out = run_reference(capsys, monkeypatch, args)
     port, ref = parse(port_out), parse(ref_out)
     assert len(port) == len(ref) == 3
+    keys = ("pruned_lb_keogh", "pruned_lb_improved", "dtw")
+    if indexed:
+        keys += ("stage0", "clusters")
     for a, b in zip(port, ref):
         assert a["nn"] == b["nn"] and close(a["dist"], b["dist"]), (a, b)
-        if indexed:
-            keys = ("stage0", "clusters", "pruned_lb_keogh", "pruned_lb_improved", "dtw")
-            assert {k: a[k] for k in keys} == {k: b[k] for k in keys}
+        assert {k: a[k] for k in keys} == {k: b[k] for k in keys}
     if indexed:
         assert "driver: indexed (repro_torch.core.cascade.nn_search_indexed)" in port_out
-        assert "mesh=" not in port_out
+        assert not any(ln.startswith("mesh=") for ln in port_out.splitlines())
     else:
-        assert "mesh=none (sharded driver: ROADMAP item 11; --sync-every=4" in port_out
-        assert "driver: scan" in port_out  # 200 rows < SMALL_DB_ROWS
+        mesh_line = "mesh={'data': 1, 'model': 1}"
+        assert mesh_line in port_out.splitlines() and mesh_line in ref_out.splitlines()
+        assert "driver: sharded (repro_torch.core.distributed.sharded_nn_search)" in port_out
     assert "served 3 queries" in port_out
 
 

@@ -18,11 +18,14 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+import torch.distributed as dist  # noqa: E402
+
 from helpers import SRC, run_in_subprocess  # noqa: E402
 from repro.api import Database as JDatabase  # noqa: E402
 from repro.api import SearchConfig as JConfig  # noqa: E402
 from repro_torch.api import Database, SearchConfig  # noqa: E402
 from repro_torch.api.planner import SMALL_DB_ROWS, choose_cascade  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.stream import StreamMatcher  # noqa: E402
 
 torch.set_num_threads(1)
@@ -121,8 +124,15 @@ def test_bundles_of_unported_tiers_raise(tmp_path):
     assert isinstance(mv_stream, StreamMatcher) and mv_stream.d == 2
     assert len(mv_stream.states) == 2 and mv_stream.scanner._upper is mv._upper
     db = Database.build(x, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        db.use_mesh(None)
+    # the sharded driver is ported: use_mesh attaches a mesh (one gloo rank)
+    mesh = make_host_mesh(device="cpu")
+    try:
+        sharded = Database.build(x, device="cpu").use_mesh(mesh)
+        assert "mesh=attached" in repr(sharded) and "mesh=none" in repr(db)
+        assert sharded.plan(x[:2]).driver == "sharded"
+        np.testing.assert_array_equal(sharded.search(x[:2]).indices, db.search(x[:2]).indices)
+    finally:
+        dist.destroy_process_group()
     # (Q, n, 2) templates on a univariate session end as the reference's
     # call ends: a ValueError, not a missing port
     mv_tpl = np.stack([x[:2], x[:2]], axis=-1)
