@@ -172,13 +172,30 @@ Phases (any failure raises, exits non-zero and prints no result line):
    swept.  K2 (dense and on the pairs past LB_Keogh), K3 and K5 (on the
    DP pairs, the block's bound as each lane's) against their plain
    versions on five captured blocks of the sweep, the last a poison block.
+12. The anytime tier's build side (after phase 11): phase 3's rows built
+   with ``anytime=True``, the whole-row tier (100,000 windows, its bank
+   the session's rows tensor, 32 coarse clusters) whose radii are two
+   K5 sweeps of the representatives against every window (w = 100 and
+   the wide band 200, 49 launches of 32 x 2,048 pairs each); the build's
+   seconds split into the session, the tier's host work and the sweeps
+   (wall and device stream); K5 bit-equal to ``dtw_wavefront_plain`` on
+   the first and last chunk of every sweep; the tree's invariants (the
+   windows partitioned, sampled boxes holding their members and nesting,
+   sampled radii equal to K5's extreme over their members and bounding
+   ``dtw_reference`` within rtol 2e-4); ``from_arrays(to_arrays())``
+   keeping every tier array's bits; the exact search on the anytime
+   session giving phase 3's indices and distance bits.  Then the first
+   10,000 rows at lengths (256, 1,000) (hop 64: 120,000 windows of 256)
+   with the same checks, and a 2,000-row session of that configuration
+   through ``save``/``load``.
 
 Launches are counted per phase (3 build, 3 search, the long-row
 session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
 6 index build and indexed search, each summed over both p, 7 stream
 session, stream offline and stream example, 8 serve, 9 mv build, mv
 search, mv scan and mv d=1, 10 mv stream session, mv stream offline and
-mv serve, 11 sharded),
+mv serve, 11 sharded, 12 anytime build, anytime search and anytime sub
+build),
 each from zero, and the untuned ``kim_improved`` and ``kim_webb``
 searches; phase 2's
 comparisons are not counted.  The
@@ -3578,6 +3595,302 @@ def phase_sharded(dev, launches, main):
     log(f"[sharded] phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ phase 12
+
+#: the anytime tier's subsequence build: phase 3's first rows at these
+#: lengths (default hop m // 4: 12 windows of 256 a row; the host's
+#: leaf clustering grows with the square of the windows a cluster, so the
+#: rows are cut to keep the phase near a minute), the rows of the
+#: session saved and loaded through an .npz file at the same lengths, the
+#: coarse clusters whose radii are checked by ``dtw_reference`` (whole-row
+#: tier, then the 256 tier), and the windows of a captured sweep chunk
+#: held against K5's plain version
+ANYTIME_SUB = (10_000, (256, LENGTH))
+ANYTIME_BUNDLE_ROWS = 2_000
+ANYTIME_ORACLE = (2, 8)
+SWEEP_CHECK_ROWS = 128
+
+
+@contextlib.contextmanager
+def timed_anytime_build(keep: int = SWEEP_CHECK_ROWS):
+    """Time the anytime tier inside ``Database.build`` while the context is
+    open: its whole build (``build_anytime_index``) and its K5 radius
+    sweeps (``anytime/cluster.py::_rep_dists``: wall clock, and the device
+    stream's span by CUDA events), count the sweeps' launches, and keep the
+    first and last chunk of every sweep (``keep`` windows of each, with the
+    representatives, band and p) to hold K5 against its plain version.
+    Yields the record, filled when the context ends."""
+    import torch
+
+    from repro_torch.anytime import cluster
+    from repro_torch.api import database
+
+    sweep, qbatch = cluster._rep_dists, cluster.dtw_qbatch_op
+    build = database.build_anytime_index
+    rec = dict(tier_s=0.0, sweep_s=0.0, sweep_device_s=0.0, sweeps=0, sweep_launches=0,
+               chunks=[])
+    ends: list = []
+
+    def dtw_qbatch(qs, cands, w, p=1, *a, **kw):
+        rec["sweep_launches"] += 1
+        if not ends:
+            ends.append((qs, cands[:keep], w, p))
+        ends[1:] = [(qs, cands[-keep:], w, p)]
+        return qbatch(qs, cands, w, p, *a, **kw)
+
+    def rep_dists(reps, wins, w, p, *a, **kw):
+        ends.clear()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = sweep(reps, wins, w, p, *a, **kw)
+        end.record()
+        end.synchronize()
+        rec["sweep_s"] += time.perf_counter() - t0
+        rec["sweep_device_s"] += start.elapsed_time(end) / 1e3
+        rec["sweeps"] += 1
+        rec["chunks"] += ends
+        return out
+
+    def build_index(*a, **kw):
+        t0 = time.perf_counter()
+        out = build(*a, **kw)
+        torch.cuda.synchronize()
+        rec["tier_s"] += time.perf_counter() - t0
+        return out
+
+    cluster._rep_dists, cluster.dtw_qbatch_op = rep_dists, dtw_qbatch
+    database.build_anytime_index = build_index
+    try:
+        yield rec
+    finally:
+        cluster._rep_dists, cluster.dtw_qbatch_op = sweep, qbatch
+        database.build_anytime_index = build
+
+
+def check_sweep_chunks(tag, chunks) -> int:
+    """K5's dense entry against ``dtw_wavefront_plain`` (bit-equal) on the
+    captured chunks of the radius sweeps; returns the pairs checked."""
+    from repro_torch.kernels.dtw.ops import dtw_launch, dtw_wavefront_plain
+
+    pairs = 0
+    for reps, cands, w, p in chunks:
+        what = (f"{tag} sweep chunk ({reps.shape[0]} representatives x {cands.shape[0]} "
+                f"windows of {cands.shape[1]}, w={w}, p={p})")
+        check_equal("dtw", dtw_launch(reps, cands, w, p), dtw_wavefront_plain(reps, cands, w, p),
+                    what)
+        pairs += reps.shape[0] * cands.shape[0]
+    return pairs
+
+
+def check_anytime_tier(tag, db, m, n_oracle, rng) -> tuple[int, float]:
+    """The tree's invariants on one tier: representatives and leaf members
+    partition the window ids; on ``n_oracle`` sampled coarse clusters every
+    member lies in its leaf's box, every leaf box in its cluster's box,
+    ``radii_w`` is K5's max over the members at band w and
+    ``min_radii_wide`` its min at the wide band (the same bits), and each
+    radius bounds ``dtw_reference`` of its representative to two members
+    (the extreme one and a random one) within rtol 2e-4.  Returns the
+    oracle calls and their worst relative error against K5."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.dtw import dtw_reference, finish_cost
+    from repro_torch.index.triangle_lb import wide_band
+    from repro_torch.kernels.dtw.ops import dtw_qbatch_op
+
+    li = db.anytime.tier(m)
+    t = li.tree
+    if not np.array_equal(np.sort(np.concatenate([t.rep_gid, t.members])),
+                          np.arange(li.n_windows)):
+        fail(f"{tag} m={m}: representatives and leaf members do not partition the "
+             f"{li.n_windows} windows")
+    if t.leaf_start[-1] != t.n_leaves or t.member_start[-1] != t.n_members:
+        fail(f"{tag} m={m}: the CSR offsets do not close")
+    calls, worst = 0, 0.0
+    for c in rng.choice(t.n_coarse, size=min(n_oracle, t.n_coarse), replace=False):
+        leaves = t.coarse_leaves(int(c))
+        if not len(leaves):
+            continue
+        mem = np.concatenate([t.leaf_members(lf) for lf in leaves])
+        rows = li.wins[torch.as_tensor(mem, device=li.wins.device)]
+        host = rows.cpu().numpy()
+        if (host < t.cmin0[c]).any() or (host > t.cmax0[c]).any():
+            fail(f"{tag} m={m}: cluster {c}'s box does not hold its members")
+        for lf in leaves:
+            inner = li.wins[torch.as_tensor(t.leaf_members(lf), device=li.wins.device)]
+            inner = inner.cpu().numpy()
+            if ((inner < t.cmin1[lf]).any() or (inner > t.cmax1[lf]).any()
+                    or (t.cmin1[lf] < t.cmin0[c]).any() or (t.cmax1[lf] > t.cmax0[c]).any()):
+                fail(f"{tag} m={m}: leaf {lf} of cluster {c} is not nested in its boxes")
+        rep = li.wins[int(t.rep_gid[c])]
+        rep_host = rep.cpu().numpy()
+        for band, radius, pick, side in ((li.w, t.radii_w[c], np.argmax, 1.0),
+                                         (wide_band(li.w, m), t.min_radii_wide[c], np.argmin,
+                                          -1.0)):
+            d = finish_cost(dtw_qbatch_op(rep[None], rows, band, db.p), db.p)[0]
+            d = d.to(torch.float32).cpu().numpy()
+            j = int(pick(d))
+            if d[j] != radius:
+                fail(f"{tag} m={m}: cluster {c}'s radius at band {band} is {radius}, K5's "
+                     f"extreme over its {mem.size} members {d[j]}")
+            for i in (j, int(rng.integers(mem.size))):
+                ref = dtw_reference(rep_host, host[i], band, db.p)
+                worst = max(worst, abs(float(d[i]) - ref) / max(ref, 1e-30))
+                if side * (float(radius) - ref) < -2e-4 * ref:
+                    fail(f"{tag} m={m}: cluster {c}'s radius {radius} at band {band} does not "
+                         f"bound dtw_reference {ref} to member {mem[i]}")
+                calls += 1
+    if worst > 2e-4:
+        fail(f"{tag} m={m}: K5 against dtw_reference: rel err {worst:.3g} > 2e-4")
+    return calls, worst
+
+
+def same_tiers(tag, got, want):
+    """Two sessions' anytime tiers: the same lengths, bands, window bits,
+    provenance and every tree array's bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.anytime.build import _TREE_FIELDS
+
+    if got.anytime.lengths != want.anytime.lengths or repr(got.anytime) != repr(want.anytime):
+        fail(f"{tag}: {got.anytime!r} != {want.anytime!r}")
+    for m in want.anytime.lengths:
+        a, b = got.anytime.tier(m), want.anytime.tier(m)
+        if (a.m, a.hop, a.w) != (b.m, b.hop, b.w) or not torch.equal(a.wins, b.wins):
+            fail(f"{tag} m={m}: the window bank or its band differs")
+        for f in ("row_ids", "starts"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                fail(f"{tag} m={m}: {f} differs")
+        for f in _TREE_FIELDS:
+            x, y = getattr(a.tree, f), getattr(b.tree, f)
+            if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                fail(f"{tag} m={m}: tree array {f} differs")
+
+
+def phase_anytime(dev, launches, main):
+    """The anytime tier's build side on phase 3's rows: the whole-row tier
+    (``anytime=True``) with its K5 radius sweeps, the tree's invariants,
+    an in-memory bundle round trip, the exact search's bits; then the
+    first 10,000 rows at lengths (256, 1,000) and a 2,000-row session of
+    that configuration through ``save``/``load``."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.anytime.cluster import SWEEP_CHUNK
+    from repro_torch.api import Database
+
+    t_phase = time.perf_counter()
+    x, queries, host = main["x"], main["queries"], main["res"]
+    rng = np.random.default_rng(SEED + 12)
+
+    def build(rows, anytime):
+        def run():
+            with timed_anytime_build() as rec:
+                t0 = time.perf_counter()
+                db = Database.build(rows, anytime=anytime)
+                torch.cuda.synchronize()
+                rec["build_s"] = time.perf_counter() - t0
+            return db, rec
+        return run
+
+    def report(tag, db, rec, phase):
+        lens = db.anytime.lengths
+        want = sum(2 * -(-db.anytime.tier(m).n_windows // SWEEP_CHUNK) for m in lens)
+        got = launches[phase]["dtw"]
+        if rec["sweeps"] != 2 * len(lens) or rec["sweep_launches"] != want or got < want:
+            fail(f"{tag}: expected {2 * len(lens)} radius sweeps of {want} K5 launches in all, "
+                 f"got {rec['sweeps']} sweeps, {rec['sweep_launches']} sweep launches and "
+                 f"{got} dtw launches in the build")
+        tiers = "; ".join(
+            f"m={m}: W={li.n_windows:,}, C={li.tree.n_coarse}, {li.tree.n_leaves:,} leaves, "
+            f"w={li.w}" for m, li in sorted(db.anytime.by_len.items()))
+        host_s = rec["tier_s"] - rec["sweep_s"]
+        log(f"[anytime] {tag}: {db!r}; {tiers}")
+        log(f"[anytime] {tag}: build {rec['build_s']:.3f} s = the session "
+            f"{rec['build_s'] - rec['tier_s']:.3f} s + the tier {rec['tier_s']:.3f} s (host "
+            f"{host_s:.3f} s: slicing, sketches, clustering, boxes, copies; K5 radius sweeps "
+            f"{rec['sweep_s']:.3f} s wall, {rec['sweep_device_s']:.3f} s on the device "
+            f"stream, {rec['sweep_launches']} launches); launches {launches[phase]}")
+
+    # the whole-row tier: W = 100,000, C = min(32, isqrt(W))
+    db, rec = counted(launches, "anytime build", build(x, True))
+    li = db.anytime.tier(LENGTH)
+    if li.wins is not db.rows_tensor:
+        fail("the whole-row tier's window bank is not the session's rows tensor")
+    if li.tree.n_coarse != min(32, math.isqrt(N_ROWS)) or li.w != db.w:
+        fail(f"whole-row tier: C={li.tree.n_coarse}, w={li.w}")
+    report("whole-row tier", db, rec, "anytime build")
+    pairs = check_sweep_chunks("[anytime] whole-row", rec["chunks"])
+    calls, worst = check_anytime_tier("[anytime] whole-row", db, LENGTH, ANYTIME_ORACLE[0], rng)
+    log(f"[anytime] whole-row tier: K5 == dtw_wavefront_plain on {len(rec['chunks'])} sweep "
+        f"chunks ({pairs:,} pairs); the tree partitions the windows, sampled boxes hold "
+        f"their members and nest, sampled radii are K5's extremes and bound "
+        f"dtw_reference ({calls} calls, max rel err {worst:.3g})")
+    t0 = time.perf_counter()
+    back = Database.from_arrays(db.to_arrays())
+    torch.cuda.synchronize()
+    arrays_s = time.perf_counter() - t0
+    same_tiers("[anytime] from_arrays(to_arrays())", back, db)
+    if back.anytime.tier(LENGTH).wins is not back.rows_tensor:
+        fail("from_arrays did not put the whole-row tier on the session's rows tensor")
+
+    def search():
+        res = db.search(queries)
+        torch.cuda.synchronize()
+        return res
+
+    res = counted(launches, "anytime search", search)
+    if not np.array_equal(res.indices, host.indices) or (
+            res.distances.tobytes() != host.distances.tobytes()):
+        fail(f"the anytime session's exact search {res.indices[:, 0]} is not phase 3's "
+             f"{host.indices[:, 0]} bit for bit")
+    log(f"[anytime] bundle arrays round trip in memory {arrays_s:.2f} s: every tier array's "
+        f"bits, the whole-row bank on the rows tensor; exact search == phase 3's indices and "
+        f"distance bits; launches {launches['anytime search']}")
+    del db, back, res
+
+    # the subsequence tiers: the first rows at (256, 1,000), hop 64
+    n_sub, lengths = ANYTIME_SUB
+    sub, rec = counted(launches, "anytime sub build", build(x[:n_sub], dict(lengths=lengths)))
+    report(f"{n_sub:,} rows at lengths {lengths}", sub, rec, "anytime sub build")
+    if sub.anytime.tier(lengths[0]).hop != lengths[0] // 4:
+        fail(f"the {lengths[0]} tier's hop is {sub.anytime.tier(lengths[0]).hop}")
+    pairs = check_sweep_chunks("[anytime] sub", rec["chunks"])
+    calls, worst = 0, 0.0
+    for m, n_oracle in zip(lengths, ANYTIME_ORACLE[::-1]):
+        got = check_anytime_tier("[anytime] sub", sub, m, n_oracle, rng)
+        calls += got[0]
+        worst = max(worst, got[1])
+    log(f"[anytime] subsequence tiers: K5 == dtw_wavefront_plain on {len(rec['chunks'])} "
+        f"sweep chunks ({pairs:,} pairs); tree invariants and radii held ({calls} "
+        f"dtw_reference calls, max rel err {worst:.3g})")
+    del sub
+
+    small = Database.build(x[:ANYTIME_BUNDLE_ROWS], anytime=dict(lengths=lengths))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = small.save(f"{tmp}/anytime")
+        size = os.path.getsize(path)
+        loaded = Database.load(path)
+        torch.cuda.synchronize()
+        io_s = time.perf_counter() - t0
+    same_tiers("[anytime] save/load", loaded, small)
+    if (loaded.search(queries[:2]).distances.tobytes()
+            != small.search(queries[:2]).distances.tobytes()):
+        fail("the loaded anytime session answers differently")
+    log(f"[anytime] {ANYTIME_BUNDLE_ROWS:,} rows at lengths {lengths} ({small.anytime!r}): "
+        f"save + load of {size / 1e6:.1f} MB in {io_s:.2f} s, every tier array's bits and the "
+        f"search's distance bits kept")
+    log(f"[anytime] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3622,6 +3935,7 @@ def main() -> int:
     timed("10 mv stream and serve", phase_mv_stream_serve, dev, launches, mv_out)
     del mv_out
     timed("11 sharded", phase_sharded, dev, launches, main_out)
+    timed("12 anytime build", phase_anytime, dev, launches, main_out)
     log("[time] seconds by phase: " + "; ".join(f"{k} {v:.1f}" for k, v in spent.items()))
     kernels = []
     for name, r in rec.items():

@@ -12,11 +12,13 @@ the schedule table the wrappers resolve, and ``Database.build(tune=...)``
 sweeps it.
 
 The stage-0 index (``index``), streaming subsequence search
-(``stream``), the multi-tenant serving engine (``serve``) and the
+(``stream``), the multi-tenant serving engine (``serve``), the
 multivariate tier (``mv``: dependent DTW on channel-major rows, every
-driver and method, the TC-DTW stages) are ported; multivariate streaming
-and serving, the anytime tier and the sharded driver are queued in
-ROADMAP.md.
+driver and method, the TC-DTW stages, streaming and serving), the
+sharded driver (``core.distributed``) and the anytime tier's build side
+(``anytime``: window banks and cluster trees, radii by K5) are ported;
+the anytime tier's search and serving, and an engine over a multi-rank
+mesh, are queued in ROADMAP.md.
 """
 
 from repro_torch.api import Database, SearchConfig

@@ -6,8 +6,10 @@
     db.plan(queries).explain()                  # see the routing
     res = db.search(queries)                    # scan, host or indexed driver
     db.save("session.npz"); Database.load(...)  # the reference's bundle
+    Database.from_arrays(db.to_arrays())        # the same, in memory
     Database.build(data, tune=True)             # + the kernel tune sweep
     Database.build(data, index=True)            # + the stage-0 triangle index
+    Database.build(data, anytime=True)          # + the anytime tier's build side
     db.stream(threshold=3.0, hop=2)             # rows as a stream's templates
     db.use_mesh(make_host_mesh())               # + the sharded driver
 
@@ -26,6 +28,12 @@ Multivariate data ``(N, n, d)`` is stored channel-major flattened, one
 or ``(Q, n, d)`` (or already flattened ``(Q, d*n)``).  ``(N, n, 1)`` data
 is the univariate session, byte for byte.
 
+``anytime=True`` (or a dict of options) builds the anytime tier's window
+banks and cluster trees (``repro_torch.anytime``), saved and loaded as the
+reference's ``any_*`` bundle keys; its search side (``mode="anytime"``,
+subsequence-length queries) is ROADMAP.md item 10b and raises
+``NotImplementedError``.
+
 ``use_mesh`` attaches a ``repro_torch.core.distributed.Mesh``: every
 rank of the mesh holds the same session, uploads its shard of the padded
 rows once, and the planner routes its searches through the sharded
@@ -41,8 +49,15 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.anytime.build import (
+    AnytimeIndex,
+    anytime_arrays,
+    anytime_from_arrays,
+    build_anytime_index,
+)
 from repro_torch.api.config import SearchConfig
 from repro_torch.api.planner import (
+    UNPORTED_DRIVERS,
     Calibration,
     CascadePlan,
     Plan,
@@ -70,12 +85,6 @@ from repro_torch.stream.state import STD_EPS
 BUNDLE_FORMAT_VERSION = 1
 
 
-#: bundle key prefixes of tiers a later slice ports -> ROADMAP.md item
-_UNPORTED_BUNDLE_KEYS = {
-    "any_": "10 (anytime tier)",
-}
-
-
 def _znorm_rows(rows: np.ndarray, eps: float = STD_EPS, dtype="float32") -> np.ndarray:
     """Per-row global z-normalization, vectorized over rows (the
     reference's arithmetic, in float64 numpy)."""
@@ -98,11 +107,6 @@ def _torch_dtype(precision: str) -> torch.dtype:
     return torch.float64 if precision == "float64" else torch.float32
 
 
-def _not_ported_option(name: str, value, item: str) -> None:
-    if value:
-        raise not_ported(f"Database.build({name}=...)", item)
-
-
 class Database:
     """One searchable time-series database session.
 
@@ -115,7 +119,8 @@ class Database:
         self, *, raw, data: torch.Tensor, config: SearchConfig, w: int,
         upper: torch.Tensor, lower: torch.Tensor, row_sums, row_sumsq,
         calibration: Calibration | None = None, tune_table: TuneTable | None = None,
-        index: TriangleIndex | None = None, d: int = 1,
+        index: TriangleIndex | None = None, anytime: AnytimeIndex | None = None,
+        d: int = 1,
     ):
         self.raw = raw  # as given (precision-cast numpy), what save() persists
         # (N, d*n) rows on the device, channel-major flattened when d > 1,
@@ -129,6 +134,8 @@ class Database:
         self.row_sums = row_sums  # (N,) float64 sum x of the raw rows
         self.row_sumsq = row_sumsq  # (N,) float64 sum x^2
         self.index = index  # the stage-0 triangle index, or None
+        # the anytime tier (window banks + cluster trees per length), or None
+        self.anytime = anytime
         # measured schedules and stage costs of build(tune=...), persisted
         # as tune_* bundle keys; installing makes them what every kernel
         # wrapper resolves.  None on untuned sessions: the defaults hold.
@@ -167,9 +174,15 @@ class Database:
         the session's ``tune_table``, installed process-wide, saved in the
         bundle, and read by the planner for ``method="auto"``.  A dict
         customizes the sweep, e.g. ``tune=dict(iters=1, families=("lb_kim",
-        "pipeline"))``.  The reference's ``anytime`` tier is not ported yet
-        and raises ``NotImplementedError`` (``ValueError`` on multivariate
-        data, which the reference's tier does not serve)."""
+        "pipeline"))``.
+
+        ``anytime=True`` builds the anytime tier over the whole-row length
+        (its window bank is the stored rows tensor itself); a dict
+        customizes it, e.g. ``anytime=dict(lengths=(64, n), hop=8,
+        n_coarse=32, leaf_size=32)``, see
+        :func:`repro_torch.anytime.build_anytime_index`.  Its radii are
+        2·C·W DP sweeps on the session's device.  Univariate only
+        (``ValueError`` on multivariate data, as in the reference)."""
         config = config if config is not None else SearchConfig()
         raw = np.asarray(data, dtype=config.precision)
         if raw.ndim == 3:
@@ -194,7 +207,6 @@ class Database:
                 "anytime subsequence tier is univariate-only for now; "
                 "build with anytime=False for multivariate data"
             )
-        _not_ported_option("anytime", anytime, _UNPORTED_BUNDLE_KEYS["any_"])
         dev = resolve_device(device)
         n_db, n = raw.shape[0], raw.shape[1]
         if n < 2:
@@ -225,6 +237,14 @@ class Database:
                 f"index must be a bool or a prebuilt TriangleIndex, got "
                 f"{type(index).__name__}"
             )
+        any_idx = None
+        if anytime:
+            opts = dict(anytime) if isinstance(anytime, dict) else {}
+            any_idx = build_anytime_index(
+                raw, data_t, p=config.p, znorm=config.znorm, resolved_w=w,
+                w_config=config.w, precision=config.precision,
+                seed=opts.pop("seed", seed), **opts,
+            )
         table = None
         if tune:
             opts = dict(tune) if isinstance(tune, dict) else {}
@@ -236,7 +256,7 @@ class Database:
         return cls(
             raw=raw, data=data_t, config=config, w=w, upper=upper, lower=lower,
             row_sums=row_sums, row_sumsq=row_sumsq, calibration=cal,
-            tune_table=table, index=tri, d=d,
+            tune_table=table, index=tri, anytime=any_idx, d=d,
         )
 
     @classmethod
@@ -244,11 +264,8 @@ class Database:
         """A session from the reference's bundle arrays (``.npz`` keys:
         ``config_json``, ``resolved_w``, ``data``, ``upper``, ``lower``,
         ``row_sums``, ``row_sumsq`` and the optional ``channels``,
-        ``idx_*``, ``cal_*`` and ``tune_*``).  Saved artifacts are uploaded,
-        not recomputed; a tune table is installed."""
-        for prefix, item in _UNPORTED_BUNDLE_KEYS.items():
-            if any(k.startswith(prefix) for k in arrays):
-                raise not_ported(f"a bundle with {prefix}* keys", item)
+        ``idx_*``, ``cal_*``, ``any_*`` and ``tune_*``).  Saved artifacts are
+        uploaded, not recomputed; a tune table is installed."""
         version = int(arrays["bundle_format_version"])
         if version != BUNDLE_FORMAT_VERSION:
             raise ValueError(
@@ -277,10 +294,17 @@ class Database:
             table = TuneTable.from_arrays(
                 {k[len("tune_"):]: arrays[k] for k in arrays if k.startswith("tune_")}
             )
+        data_t = torch.as_tensor(rows, device=dev).contiguous()
+        any_idx = None
+        if "any_meta" in arrays:
+            any_idx = anytime_from_arrays(
+                {k[len("any_"):]: arrays[k] for k in arrays if k.startswith("any_")},
+                device=dev, prepared=data_t,
+            )
         dt = _torch_dtype(config.precision)
         return cls(
             raw=raw,
-            data=torch.as_tensor(rows, device=dev).contiguous(),
+            data=data_t,
             config=config,
             w=int(arrays["resolved_w"]),
             upper=torch.as_tensor(np.asarray(arrays["upper"]), dtype=dt, device=dev),
@@ -290,16 +314,16 @@ class Database:
             calibration=cal,
             tune_table=table,
             index=tri,
+            anytime=any_idx,
             d=d,
         )
 
     # ------------------------------------------------------- persistence
 
-    def save(self, path: str) -> str:
-        """Persist the session to one ``.npz`` bundle (the reference's keys),
-        the stage-0 index included."""
-        path = str(path) if str(path).endswith(".npz") else f"{path}.npz"
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    def to_arrays(self) -> dict[str, np.ndarray]:
+        """The bundle's arrays (the reference's keys), the stage-0 index and
+        the anytime tier included: what :meth:`save` writes and
+        :meth:`from_arrays` reads."""
         arrays: dict[str, np.ndarray] = {
             "bundle_format_version": np.int64(BUNDLE_FORMAT_VERSION),
             "config_json": np.str_(self.config.to_json()),
@@ -319,11 +343,19 @@ class Database:
             arrays.update(
                 {f"cal_{k}": v for k, v in self._calibration.to_arrays().items()}
             )
+        if self.anytime is not None:
+            arrays.update({f"any_{k}": v for k, v in anytime_arrays(self.anytime).items()})
         if self.tune_table is not None:
             arrays.update(
                 {f"tune_{k}": v for k, v in self.tune_table.to_arrays().items()}
             )
-        np.savez_compressed(path, **arrays)
+        return arrays
+
+    def save(self, path: str) -> str:
+        """Persist the session to one ``.npz`` bundle (:meth:`to_arrays`)."""
+        path = str(path) if str(path).endswith(".npz") else f"{path}.npz"
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.savez_compressed(path, **self.to_arrays())
         return path
 
     @classmethod
@@ -415,6 +447,7 @@ class Database:
             f"Database({shape}, w={self.w}, "
             f"p={self.config.p}, method={self.config.method!r}, "
             f"index={'R=%d' % self.index.n_refs if self.index else 'none'}, "
+            f"anytime={list(self.anytime.lengths) if self.anytime else 'none'}, "
             f"mesh={'attached' if self.mesh is not None else 'none'}, "
             f"device={self.device})"
         )
@@ -515,6 +548,18 @@ class Database:
             self._cascade_cache[kk] = cascade
         return dataclasses.replace(cfg, method=cascade.method), cascade
 
+    def _anytime_info(self, qlen: int | None = None) -> dict | None:
+        """Tier summary for the planner (None when no tier is built), as
+        the reference's; the anytime routes that read it are item 10b."""
+        if self.anytime is None:
+            return None
+        return {
+            "lengths": list(self.anytime.lengths),
+            "windows": self.anytime.n_windows,
+            "clusters": self.anytime.n_clusters,
+            "subsequence": qlen is not None and qlen != self.length,
+        }
+
     def plan(self, queries=None, *, driver: str | None = None,
              method: str | None = None, k: int | None = None,
              mode: str = "exact") -> Plan:
@@ -540,7 +585,12 @@ class Database:
         """Nearest-neighbour search through the planned driver (scan, host,
         indexed or sharded).  One (n,) series -> ``SearchResult``; a (Q, n)
         batch -> ``BatchSearchResult`` ((n, d) and (Q, n, d) on a d-channel
-        session)."""
+        session).  On a session with the anytime tier, a query of another
+        length than the rows' and ``mode="anytime"`` are item 10b and
+        raise ``NotImplementedError``; a whole-length exact search answers
+        as the session without the tier."""
+        if self.anytime is not None and np.asarray(queries).shape[-1] != self.length:
+            raise not_ported("a subsequence-length query", UNPORTED_DRIVERS["subsequence"])
         qs = self.prepare_queries(queries)
         k = self.config.validate_k(self.config.k if k is None else k, self.n_rows)
         plan = self.plan(qs, driver=driver, method=method, k=k, mode=mode)

@@ -8,9 +8,10 @@ scan driver below ``SMALL_DB_ROWS`` rows (and for ``method="full"``), the
 host driver otherwise.  ``calibrate`` measures every registered bound on a
 small probe sample at build time and ``choose_cascade`` picks the cheapest
 predicted pipeline for ``method="auto"``; every pipeline returns the same
-answers, only cost differs.  The anytime route of the reference is
-queued in ROADMAP.md.  A tuned session
-(``Database.build(tune=...)``) plans with its measured stage costs.
+answers, only cost differs.  The reference's anytime and subsequence
+routes are ROADMAP.md item 10b (the tier's build side is ported).  A
+tuned session (``Database.build(tune=...)``) plans with its measured
+stage costs.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ DRIVERS = {
 
 #: the reference's other drivers and the ROADMAP.md queue-1 item porting each
 UNPORTED_DRIVERS = {
-    "anytime": "10 (anytime tier)",
-    "subsequence": "10 (anytime tier)",
+    "anytime": "10b (anytime search)",
+    "subsequence": "10b (anytime search)",
 }
 
 #: below this many candidate rows the scan driver is chosen, above it the

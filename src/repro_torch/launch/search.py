@@ -12,8 +12,8 @@ The host mesh (``launch.mesh.make_host_mesh``) spans the ranks of the
 default ``torch.distributed`` group, or one rank (NCCL on the GPU, gloo
 on the CPU) when the launcher is started alone.  ``--anytime``,
 ``--mode anytime`` and a ``--query-length`` other than the session's
-need the anytime tier (ROADMAP.md queue 1, item 10) and raise
-``NotImplementedError``.
+need the anytime tier's search side and its CLI (ROADMAP.md queue 1,
+items 10b and 10c) and raise ``NotImplementedError``.
 
 Persistence: ``--db-path x.npz`` saves/loads the whole session bundle
 (data + envelopes + index + config, the reference's keys), so a
@@ -48,7 +48,7 @@ from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes
 
 __all__ = ["drain_queries", "iter_query_batches", "main"]
 
-ANYTIME_ITEM = "10 (anytime tier)"
+ANYTIME_ITEM = "10c (anytime serving and CLI)"
 
 
 def _parse_p(s: str):
@@ -154,9 +154,9 @@ def main(argv=None):
                     help="index-only store: load the index from this .npz if "
                     "present, else build and save it")
     ap.add_argument("--anytime", type=str, default="",
-                    help="the anytime subsequence tier (not ported: ROADMAP item 10)")
+                    help="the anytime subsequence tier (not ported: ROADMAP item 10c)")
     ap.add_argument("--mode", type=str, default="exact", choices=("exact", "anytime"),
-                    help="'anytime' needs the anytime tier (not ported: ROADMAP item 10)")
+                    help="'anytime' needs the anytime tier (not ported: ROADMAP item 10c)")
     ap.add_argument("--budget", type=int, default=0,
                     help="anytime exploration budget (0 = unlimited)")
     ap.add_argument("--query-length", type=int, default=0,

@@ -52,9 +52,13 @@ is stream-ordered), the kernel library loads once under a lock, and the
 launch counters and LB_Kim's tickets are taken under locks
 (``kernels/common.py``).
 
-The anytime tier (``mode="anytime"``) is not ported yet: ``submit``
-raises ``NotImplementedError`` for it, and the anytime fields of
-:class:`EngineStats` stay 0.
+The anytime tier's serving (``mode="anytime"``) is not ported yet
+(ROADMAP.md item 10c): ``submit`` raises ``NotImplementedError`` for it,
+and the anytime fields of :class:`EngineStats` stay 0.  Neither is an
+engine over a session whose mesh spans several ranks (item 11b): every
+rank's engine would coalesce its own arrivals, and the sharded driver's
+collectives would then pair different searches, so the constructor
+refuses it; a one-rank mesh is served.
 """
 
 from __future__ import annotations
@@ -72,7 +76,19 @@ from repro_torch.core.microbatch import pad_rows
 from repro_torch.core.pipeline import not_ported
 from repro_torch.serve.cache import AnswerCache, query_digest
 
-ANYTIME_ITEM = "10 (anytime tier)"
+ANYTIME_ITEM = "10c (anytime serving and CLI)"
+MULTI_RANK_ITEM = "11b (QueryEngine over a multi-rank mesh)"
+
+
+def _refuse_multi_rank(db) -> None:
+    """Raise for a session whose mesh spans more than one rank: each
+    rank's engine batches its own arrivals, so the sharded driver's
+    collectives would pair different searches (item 11b ports it)."""
+    mesh = getattr(db, "mesh", None)
+    if mesh is not None and mesh.size > 1:
+        raise not_ported(
+            f"QueryEngine over a {mesh.size}-rank mesh", MULTI_RANK_ITEM
+        )
 
 
 class AdmissionFull(RuntimeError):
@@ -95,7 +111,8 @@ class Answer:
     or cached).  ``wait_ms`` is admission-to-execution queueing delay
     (0 for cache hits), ``batch_lanes`` the number of real lanes in the
     serving batch (0 for cache hits).  ``error_bounds`` is for
-    anytime-mode answers, which wait for the anytime tier: None here.
+    anytime-mode answers, which wait for the anytime tier's serving
+    (item 10c): None here.
     """
 
     distances: np.ndarray  # (k,) ascending
@@ -145,7 +162,7 @@ class EngineStats:
     stream_samples: int  # values pushed through open_stream sessions (m*d)
     wait_ms_mean: float  # mean admission->execution delay of batch-served
     uptime_s: float
-    # anytime-tier telemetry (the tier is not ported yet: always 0):
+    # anytime-tier telemetry (its serving is not ported yet: always 0):
     anytime_served: int = 0  # requests answered through mode="anytime"
     clusters_explored: int = 0  # leaf clusters refined, over all requests
     residual_bound_mean: float = 0.0  # mean worst error bound per answer
@@ -254,7 +271,9 @@ class QueryEngine:
       queue states); call :meth:`start` when ready.
 
     A multivariate session (``db.channels > 1``) takes one (n, d) query
-    per request; the coalesced batch is searched as (Q, n, d).
+    per request; the coalesced batch is searched as (Q, n, d).  A session
+    whose mesh spans more than one rank raises ``NotImplementedError``
+    (item 11b); one rank is served.
     """
 
     def __init__(
@@ -274,6 +293,7 @@ class QueryEngine:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        _refuse_multi_rank(db)
         self.db = db
         self.max_batch = int(max_batch)
         self.max_wait = float(max_wait_ms) / 1e3
@@ -358,8 +378,8 @@ class QueryEngine:
         tenant queue raises :class:`AdmissionFull` immediately.
 
         ``mode="anytime"`` (best-so-far answers with error bounds under a
-        ``budget``) needs the anytime tier, which is not ported yet, and
-        raises ``NotImplementedError``.
+        ``budget``) is the anytime tier's serving, which is not ported yet
+        (item 10c), and raises ``NotImplementedError``.
         """
         db = self.db
         raw = np.asarray(query, dtype=db.config.precision)
@@ -521,6 +541,7 @@ class QueryEngine:
         t_exec = time.monotonic()
         block, n_valid = pad_rows([lane[0].query for lane in lanes], self.max_batch)
         try:
+            _refuse_multi_rank(self.db)  # a mesh attached after construction
             res = self.db.search(block, k=k, method=method, driver=driver)
         except Exception as e:  # fail every rider, never wedge the worker
             for lane in lanes:

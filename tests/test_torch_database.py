@@ -114,8 +114,8 @@ def test_bundle_cross_load_and_round_trip(tmp_path):
 
 def test_bundles_of_unported_tiers_raise(tmp_path):
     x = walks(7, 60, 24)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Database.build(x, anytime=True, device="cpu")
+    # the anytime tier's build side is ported: it builds and shows in repr
+    assert "anytime=[24]" in repr(Database.build(x, anytime=True, device="cpu"))
     # the multivariate tier builds, searches and streams
     mv = Database.build(np.stack([x, x], axis=-1), device="cpu")
     assert mv.channels == 2 and mv.search(np.stack([x[0], x[0]], axis=-1)).index == 0
@@ -141,11 +141,17 @@ def test_bundles_of_unported_tiers_raise(tmp_path):
     with pytest.raises(ValueError):
         db.stream(mv_tpl, threshold=1.0)
     assert isinstance(db.stream(threshold=1.0), StreamMatcher)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # its search side is not: item 10b
+    with pytest.raises(NotImplementedError, match="item 10b"):
         db.search(x[:2], mode="anytime")
+    # a reference bundle with the tier loads, its any_* arrays with it
     jdb = JDatabase.build(x, JConfig(), anytime=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Database.load(jdb.save(str(tmp_path / "anytime")), device="cpu")
+    back = Database.load(jdb.save(str(tmp_path / "anytime")), device="cpu")
+    assert back.anytime.lengths == (24,) and back.anytime.tier(24).wins is back.rows_tensor
+    np.testing.assert_array_equal(back.anytime.tier(24).tree.members,
+                                  jdb.anytime.tier(24).tree.members)
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        back.search(x[:2], mode="anytime")
 
 
 def test_indexed_session_matches_repro(tmp_path):
