@@ -188,6 +188,22 @@ Phases (any failure raises, exits non-zero and prints no result line):
    10,000 rows at lengths (256, 1,000) (hop 64: 120,000 windows of 256)
    with the same checks, and a 2,000-row session of that configuration
    through ``save``/``load``.
+13. The anytime tier's search side (after phase 12, on its two
+   sessions): two of phase 3's queries with ``mode="anytime"`` and no
+   budget on the whole-row tier (the plan must say ``anytime``): phase
+   3's indices and distance bits, every error bound 0, and no K4 or K5m
+   launch; one of them at budgets of 32, 1,024 and 8,192 windows, each
+   answer's error bound sound against phase 3's (``0 <= d - t <= err``)
+   and the distances never rising with the budget; then the same two
+   queries cut to 256 samples on the 10,000-row session's 256 tier
+   (120,000 windows, w = 25; the plan must say ``subsequence``): the
+   exact route and unlimited anytime equal to a K5 brute force over the
+   whole bank in ``(distance, gid)`` order, bit for bit, and a budget of
+   2,048 sound against it.  K1 bit-equal on the query envelopes, and K2,
+   K3 and K5 against their plain versions on blocks the refinement ran
+   (``captured_scan_blocks``, ``check_scan_blocks``).  Each search prints
+   its windows refined, clusters explored, DPs, residual bound and
+   seconds a query.
 
 Launches are counted per phase (3 build, 3 search, the long-row
 session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
@@ -195,7 +211,7 @@ session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
 session, stream offline and stream example, 8 serve, 9 mv build, mv
 search, mv scan and mv d=1, 10 mv stream session, mv stream offline and
 mv serve, 11 sharded, 12 anytime build, anytime search and anytime sub
-build),
+build, 13 anytime mode and anytime sub search),
 each from zero, and the untuned ``kim_improved`` and ``kim_webb``
 searches; phase 2's
 comparisons are not counted.  The
@@ -3386,8 +3402,9 @@ json.dump(dict(idx=res.indices.tolist(), dist=res.distances.astype(float).tolist
 def captured_scan_blocks(keep_first: int = 2, keep_dtw: int = 2):
     """Keep a few of the blocks the scan body runs while the context is
     open: the first ``keep_first``, the first ``keep_dtw`` after them whose
-    DP ran, and the last one; each with its tile, its bound and the
-    stages' masks.  Yields the list, filled when the context ends."""
+    DP ran, and the last one; each with its tile, its bound, the stages'
+    masks and its queries with their envelopes.  Yields the list, filled
+    when the context ends."""
     from repro_torch.core import pipeline as pipe
 
     stages = pipe.run_block_stages
@@ -3395,7 +3412,8 @@ def captured_scan_blocks(keep_first: int = 2, keep_dtw: int = 2):
 
     def run_stages(*a, **kw):
         res = stages(*a, **kw)
-        blk = dict(blk=a[6], bound=a[7], masks=res.masks, index=seen[0])
+        blk = dict(blk=a[6], bound=a[7], masks=res.masks, index=seen[0], qs=a[0],
+                   upper=a[1], lower=a[2])
         seen[0] += 1
         if blk["index"] < keep_first:
             kept.append(blk)
@@ -3415,11 +3433,13 @@ def captured_scan_blocks(keep_first: int = 2, keep_dtw: int = 2):
 
 
 def check_scan_blocks(tag, qs, upper, lower, w, p, blocks):
-    """The sharded route's kernels against their plain versions on blocks
-    it ran: K2 dense (rtol 1e-4, H bit-equal), K2 and K3 on the pairs that
-    passed LB_Keogh (K3 rtol 2e-4), and K5 on the pairs that reached the
-    DP with the block's bound as each lane's bound (bit-equal to
-    ``dtw_wavefront_plain``).  Returns the pairs checked by K3 and K5."""
+    """A route's kernels against their plain versions on blocks it ran: K2
+    dense (rtol 1e-4, H bit-equal), K2 and K3 on the pairs that passed
+    LB_Keogh (K3 rtol 2e-4), and K5 on the pairs that reached the DP with
+    the block's bound as each lane's bound (bit-equal to
+    ``dtw_wavefront_plain``).  ``qs`` None takes each block's own queries
+    and envelopes (the anytime routes run one query at a time).  Returns
+    the pairs checked by K3 and K5."""
     from repro_torch.kernels.dtw.ops import dtw_launch, dtw_wavefront_plain
     from repro_torch.kernels.lb_improved.ops import (
         lb_improved_pass2_launch,
@@ -3428,8 +3448,11 @@ def check_scan_blocks(tag, qs, upper, lower, w, p, blocks):
     from repro_torch.kernels.lb_keogh.ops import lb_keogh_launch, lb_keogh_plain
 
     pairs = [0, 0]
+    own = qs is None
     for b in blocks:
         blk, bound, masks = b["blk"], b["bound"], b["masks"]
+        if own:
+            qs, upper, lower = b["qs"], b["upper"], b["lower"]
         what = f"{tag} block {b['index']} (Q={qs.shape[0]} B={blk.shape[0]} w={w} p={p})"
         lb, h = lb_keogh_launch(blk, upper, lower, p)
         lbp, hp = lb_keogh_plain(blk, upper, lower, p)
@@ -3854,7 +3877,7 @@ def phase_anytime(dev, launches, main):
     log(f"[anytime] bundle arrays round trip in memory {arrays_s:.2f} s: every tier array's "
         f"bits, the whole-row bank on the rows tensor; exact search == phase 3's indices and "
         f"distance bits; launches {launches['anytime search']}")
-    del db, back, res
+    del back, res
 
     # the subsequence tiers: the first rows at (256, 1,000), hop 64
     n_sub, lengths = ANYTIME_SUB
@@ -3871,7 +3894,6 @@ def phase_anytime(dev, launches, main):
     log(f"[anytime] subsequence tiers: K5 == dtw_wavefront_plain on {len(rec['chunks'])} "
         f"sweep chunks ({pairs:,} pairs); tree invariants and radii held ({calls} "
         f"dtw_reference calls, max rel err {worst:.3g})")
-    del sub
 
     small = Database.build(x[:ANYTIME_BUNDLE_ROWS], anytime=dict(lengths=lengths))
     with tempfile.TemporaryDirectory() as tmp:
@@ -3889,6 +3911,156 @@ def phase_anytime(dev, launches, main):
         f"save + load of {size / 1e6:.1f} MB in {io_s:.2f} s, every tier array's bits and the "
         f"search's distance bits kept")
     log(f"[anytime] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(db=db, sub=sub)  # phase 13 searches both tiers
+
+
+# ------------------------------------------------------------ phase 13
+
+#: the anytime tier's search side: phase 3's queries searched on phase
+#: 12's whole-row tier, unlimited; the budgets (windows refined a query)
+#: of the ladder of one of them; the subsequence length of phase 12's
+#: 10,000-row session, whose queries are phase 3's first ones cut to it,
+#: and the budget they are searched at beside the exact routes
+ANYTIME_QUERIES = 2
+ANYTIME_LADDER = (32, 1024, 8192)
+ANYTIME_SUB_LEN, ANYTIME_SUB_BUDGET = 256, 2048
+
+
+def anytime_line(res, secs, nq) -> str:
+    s = res.stats
+    return (f"refined {s.refined:,}, clusters_explored {s.clusters_explored:,} of "
+            f"{s.clusters_total:,}, nodes_expanded {s.nodes_expanded}, full_dtw "
+            f"{s.full_dtw:,}, pruned {s.pruned_by}, residual_lb {s.residual_lb:.6g}, "
+            f"{secs / nq:.3f} s a query")
+
+
+def sound_against(tag, res, exact_d):
+    """Budgeted answers against the exact ones: ``0 <= d_j - t_j <= err_j``
+    (the slack of ``tests/test_anytime_soundness.py``)."""
+    import numpy as np
+
+    d = np.asarray(res.distances, np.float64)
+    t = np.asarray(exact_d, np.float64)
+    gap = d - t
+    if (res.indices < 0).any() or (gap < -1e-9).any() or (gap > res.error_bounds + 1e-9).any():
+        fail(f"{tag}: unsound bound: distances {d.tolist()}, exact {t.tolist()}, error bounds "
+             f"{res.error_bounds.tolist()}")
+
+
+def phase_anytime_search(dev, launches, main, tiers):
+    """The anytime tier's search side on phase 12's sessions: ``mode=
+    "anytime"`` on the whole-row tier against phase 3's answers, a budget
+    ladder with sound error bounds, the subsequence tier's exact route and
+    anytime answers against a K5 brute force over the bank; K1, K2, K3
+    and K5 against their plain versions on what the refinement ran."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.dtw import finish_cost
+    from repro_torch.kernels.dtw.ops import dtw_qbatch_op
+    from repro_torch.kernels.envelope.ops import envelope_launch, envelope_plain
+
+    t_phase = time.perf_counter()
+    db, sub = tiers["db"], tiers["sub"]
+    queries, host = main["queries"], main["res"]
+    nq = ANYTIME_QUERIES
+    qs = queries[:nq]
+
+    def timed_search(session, q, **kw):
+        def run():
+            t0 = time.perf_counter()
+            res = session.search(q, **kw)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+        return run
+
+    # (a) the whole-row tier, unlimited: phase 3's bits, every bound 0
+    plan = db.plan(qs, mode="anytime")
+    if plan.driver != "anytime" or plan.stages[0] != "cluster_lb":
+        fail(f"mode='anytime' did not plan the anytime route:\n{plan.explain()}")
+    with captured_scan_blocks() as blocks:
+        res, secs = counted(launches, "anytime mode", timed_search(db, qs, mode="anytime"))
+    got = launches["anytime mode"]
+    require_launched(launches, "anytime mode", ("envelope", "lb_keogh", "lb_improved_pass2",
+                                                "dtw"), "anytime search")
+    if got["lb_fused"] or got["dtw_merge"]:
+        fail(f"the anytime search ran the host driver's loop: {got}")
+    if not np.array_equal(res.indices, host.indices[:nq]) or (
+            res.distances.tobytes() != host.distances[:nq].tobytes()):
+        fail(f"unlimited anytime {res.indices[:, 0]} is not phase 3's {host.indices[:nq, 0]} "
+             f"bit for bit")
+    if not (res.error_bounds == 0).all():
+        fail(f"unlimited anytime error bounds {res.error_bounds.tolist()} are not 0")
+    log(f"[anytime search] whole-row tier, {nq} queries, no budget: == phase 3's indices and "
+        f"distance bits, error bounds 0; {anytime_line(res, secs, nq)}; launches "
+        f"{({k: v for k, v in got.items() if v})}")
+    pairs = check_scan_blocks("[anytime search]", None, None, None, db.w, db.p, blocks)
+
+    # (b) the budget ladder on one query: sound bounds, distances never rise
+    last = None
+    for budget in ANYTIME_LADDER:
+        r, secs = counted(launches, "anytime mode", timed_search(db, qs[0], mode="anytime",
+                                                                 budget=budget))
+        sound_against(f"[anytime search] budget {budget}", r, host.distances[0])
+        if last is not None and (r.distances > last).any():
+            fail(f"budget {budget}: distances {r.distances} rose from {last}")
+        last = r.distances
+        log(f"[anytime search] budget {budget:,}: distance {r.distances.tolist()} (exact "
+            f"{host.distances[0].tolist()}), error bound {r.error_bounds.tolist()}; "
+            f"{anytime_line(r, secs, 1)}")
+
+    # (c) the subsequence tier: phase 3's first queries cut to its length
+    m = ANYTIME_SUB_LEN
+    li = sub.anytime.tier(m)
+    sq = queries[:nq, :m]
+    plan = sub.plan(sq)
+    if plan.driver != "subsequence":
+        fail(f"a length-{m} query did not plan the subsequence route:\n{plan.explain()}")
+    q_t = torch.as_tensor(np.ascontiguousarray(sub.prepare_queries(sq, length=m)), device=dev)
+    brute = finish_cost(dtw_qbatch_op(q_t, li.wins, li.w, sub.p), sub.p).cpu().numpy()
+    k = sub.config.k
+    order = np.stack([np.lexsort((np.arange(li.n_windows), d))[:k] for d in brute])
+    want_d = np.take_along_axis(brute, order, axis=1)
+    with captured_scan_blocks() as sub_blocks:
+        exact, exact_s = counted(launches, "anytime sub search", timed_search(sub, sq))
+        anyt, anyt_s = counted(launches, "anytime sub search",
+                               timed_search(sub, sq, mode="anytime"))
+    for tag, r in (("exact route", exact), ("anytime, no budget", anyt)):
+        if not np.array_equal(r.indices, order) or r.distances.tobytes() != want_d.tobytes():
+            fail(f"subsequence {tag}: {r.indices.tolist()} / {r.distances.tolist()} is not the "
+                 f"K5 brute force's {order.tolist()} / {want_d.tolist()} bit for bit")
+        if not (r.error_bounds == 0).all():
+            fail(f"subsequence {tag}: error bounds {r.error_bounds.tolist()}")
+    budgeted, budget_s = counted(launches, "anytime sub search",
+                                 timed_search(sub, sq, mode="anytime", budget=ANYTIME_SUB_BUDGET))
+    sound_against(f"[anytime search] subsequence budget {ANYTIME_SUB_BUDGET}", budgeted, want_d)
+    require_launched(launches, "anytime sub search", ("envelope", "lb_keogh",
+                                                      "lb_improved_pass2", "dtw"),
+                     "subsequence search")
+    log(f"[anytime search] subsequence tier m={m} (W={li.n_windows:,}, "
+        f"{li.tree.n_leaves:,} leaves, w={li.w}), {nq} queries: the exact route and "
+        f"unlimited anytime == the K5 brute force over the bank (indices {order[:, 0].tolist()}, "
+        f"distance bits), error bounds 0; exact {exact_s / nq:.3f} s a query "
+        f"({exact.stats.refined // nq:,} windows, full_dtw {exact.stats.full_dtw:,}); "
+        f"anytime {anytime_line(anyt, anyt_s, nq)}")
+    log(f"[anytime search] subsequence budget {ANYTIME_SUB_BUDGET:,}: distances "
+        f"{budgeted.distances[:, 0].tolist()} (exact {want_d[:, 0].tolist()}), error bounds "
+        f"{budgeted.error_bounds[:, 0].tolist()}; {anytime_line(budgeted, budget_s, nq)}; "
+        f"launches {({k: v for k, v in launches['anytime sub search'].items() if v})}")
+
+    # (d) the kernels against their plain versions on what the routes ran
+    for tag, qt, w in (("whole-row", torch.as_tensor(db.prepare_queries(qs), device=dev), db.w),
+                       ("subsequence", q_t, li.w)):
+        check_equal("envelope", envelope_launch(qt, w), envelope_plain(qt, w),
+                    f"[anytime search] {tag} query envelopes ({qt.shape[0]} x {qt.shape[1]}, "
+                    f"w={w})")
+    sub_pairs = check_scan_blocks("[anytime search] sub", None, None, None, li.w, sub.p,
+                                  sub_blocks)
+    log(f"[anytime search] K1 bit-equal on the query envelopes; on {len(blocks)} whole-row and "
+        f"{len(sub_blocks)} subsequence blocks of the refinement: K2 dense, K2 and K3 on "
+        f"{pairs[0] + sub_pairs[0]} pairs past LB_Keogh, K5 on {pairs[1] + sub_pairs[1]} DP pairs "
+        f"with the gate == their plain versions")
+    log(f"[anytime search] phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -3935,7 +4107,9 @@ def main() -> int:
     timed("10 mv stream and serve", phase_mv_stream_serve, dev, launches, mv_out)
     del mv_out
     timed("11 sharded", phase_sharded, dev, launches, main_out)
-    timed("12 anytime build", phase_anytime, dev, launches, main_out)
+    tiers = timed("12 anytime build", phase_anytime, dev, launches, main_out)
+    timed("13 anytime search", phase_anytime_search, dev, launches, main_out, tiers)
+    del tiers
     log("[time] seconds by phase: " + "; ".join(f"{k} {v:.1f}" for k, v in spent.items()))
     kernels = []
     for name, r in rec.items():

@@ -59,6 +59,9 @@ class LengthIndex:
     exact sweep's order), a tensor on the session's device;
     ``row_ids``/``starts`` map global window ids back to their ``(row,
     start)``; ``w`` is the band this tier's radii and refinement run at.
+    ``cache`` holds the tree arrays the query phase reads, uploaded to the
+    bank's device at the tier's first query (``anytime.search``); it is
+    not part of the bundle.
     """
 
     m: int
@@ -68,6 +71,9 @@ class LengthIndex:
     row_ids: np.ndarray  # (W,) int64
     starts: np.ndarray  # (W,) int64
     tree: ClusterTree
+    cache: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
 
     @property
     def n_windows(self) -> int:

@@ -9,7 +9,9 @@
     Database.from_arrays(db.to_arrays())        # the same, in memory
     Database.build(data, tune=True)             # + the kernel tune sweep
     Database.build(data, index=True)            # + the stage-0 triangle index
-    Database.build(data, anytime=True)          # + the anytime tier's build side
+    Database.build(data, anytime=True)          # + the anytime tier
+    db.search(q, mode="anytime", budget=4096)   # best-so-far with error bounds
+    db.search(q[:m])                            # a subsequence-length query
     db.stream(threshold=3.0, hop=2)             # rows as a stream's templates
     db.use_mesh(make_host_mesh())               # + the sharded driver
 
@@ -30,9 +32,11 @@ is the univariate session, byte for byte.
 
 ``anytime=True`` (or a dict of options) builds the anytime tier's window
 banks and cluster trees (``repro_torch.anytime``), saved and loaded as the
-reference's ``any_*`` bundle keys; its search side (``mode="anytime"``,
-subsequence-length queries) is ROADMAP.md item 10b and raises
-``NotImplementedError``.
+reference's ``any_*`` bundle keys.  ``search(mode="anytime", budget=)``
+then explores it best-first (best-so-far top-k with sound per-answer
+error bounds), and a query of one of its shorter lengths takes the exact
+sweep over that tier's windows; both return ``AnytimeResult`` /
+``AnytimeBatchResult``.
 
 ``use_mesh`` attaches a ``repro_torch.core.distributed.Mesh``: every
 rank of the mesh holds the same session, uploads its shard of the padded
@@ -57,7 +61,6 @@ from repro_torch.anytime.build import (
 )
 from repro_torch.api.config import SearchConfig
 from repro_torch.api.planner import (
-    UNPORTED_DRIVERS,
     Calibration,
     CascadePlan,
     Plan,
@@ -73,7 +76,6 @@ from repro_torch.core.cascade import (
     nn_search_scan,
 )
 from repro_torch.core.distributed import pad_database, shard_database, sharded_nn_search
-from repro_torch.core.pipeline import not_ported
 from repro_torch.index.build import TriangleIndex, build_index
 from repro_torch.index.store import index_arrays, index_from_arrays
 from repro_torch.kernels.common import resolve_device
@@ -495,9 +497,11 @@ class Database:
             qs = _znorm_channels(qs, d, self.config.precision)
         return qs[0] if single else qs
 
-    def prepare_queries(self, queries) -> np.ndarray:
+    def prepare_queries(self, queries, length: int | None = None) -> np.ndarray:
         """The exact query array the drivers consume: precision-cast and
-        (when the session z-norms) z-normalized, shape validated.  On a
+        (when the session z-norms) z-normalized, shape validated.
+        ``length`` overrides the expected query length on a session with
+        an anytime subsequence tier (default: the whole-row length).  On a
         multivariate session queries are one (n, d) series or a (Q, n, d)
         batch, returned channel-major flattened like the stored rows."""
         qs = np.asarray(queries, dtype=self.config.precision)
@@ -510,10 +514,16 @@ class Database:
                 f"queries must be one (n,) series or a (Q, n) batch, got "
                 f"shape {qs.shape}"
             )
-        if qs.shape[-1] != self.length:
+        expected = self.length if length is None else int(length)
+        if qs.shape[-1] != expected:
+            tiers = (
+                f" (anytime tier lengths: {list(self.anytime.lengths)})"
+                if self.anytime is not None
+                else ""
+            )
             raise ValueError(
                 f"query length {qs.shape[-1]} != expected series length "
-                f"{self.length}: the paper's DTW bounds assume equal lengths"
+                f"{expected}: the paper's DTW bounds assume equal lengths{tiers}"
             )
         if self.config.znorm:
             single = qs.ndim == 1
@@ -550,7 +560,7 @@ class Database:
 
     def _anytime_info(self, qlen: int | None = None) -> dict | None:
         """Tier summary for the planner (None when no tier is built), as
-        the reference's; the anytime routes that read it are item 10b."""
+        the reference's."""
         if self.anytime is None:
             return None
         return {
@@ -562,8 +572,13 @@ class Database:
 
     def plan(self, queries=None, *, driver: str | None = None,
              method: str | None = None, k: int | None = None,
-             mode: str = "exact") -> Plan:
-        """The routing decision ``search`` would take for ``queries``."""
+             mode: str = "exact", budget: int | None = None,
+             length: int | None = None) -> Plan:
+        """The routing decision ``search`` would take for ``queries`` (their
+        shape only): under ``mode="anytime"`` the tier's route and budget,
+        and for a univariate query of another length than the rows' (or
+        ``length``) the subsequence route."""
+        qlen = length
         if queries is None:
             n_queries = 1
         elif isinstance(queries, (int, np.integer)):
@@ -573,27 +588,46 @@ class Database:
             # on a d-channel session (d*n,) and (n, d) are one query
             one = arr.ndim == 1 or (self.d > 1 and arr.ndim == 2 and arr.shape[-1] == self.d)
             n_queries = 1 if one else int(arr.shape[0])
+            if self.d == 1 and arr.ndim in (1, 2) and qlen is None:
+                qlen = int(arr.shape[-1])
         cfg, cascade = self._resolve_method(self._config_for(method), k)
         return plan_search(
             cfg, self.n_rows, n_queries, has_index=self.index is not None,
             has_mesh=self.mesh is not None, driver=driver, cascade=cascade, mode=mode,
-            channels=self.d,
+            budget=budget, anytime_info=self._anytime_info(qlen), channels=self.d,
         )
 
     def search(self, queries, *, k: int | None = None, driver: str | None = None,
-               method: str | None = None, mode: str = "exact"):
+               method: str | None = None, mode: str = "exact",
+               budget: int | None = None):
         """Nearest-neighbour search through the planned driver (scan, host,
         indexed or sharded).  One (n,) series -> ``SearchResult``; a (Q, n)
         batch -> ``BatchSearchResult`` ((n, d) and (Q, n, d) on a d-channel
-        session).  On a session with the anytime tier, a query of another
-        length than the rows' and ``mode="anytime"`` are item 10b and
-        raise ``NotImplementedError``; a whole-length exact search answers
-        as the session without the tier."""
-        if self.anytime is not None and np.asarray(queries).shape[-1] != self.length:
-            raise not_ported("a subsequence-length query", UNPORTED_DRIVERS["subsequence"])
+        session).
+
+        On a session built with ``anytime=...`` two more routes open, both
+        returning :class:`repro_torch.anytime.AnytimeResult` (one query) or
+        ``AnytimeBatchResult`` with window provenance: ``mode="anytime"``,
+        best-first cluster exploration with a sound per-answer error bound
+        (``budget`` caps the windows refined per query; ``None`` explores
+        until the answer is exact and bit-matches ``mode="exact"``), and a
+        query shorter than the rows, answered exactly (or anytime) over
+        the tier of its length.  A whole-length exact search answers as
+        the session without the tier."""
+        if mode not in ("exact", "anytime"):
+            raise ValueError(f"mode={mode!r} unknown; use 'exact' or 'anytime'")
+        qlen = int(np.asarray(queries).shape[-1])
+        if mode == "anytime" or (self.anytime is not None and qlen != self.length):
+            return self._search_anytime(queries, qlen, k=k, driver=driver, method=method,
+                                        mode=mode, budget=budget)
+        if budget is not None:
+            raise ValueError(
+                "budget= only applies to mode='anytime' (exact search always "
+                "explores everything)"
+            )
         qs = self.prepare_queries(queries)
         k = self.config.validate_k(self.config.k if k is None else k, self.n_rows)
-        plan = self.plan(qs, driver=driver, method=method, k=k, mode=mode)
+        plan = self.plan(qs, driver=driver, method=method, k=k)
         cfg = plan.config
         if plan.driver == "indexed":
             return nn_search_indexed(
@@ -610,6 +644,32 @@ class Database:
             qs, self._data, w=self.w, p=cfg.p, k=k, block=cfg.block,
             method=cfg.method, d=self.d,
         )
+
+    def _search_anytime(self, queries, qlen: int, *, k: int | None, driver: str | None,
+                        method: str | None, mode: str, budget: int | None):
+        """Route a query batch through the anytime tier (DESIGN.md §3.10)."""
+        from repro_torch.anytime import anytime_search, exact_subsequence_search
+
+        if self.anytime is None:
+            raise ValueError(
+                "mode='anytime' needs the anytime tier: build the session "
+                "with Database.build(..., anytime=True) (or a dict of "
+                "tier options)"
+            )
+        li = self.anytime.tier(qlen)  # raises with the built lengths listed
+        single = np.asarray(queries).ndim == 1
+        qs = np.atleast_2d(self.prepare_queries(queries, length=qlen))
+        k = self.config.validate_k(self.config.k if k is None else k, li.n_windows)
+        # the plan validates the route (driver conflicts, a budget in exact
+        # mode) and resolves method="auto" as search() does
+        plan = self.plan(qs, driver=driver, method=method, k=k, mode=mode, budget=budget)
+        if plan.driver == "anytime":
+            res = anytime_search(qs, self.anytime, k=k, method=plan.config.method,
+                                 budget=plan.budget)
+        else:
+            res = exact_subsequence_search(qs, self.anytime, k=k, method=plan.config.method,
+                                           block=plan.config.block)
+        return res[0] if single else res
 
     def topk(self, queries, k: int, *, driver: str | None = None):
         """``search`` with an explicit neighbour count."""

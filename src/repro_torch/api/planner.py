@@ -1,17 +1,18 @@
 """Planner: pick a driver and a stage order, explainably (port of
-``repro.api.planner``, the scan/host/indexed/sharded part).
+``repro.api.planner``).
 
 ``Database.search`` routes every query batch through ``plan_search``: the
-indexed driver when the session has a stage-0 triangle index, else the
-sharded driver when a mesh is attached (``Database.use_mesh``), else the
-scan driver below ``SMALL_DB_ROWS`` rows (and for ``method="full"``), the
-host driver otherwise.  ``calibrate`` measures every registered bound on a
-small probe sample at build time and ``choose_cascade`` picks the cheapest
-predicted pipeline for ``method="auto"``; every pipeline returns the same
-answers, only cost differs.  The reference's anytime and subsequence
-routes are ROADMAP.md item 10b (the tier's build side is ported).  A
-tuned session (``Database.build(tune=...)``) plans with its measured
-stage costs.
+anytime tier's explorer under ``mode="anytime"`` and its exact window
+sweep for a subsequence-length query (a session built with
+``anytime=...``); else the indexed driver when the session has a stage-0
+triangle index, else the sharded driver when a mesh is attached
+(``Database.use_mesh``), else the scan driver below ``SMALL_DB_ROWS``
+rows (and for ``method="full"``), the host driver otherwise.
+``calibrate`` measures every registered bound on a small probe sample at
+build time and ``choose_cascade`` picks the cheapest predicted pipeline
+for ``method="auto"``; every pipeline returns the same answers, only cost
+differs.  A tuned session (``Database.build(tune=...)``) plans with its
+measured stage costs.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.config import SearchConfig
-from repro_torch.core.pipeline import PIPELINES, not_ported
+from repro_torch.core.pipeline import PIPELINES
 
 #: planner-eligible drivers and the entry point each routes to.
 DRIVERS = {
@@ -30,12 +31,8 @@ DRIVERS = {
     "host": "repro_torch.core.cascade.nn_search_host",
     "indexed": "repro_torch.core.cascade.nn_search_indexed",
     "sharded": "repro_torch.core.distributed.sharded_nn_search",
-}
-
-#: the reference's other drivers and the ROADMAP.md queue-1 item porting each
-UNPORTED_DRIVERS = {
-    "anytime": "10b (anytime search)",
-    "subsequence": "10b (anytime search)",
+    "anytime": "repro_torch.anytime.search.anytime_search",
+    "subsequence": "repro_torch.anytime.search.exact_subsequence_search",
 }
 
 #: below this many candidate rows the scan driver is chosen, above it the
@@ -276,7 +273,9 @@ def choose_cascade(
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One routing decision: driver + stage order + why."""
+    """One routing decision: driver + stage order + why.  ``mode`` and
+    ``budget`` carry the anytime tier's decision: under ``mode="anytime"``
+    the answer's quality, not only its cost, is the planner's."""
 
     driver: str  # a DRIVERS key
     stages: tuple[str, ...]
@@ -284,6 +283,8 @@ class Plan:
     n_queries: int
     config: SearchConfig
     cascade: CascadePlan | None = None  # set when the planner chose the order
+    mode: str = "exact"  # "exact" | "anytime"
+    budget: int | None = None  # refined windows per query; None = unlimited
     channels: int = 1  # data channel count d
 
     def _mv_considered(self) -> tuple[str, ...]:
@@ -305,8 +306,18 @@ class Plan:
             f"block={self.config.block})",
             f"channels: {self.channels} (mv stages considered: "
             f"{', '.join(mv) if mv else 'none'})",
-            "because:",
         ]
+        if self.mode == "anytime":
+            budget = (
+                "unlimited (answers are exact)"
+                if self.budget is None
+                else f"{self.budget} refined windows/query"
+            )
+            lines.append(
+                f"mode: anytime — best-so-far top-k with sound error "
+                f"bounds; budget {budget}"
+            )
+        lines.append("because:")
         lines += [f"  - {r}" for r in self.reasons]
         if self.cascade is not None:
             lines.append(self.cascade.explain())
@@ -323,18 +334,21 @@ def plan_search(
     driver: str | None = None,
     cascade: CascadePlan | None = None,
     mode: str = "exact",
+    budget: int | None = None,
+    anytime_info: dict | None = None,
     channels: int = 1,
 ) -> Plan:
     """Choose the driver for a query batch against one database session:
-    an explicit ``driver`` override wins; then the stage-0 index (the most
-    specific prebuilt artifact); then an attached mesh (the sharded
-    driver); then ``method="full"`` and databases below
-    ``SMALL_DB_ROWS`` rows go to the scan driver, the rest to the host
-    driver.  ``channels`` (the session's d) rides the plan for
-    ``explain()``."""
-    if mode == "anytime":
-        raise not_ported("mode='anytime'", UNPORTED_DRIVERS["anytime"])
-    if mode != "exact":
+    ``mode="anytime"`` (and an exact subsequence query, signalled by
+    ``anytime_info["subsequence"]``) routes through the anytime tier,
+    which ``anytime_info`` (lengths, windows, clusters) summarizes for
+    ``explain()``; otherwise an explicit ``driver`` override wins; then
+    the stage-0 index (the most specific prebuilt artifact); then an
+    attached mesh (the sharded driver); then ``method="full"`` and
+    databases below ``SMALL_DB_ROWS`` rows go to the scan driver, the
+    rest to the host driver.  ``channels`` (the session's d) rides the
+    plan for ``explain()``."""
+    if mode not in ("exact", "anytime"):
         raise ValueError(f"mode={mode!r} unknown; use 'exact' or 'anytime'")
     stages = PIPELINES[config.method]
     because = (
@@ -346,9 +360,57 @@ def plan_search(
         if cascade is not None
         else ()
     )
+    if mode == "anytime" or (anytime_info or {}).get("subsequence"):
+        if anytime_info is None:
+            raise ValueError(
+                "mode='anytime' needs the anytime tier: build the session "
+                "with Database.build(..., anytime=True) (or a dict of "
+                "tier options)"
+            )
+        if driver is not None:
+            raise ValueError(
+                f"driver={driver!r} cannot be combined with the anytime "
+                f"tier — the cluster explorer is the driver"
+            )
+        info = (
+            f"{anytime_info.get('windows', '?')} windows in "
+            f"{anytime_info.get('clusters', '?')} clusters at lengths "
+            f"{anytime_info.get('lengths', '?')}"
+        )
+        if mode == "anytime":
+            return Plan(
+                "anytime", ("cluster_lb",) + stages,
+                (f"anytime tier: best-first exploration over {info}; "
+                 f"cluster bounds from envelope boxes + the Theorem 1 "
+                 f"triangle inequality, refinement through the "
+                 f"standard stage pipeline",) + because,
+                n_queries, config, cascade, mode="anytime", budget=budget,
+                channels=channels,
+            )
+        if budget is not None:
+            raise ValueError(
+                "budget= only applies to mode='anytime' (exact search "
+                "always explores everything)"
+            )
+        return Plan(
+            "subsequence", stages,
+            (f"subsequence query (length != whole-row length): exact "
+             f"gid-order sweep over the anytime tier's window bank "
+             f"({info})",) + because,
+            n_queries, config, channels=channels,
+        )
+    if budget is not None:
+        raise ValueError(
+            "budget= only applies to mode='anytime' (exact search always "
+            "explores everything)"
+        )
     if driver is not None:
-        if driver in UNPORTED_DRIVERS:
-            raise not_ported(f"driver={driver!r}", UNPORTED_DRIVERS[driver])
+        if driver in ("anytime", "subsequence"):
+            raise ValueError(
+                f"driver={driver!r} is not directly selectable: use "
+                f"mode='anytime' (or a subsequence-length query) on a "
+                f"session built with anytime=True"
+            )
         if driver not in DRIVERS:
             raise ValueError(
                 f"driver={driver!r} unknown; available: {sorted(DRIVERS)}"
@@ -367,7 +429,7 @@ def plan_search(
                 "Database.use_mesh(mesh) first"
             )
         return Plan(driver, stages, ("caller override",) + because,
-                    n_queries, config, cascade, channels)
+                    n_queries, config, cascade, channels=channels)
     if has_index:
         return Plan(
             "indexed", ("lb_tri",) + stages,
@@ -375,7 +437,7 @@ def plan_search(
              "arithmetic per candidate kills most lanes before any "
              "envelope work, and the reference distances seed the "
              "top-k exactly",) + because,
-            n_queries, config, cascade, channels,
+            n_queries, config, cascade, channels=channels,
         )
     if has_mesh:
         return Plan(
@@ -383,26 +445,26 @@ def plan_search(
             ("mesh attached via Database.use_mesh: the database is "
              "sharded over its devices and per-query best bounds are "
              "pmin-exchanged between block rounds",) + because,
-            n_queries, config, cascade, channels,
+            n_queries, config, cascade, channels=channels,
         )
     if config.method == "full":
         return Plan(
             "scan", stages,
             ("method='full' has no LB stages to compact, so the dense "
              "block scan is the fastest layout",) + because,
-            n_queries, config, cascade, channels,
+            n_queries, config, cascade, channels=channels,
         )
     if n_rows < SMALL_DB_ROWS:
         return Plan(
             "scan", stages,
             (f"database has {n_rows} rows (< {SMALL_DB_ROWS}): one device "
              f"sweep beats host orchestration overhead at this size",) + because,
-            n_queries, config, cascade, channels,
+            n_queries, config, cascade, channels=channels,
         )
     return Plan(
         "host", stages,
         (f"database has {n_rows} rows (>= {SMALL_DB_ROWS}): the host "
          f"driver gathers LB survivors into pooled fixed-size DP "
          f"chunks, so post-LB wall-clock tracks surviving work",) + because,
-        n_queries, config, cascade, channels,
+        n_queries, config, cascade, channels=channels,
     )

@@ -93,6 +93,30 @@ def lb_improved_powered_qbatch(cs, qs, upper, lower, w: int, p: PNorm = 1):
     return _combine(pass1, lb_keogh_powered(qs[:, None, :], hu, hl, p), p)
 
 
+# ----------------------------------------------------------------- LB_Box
+
+
+def lb_box_powered(cmin, cmax, upper, lower, p: PNorm = 1):
+    """Powered LB_Keogh of a whole *box* of candidates against one query.
+
+    ``[cmin, cmax]`` is an elementwise bounding box over a candidate set
+    (a cluster of windows, ``repro_torch.anytime``); ``upper``/``lower``
+    the query envelope at band w.  The per-sample interval distance
+    ``g_i = max(0, lower_i - cmax_i, cmin_i - upper_i)`` is at most
+    ``max(0, c_i - upper_i, lower_i - c_i)`` for every member ``c`` of the
+    box, so the powered sum (max at p = inf) lower-bounds LB_Keogh(c, q),
+    and hence DTW_p^w(q, c), for every member at once.  A box degenerated
+    to one candidate (``cmin == cmax == c``) is LB_Keogh(c, q) exactly.
+    Broadcasts over leading dims like ``lb_keogh_powered``."""
+    under = torch.clamp(lower - cmax, min=0.0)
+    over = torch.clamp(cmin - upper, min=0.0)
+    return _reduce(elem_cost(under + over, p), p)
+
+
+def lb_box(cmin, cmax, upper, lower, p: PNorm = 1):
+    return finish_cost(lb_box_powered(cmin, cmax, upper, lower, p), p)
+
+
 # ---------------------------------------------------------------- LB_Kim
 
 

@@ -12,8 +12,8 @@ The host mesh (``launch.mesh.make_host_mesh``) spans the ranks of the
 default ``torch.distributed`` group, or one rank (NCCL on the GPU, gloo
 on the CPU) when the launcher is started alone.  ``--anytime``,
 ``--mode anytime`` and a ``--query-length`` other than the session's
-need the anytime tier's search side and its CLI (ROADMAP.md queue 1,
-items 10b and 10c) and raise ``NotImplementedError``.
+need the anytime tier's CLI (ROADMAP.md queue 1, item 10c) and raise
+``NotImplementedError``.
 
 Persistence: ``--db-path x.npz`` saves/loads the whole session bundle
 (data + envelopes + index + config, the reference's keys), so a

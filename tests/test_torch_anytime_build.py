@@ -8,9 +8,8 @@ in {1, 2, inf}, the DTW radii within rtol 3e-4 (the DP's tolerance in
 plain version on CPU tensors); the same validation errors; ``any_*``
 bundle arrays with the reference's keys and dtypes, loading both ways;
 ``Database.build(anytime=...)`` with the reference's ``repr`` and an
-exact search equal to the session without the tier.  The search side
-(``mode="anytime"``, subsequence-length queries) is ROADMAP.md item 10b
-and raises.
+exact search equal to the session without the tier.  The search side is
+held in ``tests/test_torch_anytime_search.py``; here, what still raises.
 """
 
 import math
@@ -311,16 +310,20 @@ def test_bundles_load_both_ways(tmp_path):
 
 
 def test_search_side_raises_item_10b():
+    """What still raises once the search side is ported (the name is kept
+    so that the test's history stays one): the engine's anytime mode
+    (item 10c), and choosing the tier's drivers by name, which raises the
+    reference's ``ValueError``; the search side itself answers."""
     db = Database.build(DATA, SearchConfig(w=W), anytime=OPTS, device="cpu")
+    jdb = JDatabase.build(DATA, JConfig(w=W), anytime=OPTS)
     q = walks(11, 1, N)[0]
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        db.search(q, mode="anytime")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        db.search(q[:M])  # a subsequence-length query
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        db.plan(q, mode="anytime")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        db.plan(q, driver="subsequence")
+    assert isinstance(db.search(q, mode="anytime"), T.AnytimeResult)
+    assert isinstance(db.search(q[:M]), T.AnytimeResult)  # a subsequence-length query
+    assert db.plan(q, mode="anytime").driver == "anytime"
+    for driver in ("subsequence", "anytime"):
+        got = raised(lambda: db.plan(q, driver=driver))
+        assert got == raised(lambda: jdb.plan(q, driver=driver))
+        assert got[0] is ValueError and "not directly selectable" in got[1]
     with QueryEngine(db, max_batch=2, max_wait_ms=0.5) as engine:
         with pytest.raises(NotImplementedError, match="item 10c"):
             engine.submit(q, mode="anytime")

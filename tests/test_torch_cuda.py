@@ -1111,3 +1111,53 @@ def test_mv_stream_scanner_on_card(dev, znorm):
         np.testing.assert_array_equal(getattr(gs, f), getattr(cs, f), err_msg=f)
     assert gc["lb_keogh_stream"] == 0, gc
     assert gc["lb_keogh_stream_mv"] == (0 if znorm else gs.blocks_total), gc
+
+
+@pytest.mark.parametrize("p", PS)
+def test_anytime_search_on_card(dev, p):
+    """The anytime tier's search side on the card against the CPU route on
+    the same tier (one set of bundle arrays): the same indices and
+    counts, distances within rtol 2e-4, at every budget of a short ladder
+    and on both lengths; the refinement launches K1, K2, K3 and K5 and no
+    host-loop kernel; unlimited answers bit-match ``mode="exact"`` on the
+    card (the host and scan drivers on the whole row, a K5 brute force
+    over the bank for subsequence queries)."""
+    from repro_torch.core.dtw import finish_cost
+
+    rng = np.random.default_rng(73)
+    x = rng.normal(size=(300, 96)).cumsum(axis=1).astype(np.float32)
+    gpu = Database.build(x, SearchConfig(k=3, p=p), anytime=dict(lengths=(48, 96), hop=8,
+                                                                  leaf_size=16), device=dev)
+    cpu = Database.from_arrays(gpu.to_arrays(), device="cpu")
+    for m in (48, 96):
+        qs = rng.normal(size=(3, m)).cumsum(axis=1).astype(np.float32)
+        for budget in (gpu.anytime.tier(m).tree.n_coarse, 200, None):
+            reset_launch_counts()
+            a = gpu.search(qs, mode="anytime", budget=budget)
+            counts = launch_counts()
+            b = cpu.search(qs, mode="anytime", budget=budget)
+            np.testing.assert_array_equal(a.indices, b.indices)
+            np.testing.assert_allclose(a.distances, b.distances, rtol=2e-4)
+            assert (a.error_bounds == 0).tolist() == (b.error_bounds == 0).tolist()
+            for f in ("refined", "clusters_explored", "nodes_expanded", "frontier",
+                      "full_dtw", "stage_pruned"):
+                assert getattr(a.stats, f) == getattr(b.stats, f), f
+            for name in ("envelope", "lb_keogh", "lb_improved_pass2", "dtw"):
+                assert counts[name] > 0, counts
+            assert counts["lb_fused"] == counts["dtw_merge"] == 0, counts
+        assert (a.error_bounds == 0).all()
+        if m == 96:
+            for driver in ("host", "scan"):
+                want = gpu.search(qs, driver=driver)
+                assert a.distances.tobytes() == want.distances.tobytes(), driver
+                np.testing.assert_array_equal(a.indices, want.indices)
+        else:
+            exact = gpu.search(qs)
+            assert exact.distances.tobytes() == a.distances.tobytes()
+            li = gpu.anytime.tier(m)
+            q = torch.as_tensor(gpu.prepare_queries(qs, length=m), device=dev)
+            d = finish_cost(kd.dtw_qbatch_op(q, li.wins, li.w, p), p).cpu().numpy()
+            for qi in range(3):
+                order = np.lexsort((np.arange(d.shape[1]), d[qi]))[:3]
+                np.testing.assert_array_equal(exact.indices[qi], order)
+                assert exact.distances[qi].tobytes() == d[qi, order].tobytes()

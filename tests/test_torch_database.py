@@ -141,17 +141,21 @@ def test_bundles_of_unported_tiers_raise(tmp_path):
     with pytest.raises(ValueError):
         db.stream(mv_tpl, threshold=1.0)
     assert isinstance(db.stream(threshold=1.0), StreamMatcher)
-    # its search side is not: item 10b
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        db.search(x[:2], mode="anytime")
+    # the anytime tier's search side is ported too: it answers as the exact route
+    tier = Database.build(x, anytime=True, device="cpu")
+    got, want = tier.search(x[:2], mode="anytime"), db.search(x[:2])
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.distances, want.distances)
+    assert (got.error_bounds == 0).all()
     # a reference bundle with the tier loads, its any_* arrays with it
     jdb = JDatabase.build(x, JConfig(), anytime=True)
     back = Database.load(jdb.save(str(tmp_path / "anytime")), device="cpu")
     assert back.anytime.lengths == (24,) and back.anytime.tier(24).wins is back.rows_tensor
     np.testing.assert_array_equal(back.anytime.tier(24).tree.members,
                                   jdb.anytime.tier(24).tree.members)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        back.search(x[:2], mode="anytime")
+    got = back.search(x[:2], mode="anytime")
+    np.testing.assert_array_equal(got.indices, db.search(x[:2]).indices)
+    np.testing.assert_array_equal(got.distances, db.search(x[:2]).distances)
 
 
 def test_indexed_session_matches_repro(tmp_path):
