@@ -204,6 +204,29 @@ Phases (any failure raises, exits non-zero and prints no result line):
    (``captured_scan_blocks``, ``check_scan_blocks``).  Each search prints
    its windows refined, clusters explored, DPs, residual bound and
    seconds a query.
+14. Anytime serving (after phase 13, on phase 12's sessions): a
+   ``QueryEngine`` over the whole-row tier serves phase 3's two queries
+   with ``mode="anytime"`` and no budget (phase 3's indices and distance
+   bits, bounds 0), one at a budget of 1,024 and one at 8,192 (each
+   bit-equal to a direct ``db.search(q, mode="anytime", budget=)``,
+   bounds included), the second again (a cache hit with the same
+   bounds), one with a deadline once the refine-rate EMA is seeded (its
+   budget ``max(1, int(rate * deadline))``), then anytime and exact
+   requests of the same queries interleaved from two tenants (each equal
+   to the direct search of its mode, in batches of its own mode); the
+   engine's ``EngineStats`` must be the sums over the answers.  An engine
+   over the 10,000-row session's 256 tier gives phase 13's bits, unlimited
+   and at a budget of 2,048.  K2, K3 and K5 against their plain versions
+   on blocks the engine's worker ran.  Then ``python -m
+   repro_torch.launch.search`` with ``--anytime 128,512 --mode anytime
+   --query-length 128`` on 2,048 x 512, with no budget and with
+   ``--budget 256`` (each query's ``nn`` and windows refined equal to a
+   direct search of the same rows, no mesh), and
+   ``examples/classify_timeseries_torch.py`` (its p in {1, 2, inf}
+   accuracies equal to a direct ``db.classify`` on the card), as
+   subprocesses run side by side.  Seconds a request at each budget,
+   the engine's time beside the direct call's and the EMA in windows/s
+   are printed with the card's name and power limit.
 
 Launches are counted per phase (3 build, 3 search, the long-row
 session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
@@ -211,11 +234,14 @@ session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
 session, stream offline and stream example, 8 serve, 9 mv build, mv
 search, mv scan and mv d=1, 10 mv stream session, mv stream offline and
 mv serve, 11 sharded, 12 anytime build, anytime search and anytime sub
-build, 13 anytime mode and anytime sub search),
+build, 13 anytime mode and anytime sub search, 14 "14: anytime serving"
+(no K4 or K5m), "14: mixed serving" and "14: classify"),
 each from zero, and the untuned ``kim_improved`` and ``kim_webb``
 searches; phase 2's
-comparisons are not counted.  The
-last lines are the kernels' JSON record, the card's name and power
+comparisons are not counted.  The ``[time]`` lines give seconds by
+phase, by sub-step (phases 2 and 6 are split) with the seconds of the
+timing calls in each, and the timing call sites that took 2 s or more.
+The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The standalone merge
 kernel is on no path (its routine runs as dtw_merge's epilogue): its
 entry in the kernels record says so and shows 0 launches.
@@ -310,15 +336,68 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+#: seconds by sub-step (``lap``), the seconds of timing calls within each,
+#: and the seconds and calls of each timing call site: what the [time]
+#: lines report, so that a cut of repetitions can be sized on the card
+SUB_STEPS: dict[str, float] = {}
+TIMING_IN: dict[str, float] = {}
+TIMING_SITES: dict[tuple[str, int], list] = {}
+_LAP: list = [None, 0.0]  # the open sub-step and its start
+
+
+def lap(name: str | None = None) -> None:
+    """Close the open sub-step, its seconds to ``SUB_STEPS`` (after the
+    card's queue drains), and open ``name``; ``lap()`` only closes."""
+    import torch
+
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    if _LAP[0] is not None:
+        SUB_STEPS[_LAP[0]] = SUB_STEPS.get(_LAP[0], 0.0) + now - _LAP[1]
+    _LAP[:] = [name, now]
+
+
+def _timing_call(t0: float, ms: float) -> None:
+    """Book a timing call's seconds to the open sub-step and to the line of
+    the script that made it."""
+    secs = time.perf_counter() - t0
+    TIMING_IN[_LAP[0]] = TIMING_IN.get(_LAP[0], 0.0) + secs
+    site = TIMING_SITES.setdefault((_LAP[0], sys._getframe(2).f_lineno), [0.0, 0, ms])
+    site[0] += secs
+    site[1] += 1
+
+
+def time_line() -> str:
+    """The sub-steps with their timing calls' seconds, and the call sites
+    that took 2 s or more."""
+    steps = "; ".join(f"{k} {v:.1f} (timing {TIMING_IN.get(k, 0.0):.1f})"
+                      for k, v in SUB_STEPS.items())
+    sites = sorted(TIMING_SITES.items(), key=lambda kv: -kv[1][0])
+    top = "; ".join(f"{step} line {line}: {secs:.1f} s in {n} call(s), {ms:.3f} ms a call"
+                    for (step, line), (secs, n, ms) in sites if secs >= 2.0)
+    return f"[time] sub-steps: {steps}\n[time] timing call sites of 2 s or more: {top}"
+
+
+#: a call at least this long (s) is timed one call at a time, three times:
+#: more back-to-back calls do not steady its median
+SLOW_CALL_S = 0.1
+
+
 def time_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 2) -> float:
     """Per-call time: CUDA events around ``iters`` back-to-back calls,
     the median over ``repeats`` such runs.  Where the host cannot enqueue
-    as fast as the card runs, this includes the host's launch cost."""
+    as fast as the card runs, this includes the host's launch cost.  A
+    call whose last warm-up call took ``SLOW_CALL_S`` or more is timed
+    with ``iters`` 1 and at most 3 ``repeats``."""
     import torch
 
-    for _ in range(warmup):
+    t0 = time.perf_counter()
+    for _ in range(max(warmup, 1)):
+        t_call = time.perf_counter()
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    if time.perf_counter() - t_call >= SLOW_CALL_S:
+        iters, repeats = 1, min(repeats, 3)
     runs = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
@@ -329,7 +408,9 @@ def time_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         runs.append(start.elapsed_time(end) / iters)
-    return statistics.median(runs)
+    ms = statistics.median(runs)
+    _timing_call(t0, ms)
+    return ms
 
 
 def kernel_self_us(prof) -> dict[str, tuple[float, int]]:
@@ -401,6 +482,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 2, what: str = "") -> float:
     measurement is listed in ``PROFILER_MISSES``."""
     import torch
 
+    t0 = time.perf_counter()
     code = getattr(fn, "__code__", None)
     what = what or (f"{getattr(fn, '__qualname__', 'call')} at chip_smoke.py:"
                     f"{code.co_firstlineno if code else '?'}")
@@ -414,10 +496,12 @@ def device_ms(fn, iters: int = 20, warmup: int = 2, what: str = "") -> float:
 
     got = profiled_kernels(run, what)
     if got:
-        return sum(us for us, _ in got.values()) / 1e3 / iters
-    PROFILER_MISSES.append(what)
-    ms = events_device_ms(fn, iters)
-    log(f"[profiler] {what}: timed with CUDA events instead, {ms:.5f} ms a call")
+        ms = sum(us for us, _ in got.values()) / 1e3 / iters
+    else:
+        PROFILER_MISSES.append(what)
+        ms = events_device_ms(fn, iters)
+        log(f"[profiler] {what}: timed with CUDA events instead, {ms:.5f} ms a call")
+    _timing_call(t0, ms)
     return ms
 
 
@@ -539,6 +623,7 @@ def phase_kernels(dev):
     rec = {}
 
     # K1 envelope: bit-equal; timed at the build's shape
+    lap("2 K1")
     xs = walks(N_ROWS, LENGTH)
     u, l = envelope_launch(xs, w)
     up, lp = envelope_plain(xs, w)
@@ -584,6 +669,7 @@ def phase_kernels(dev):
         f"bound {bnd:.4f} ms ({by})")
 
     # K2 LB_Keogh + H: lb rtol 1e-4, H bit-equal
+    lap("2 K2")
     qs = walks(N_QUERIES, LENGTH)
     cands = walks(BLOCK, LENGTH)
     upper, lower = envelope_launch(qs, w)
@@ -633,6 +719,7 @@ def phase_kernels(dev):
         f"({bnd_w / dms_w:.0%} of it)")
 
     # K3 LB_Improved pass 2: rtol 2e-4
+    lap("2 K3 and K8")
     err = 0.0
     for p in (1, 2, math.inf):
         _, h = lb_keogh_launch(cands, upper, lower, p)
@@ -704,6 +791,7 @@ def phase_kernels(dev):
     # K5 banded DP: bit-equal to its wavefront plain version on every lane,
     # finished or abandoned; finished lanes within rtol 3e-4 of dtw_plain
     # (the reference's row DP); abandoned lanes >= their bound
+    lap("2 K5 checks")
     db = walks(4096, LENGTH)
     qi = torch.as_tensor(rng.integers(0, N_QUERIES, DTW_CHUNK), device=dev)
     ci = torch.as_tensor(rng.integers(0, db.shape[0], DTW_CHUNK), device=dev)
@@ -752,6 +840,7 @@ def phase_kernels(dev):
                         fail(f"dtw plain {what}: abandoned lanes below their bound")
     log(f"[kernel] dtw: {len(cases) * 3} cases x 5 bounds bit-equal to "
         "dtw_wavefront_plain, finished lanes within 3e-4 of dtw_plain")
+    lap("2 K5 timing")
     ms = time_ms(lambda: dtw_launch(qs, db, w, 1, qi, ci))
     dms = device_ms(lambda: dtw_launch(qs, db, w, 1, qi, ci))
     ms5 = time_ms(lambda: dtw_launch(qs, db, w, 1, qi[:5].contiguous(), ci[:5].contiguous()))
@@ -846,6 +935,7 @@ def phase_kernels_lb(dev, rec):
     cands = walks(b, n)
     upper, lower = envelope_launch(qs, w)
 
+    lap("2 K6")
     # K6 LB_Kim: bit-equal at every p, mask, dtype and tile, at B = 1, 37
     # and 1,024 rows of n = 37, 1,000 and 1,001, on rows as allocated and on
     # the same buffer viewed one value further on.  There, at n = 1,000, no
@@ -910,6 +1000,7 @@ def phase_kernels_lb(dev, rec):
         f"{dms:.5f} ms on the device vs plain {plain:.3f} ms, bound {bnd:.6f} ms ({by})")
     del wide_k
 
+    lap("2 K7 and K7c")
     # K7 stream LB_Keogh: B = 32 windows of a flat segment, hop 1 and 3
     err = 0.0
     for hop in (1, 3):
@@ -1001,6 +1092,7 @@ def phase_kernels_lb(dev, rec):
         f"to K2 on the gathered tile, every tile_b): {ms:.4f} ms per call, {dms:.5f} ms on "
         f"the device vs plain {plain:.3f} ms, bound {bnd:.6f} ms ({by})")
 
+    lap("2 K4")
     # K4 fused LB, one warp per pair: bounds at each query's median lb1
     # (about half the lanes reach pass 2), query 0 with no live lane, read
     # through a stride as the host loop reads a top-k column; bit-equal to
@@ -1178,6 +1270,7 @@ def phase_kernels_lb(dev, rec):
                 torch.zeros((3, q_count), dtype=torch.int64, device=dev),
                 torch.zeros(4, dtype=torch.int64, device=dev))
 
+    lap("2 K5 masked and merge")
     # K5's masked-dense entry (with its merge): the survivors of a K4
     # launch at each query's 25% quantile, bit-equal to the pair-list
     # entry; dead slots keep their NaN
@@ -1445,6 +1538,7 @@ def phase_long_rows(dev, rec):
         isz = torch.empty(0, dtype=dt).element_size()
         for w in (n // 10, n - 1):
             shape = f"n={n} w={w} {dtn}"
+            lap(f"2 long {shape}")
             # K1: 3 rows (a block per row where its padded row fits, else a
             # warp per row) and 300 (a warp per row)
             for rows in (3, 300):
@@ -1546,6 +1640,7 @@ def phase_long_rows(dev, rec):
             dtw_checks(qs, cands, w, shape, dt)
             del qs, cands, upper, lower, h, seg
     n, w = DTW_LONG
+    lap(f"2 long K5 n={n} w={w}")
     dtw_checks(walks(2, n, torch.float32), walks(2, n, torch.float32), w,
                f"n={n} w={w} float32", torch.float32)
     torch.cuda.synchronize()
@@ -2010,26 +2105,40 @@ def phase_tuned(dev, launches, main):
 N_REFS = 16
 
 
-def run_cli(args, what):
-    """``python -m repro_torch.launch.search`` with ``args``; its output and
-    the per-query (nn, line) pairs, each line required to parse."""
+def start_python(args: list[str]) -> subprocess.Popen:
+    """``python <args>`` from the repository root, started, its output piped."""
+    return subprocess.Popen(
+        [sys.executable, *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+
+
+def finish_python(proc: subprocess.Popen, what: str, timeout: float = 300) -> str:
+    """Wait for a process of ``start_python``; its stdout, or a failure."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{what}: no exit within {timeout} s")
+    if proc.returncode != 0:
+        fail(f"{what}: exit {proc.returncode}\n{out}\n{err}")
+    return out
+
+
+def cli_rows(out: str, what: str):
+    """The search CLI's per-query (nn, line) pairs, each line required to
+    parse."""
     import re
 
-    cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.search", *args],
-        capture_output=True, text=True, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
-    )
-    if cli.returncode != 0:
-        fail(f"{what}: exit {cli.returncode}\n{cli.stdout}\n{cli.stderr}")
-    lines = [ln for ln in cli.stdout.splitlines() if ln.startswith("query ")]
+    lines = [ln for ln in out.splitlines() if ln.startswith("query ")]
     rows = []
     for ln in lines:
         m = re.match(r"query (\d+): nn=(\d+) dist=([0-9.]+) .*dtw=(\d+)", ln)
         if not m:
             fail(f"{what}: unparsable line {ln!r}")
         rows.append(int(m.group(2)))
-    return cli.stdout, rows, lines
+    return rows, lines
 
 
 def phase_indexed(dev, launches, main):
@@ -2055,11 +2164,13 @@ def phase_indexed(dev, launches, main):
         tag = f"[index p={p}]"
         cfg = SearchConfig(p=p)
         before = {ph: dict(c) for ph, c in launches.items()}
+        lap(f"6 p={p} build")
         db, build_s = counted(launches, "index build", lambda: timed(
             lambda: Database.build(x, cfg, index=True, n_refs=N_REFS)))
         # the index alone, built again from the session's rows: its time and
         # its K5 launches (not counted in a phase), and the same references
         reset_launch_counts()
+        lap(f"6 p={p} index again")
         again, index_s = timed(lambda: build_index(db.rows_tensor, db.w, p, n_refs=N_REFS))
         index_k5 = launch_counts()["dtw"]
         reset_launch_counts()
@@ -2068,9 +2179,10 @@ def phase_indexed(dev, launches, main):
         plan = db.plan(queries).explain()
         if not plan.startswith("driver: indexed"):
             fail(f"{tag} the indexed session did not route to the indexed driver:\n{plan}")
+        lap(f"6 p={p} search")
         res, search_s = counted(launches, "indexed search", lambda: timed(
             lambda: db.search(queries)))
-        busy_ms, wall_ms, by_kernel = device_busy(lambda: db.search(queries))
+        lap(f"6 p={p} checks")
         s = res.stats
         got = {ph: {k: v - before.get(ph, {}).get(k, 0) for k, v in c.items() if v}
                for ph, c in launches.items() if ph in ("index build", "indexed search")}
@@ -2085,13 +2197,6 @@ def phase_indexed(dev, launches, main):
             f"{s.blocks_total} (of them with pass 2 {s.blocks_lb2}, with the DP "
             f"{s.blocks_dtw}), DP lanes {s.dp_lane_useful}/{s.dp_lane_work}")
         log(f"{tag} launches: {got}")
-        if busy_ms > 0:
-            top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
-            log(f"{tag} profiled search: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
-                f"wall = idle share {1 - busy_ms / wall_ms:.3f}; device ms by kernel: "
-                + "; ".join(f"{k[:40]} {ms:.2f} ms / {c}" for k, (ms, c) in top))
-        else:
-            log(f"{tag} profiled search: the profiler saw no device time")
         require_launched(launches, "index build", ("dtw",), f"{tag} index build")
         require_launched(launches, "indexed search",
                          ("envelope", "lb_keogh", "lb_improved_pass2", "dtw"),
@@ -2111,6 +2216,7 @@ def phase_indexed(dev, launches, main):
         if not np.array_equal(best, res.indices[:2, 0]):
             fail(f"{tag} top-1 {res.indices[:2, 0]} != brute force {best}")
         # and every answer against an unindexed session at the same p
+        lap(f"6 p={p} unindexed session")
         if p == 1:
             plain, plain_s, route = main["res"], main["search_s"], "host driver, device loop"
         else:
@@ -2135,7 +2241,7 @@ def phase_indexed(dev, launches, main):
 
 def phase_cli():
     """``python -m repro_torch.launch.search`` and the quickstart twin as
-    subprocesses on the card."""
+    subprocesses on the card, run side by side."""
     import numpy as np
 
     from repro_torch.api import Database, SearchConfig
@@ -2143,34 +2249,46 @@ def phase_cli():
 
     # the search CLI, with the index at p = inf and with its defaults, each
     # query's nn against a direct db.search of the same rows and queries
-    for args, cfg, index in ((["--index", "--p", "inf", "--n-refs", str(N_REFS)],
-                              SearchConfig(p=math.inf), True), ([], SearchConfig(), False)):
-        t0 = time.perf_counter()
-        out, nn, lines = run_cli(args, f"launch.search {' '.join(args)}")
-        cli_s = time.perf_counter() - t0
-        rng = np.random.default_rng(0)  # the CLI's --seed default
-        data = random_walks(rng, 4096, 512)  # its --db-size, --length
-        qs = random_walks(rng, 4, 512)  # its --queries
-        direct = Database.build(data, cfg, index=index, n_refs=N_REFS).search(qs)
-        if nn != direct.indices[:, 0].tolist():
-            fail(f"launch.search {args}: nn {nn} != direct db.search {direct.indices[:, 0]}")
-        served = [ln for ln in out.splitlines() if ln.startswith(("served", "mesh="))]
-        if not index and ("mesh={'data': 1, 'model': 1}" not in out.splitlines()
-                          or "driver: sharded" not in out):
-            fail(f"launch.search (defaults) did not serve through the one-rank mesh:\n{out}")
-        log(f"[index cli] launch.search {' '.join(args) or '(defaults)'}: exit 0 in "
-            f"{cli_s:.1f} s, nn {nn} == direct db.search; {lines[0]} | {' | '.join(served)}")
+    runs = ((["--index", "--p", "inf", "--n-refs", str(N_REFS)], SearchConfig(p=math.inf),
+             True), ([], SearchConfig(), False))
     t0 = time.perf_counter()
-    quick = subprocess.run(
-        [sys.executable, "examples/quickstart_torch.py"], capture_output=True, text=True,
-        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
-    )
-    if quick.returncode != 0:
-        fail(f"examples/quickstart_torch.py: exit {quick.returncode}\n{quick.stdout}\n"
-             f"{quick.stderr}")
-    head = [ln for ln in quick.stdout.splitlines() if ln.startswith(("lb_improved", "batched"))]
+    procs = [start_python(["-m", "repro_torch.launch.search", *args]) for args, _, _ in runs]
+    quick = start_python(["examples/quickstart_torch.py"])
+    try:
+        for (args, cfg, index), proc in zip(runs, procs):
+            what = f"launch.search {' '.join(args)}"
+            lap(f"6 direct session of {' '.join(args) or '(defaults)'}")
+            rng = np.random.default_rng(0)  # the CLI's --seed default
+            data = random_walks(rng, 4096, 512)  # its --db-size, --length
+            qs = random_walks(rng, 4, 512)  # its --queries
+            direct = Database.build(data, cfg, index=index, n_refs=N_REFS).search(qs)
+            lap(f"6 CLI {' '.join(args) or '(defaults)'}")
+            out = finish_python(proc, what)
+            cli_s = time.perf_counter() - t0
+            check_cli(args, index, out, direct, cli_s)
+        lap("6 quickstart")
+        out = finish_python(quick, "examples/quickstart_torch.py")
+    finally:
+        for proc in (*procs, quick):
+            proc.kill()
+            proc.communicate()
+    head = [ln for ln in out.splitlines() if ln.startswith(("lb_improved", "batched"))]
     log(f"[index cli] examples/quickstart_torch.py (2,000 x 512): exit 0 in "
-        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(head))
+        f"{time.perf_counter() - t0:.1f} s (beside the two CLI runs); " + " | ".join(head))
+
+
+def check_cli(args, index, out, direct, cli_s):
+    """One search CLI run's lines against a direct ``db.search``."""
+    nn, lines = cli_rows(out, f"launch.search {' '.join(args)}")
+    if nn != direct.indices[:, 0].tolist():
+        fail(f"launch.search {args}: nn {nn} != direct db.search {direct.indices[:, 0]}")
+    served = [ln for ln in out.splitlines() if ln.startswith(("served", "mesh="))]
+    if not index and ("mesh={'data': 1, 'model': 1}" not in out.splitlines()
+                      or "driver: sharded" not in out):
+        fail(f"launch.search (defaults) did not serve through the one-rank mesh:\n{out}")
+    log(f"[index cli] launch.search {' '.join(args) or '(defaults)'}: exit 0 in "
+        f"{cli_s:.1f} s (side by side), nn {nn} == direct db.search; {lines[0]} | "
+        f"{' | '.join(served)}")
 
 
 # ------------------------------------------------------------- phase 7
@@ -4061,6 +4179,303 @@ def phase_anytime_search(dev, launches, main, tiers):
         f"{pairs[0] + sub_pairs[0]} pairs past LB_Keogh, K5 on {pairs[1] + sub_pairs[1]} DP pairs "
         f"with the gate == their plain versions")
     log(f"[anytime search] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(sub_anytime=anyt, sub_budgeted=budgeted)  # phase 14 serves the same
+
+
+# ------------------------------------------------------------ phase 14
+
+#: anytime serving: the engines' max_batch; the budgets of the whole-row
+#: requests (phase 3's first query at the first, its second at the
+#: second) and of the interleaved mixed requests; the deadline (s) that
+#: maps onto a budget once the refine-rate EMA is seeded; the launch key
+#: of the anytime requests (K4 and K5m must not run under it)
+SERVE_ANYTIME_BATCH = 4
+SERVE_ANYTIME_BUDGETS = (1024, 8192)
+SERVE_MIXED_BUDGET = 4096
+SERVE_ANYTIME_DEADLINE = 0.05
+SERVE_ANYTIME_KEY = "14: anytime serving"
+#: the search CLI's anytime run (rows, length, queries, tier lengths,
+#: query length), and the budget of its second run
+ANYTIME_CLI = (2048, 512, 4, (128, 512), 128)
+ANYTIME_CLI_BUDGET = 256
+ANYTIME_CLI_LINE = (r"query (\d+): nn=(\d+) dist=([0-9.]+) err<=([0-9.]+|inf) "
+                    r"refined=(\d+)/(\d+) clusters=(\d+)/(\d+) ")
+
+
+def same_anytime_answer(tag, got, want):
+    """An engine's anytime answer against a direct search's result: the
+    same indices, distance bits and error-bound bits."""
+    import numpy as np
+
+    for f in ("indices", "distances", "error_bounds"):
+        a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            fail(f"{tag}: {f} {a.tolist()} are not the direct search's {b.tolist()} bit "
+                 f"for bit")
+
+
+def phase_anytime_serve(dev, launches, main, tiers, searched, smi):
+    """The anytime tier's serving on phase 12's sessions: a ``QueryEngine``
+    over the whole-row tier (unlimited requests with phase 3's bits,
+    budgeted ones bit-equal to a direct search, a cache hit, a deadline
+    mapped onto a budget by the refine-rate EMA, exact requests
+    interleaved, the stats the sums of the answers), one over the 256 tier
+    with phase 13's bits, the kernels on the refinement's blocks against
+    their plain versions; then the search CLI's anytime flags and the
+    classify twin as subprocesses against direct in-process runs."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Database, SearchConfig
+    from repro_torch.data.synthetic import cylinder_bell_funnel, random_walks
+    from repro_torch.serve import QueryEngine
+
+    t_phase = time.perf_counter()
+    db, sub = tiers["db"], tiers["sub"]
+    queries, host = main["queries"], main["res"]
+    qs = queries[:ANYTIME_QUERIES]
+    key = SERVE_ANYTIME_KEY
+    answers = []  # (mode, answer) of every request the whole-row engine served
+
+    def request(engine, q, **kw):
+        def run():
+            t0 = time.perf_counter()
+            a = engine.submit(q, **kw).result(timeout=300)
+            torch.cuda.synchronize()
+            return a, time.perf_counter() - t0
+        return run
+
+    def direct(session, q, **kw):
+        t0 = time.perf_counter()
+        r = session.search(q, **kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    engine = QueryEngine(db, max_batch=SERVE_ANYTIME_BATCH)
+    sub_engine = QueryEngine(sub, max_batch=SERVE_ANYTIME_BATCH)
+    procs: dict[str, subprocess.Popen] = {}
+    try:
+        # (a) unlimited: phase 3's queries, one lane each, phase 3's bits
+        def unlimited():
+            t0 = time.perf_counter()
+            futures = [engine.submit(q, mode="anytime") for q in qs]
+            got = [f.result(timeout=300) for f in futures]
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t0
+
+        with captured_scan_blocks() as blocks:
+            got, unlimited_s = counted(launches, key, unlimited)
+        for i, a in enumerate(got):
+            if not np.array_equal(a.indices, host.indices[i]) or (
+                    a.distances.tobytes() != host.distances[i].tobytes()):
+                fail(f"[anytime serve] unlimited request {i}: {a.indices} / {a.distances} "
+                     f"are not phase 3's {host.indices[i]} / {host.distances[i]}")
+            if a.error_bounds is None or (a.error_bounds != 0).any():
+                fail(f"[anytime serve] unlimited request {i}: error bounds {a.error_bounds}")
+        answers += [("anytime", a) for a in got]
+        seeded = engine._refine_rate
+        log(f"[anytime serve] whole-row tier, {len(qs)} unlimited requests in "
+            f"{unlimited_s:.3f} s ({unlimited_s / len(qs):.3f} s a request, batch lanes "
+            f"{[a.batch_lanes for a in got]}): phase 3's indices and distance bits, error "
+            f"bounds 0; refined {[a.stats.refined for a in got]}; the EMA seeded at "
+            f"{seeded:,.0f} windows/s ({smi})")
+
+        # (b) budgeted, bit-equal to a direct search; (c) the cache hit
+        for i, budget in enumerate(SERVE_ANYTIME_BUDGETS):
+            a, engine_s = counted(launches, key, request(engine, qs[i], mode="anytime",
+                                                         budget=budget))
+            r, direct_s = direct(db, qs[i], mode="anytime", budget=budget)
+            same_anytime_answer(f"[anytime serve] budget {budget}", a, r)
+            sound_against(f"[anytime serve] budget {budget}", a, host.distances[i])
+            answers.append(("anytime", a))
+            log(f"[anytime serve] budget {budget:,}: {engine_s:.4f} s a request through the "
+                f"engine, {direct_s:.4f} s a direct search ({engine_s - direct_s:+.4f} s), "
+                f"bit-equal to it, error bound {a.error_bound:.6g}, refined "
+                f"{a.stats.refined:,}, clusters {a.stats.clusters_explored:,}; EMA "
+                f"{engine._refine_rate:,.0f} windows/s ({smi})")
+        cold = a  # the last budgeted request, resubmitted
+        hit, hit_s = counted(launches, key, request(engine, qs[1], mode="anytime",
+                                                    budget=SERVE_ANYTIME_BUDGETS[1]))
+        if not hit.cache_hit or hit.error_bounds.tobytes() != cold.error_bounds.tobytes():
+            fail(f"[anytime serve] the resubmitted request was no cache hit with the same "
+                 f"bounds: {hit}")
+        answers.append(("anytime", hit))
+
+        # (d) a deadline mapped onto a budget by the seeded EMA
+        rate = engine._refine_rate
+        want_budget = max(1, int(rate * SERVE_ANYTIME_DEADLINE))
+        a, deadline_s = counted(launches, key, request(engine, qs[1], mode="anytime",
+                                                       deadline=SERVE_ANYTIME_DEADLINE))
+        if a.stats.budget != want_budget:
+            fail(f"[anytime serve] deadline {SERVE_ANYTIME_DEADLINE} s at {rate:.6g} "
+                 f"windows/s: budget {a.stats.budget}, not {want_budget}")
+        sound_against("[anytime serve] deadline", a, host.distances[1])
+        answers.append(("anytime", a))
+        log(f"[anytime serve] cache hit in {hit_s * 1e3:.3f} ms with the same bounds; "
+            f"deadline {SERVE_ANYTIME_DEADLINE} s at {rate:,.0f} windows/s -> budget "
+            f"{want_budget:,}, served in {deadline_s:.4f} s, error bound {a.error_bound:.6g} "
+            f"({smi})")
+        if launches[key]["lb_fused"] or launches[key]["dtw_merge"]:
+            fail(f"[anytime serve] the anytime requests ran the host driver's loop: "
+                 f"{launches[key]}")
+
+        # (e) exact requests interleaved with anytime ones, in two tenants
+        batches = engine.stats().batches
+
+        def mixed():
+            futures = []
+            for q in qs:
+                futures.append(("anytime", engine.submit(q, mode="anytime", tenant="anytime",
+                                                         budget=SERVE_MIXED_BUDGET)))
+                futures.append(("exact", engine.submit(q, tenant="exact")))
+            got = [(mode, f.result(timeout=300)) for mode, f in futures]
+            torch.cuda.synchronize()
+            return got
+
+        got = counted(launches, "14: mixed serving", mixed)
+        for i, (mode, a) in enumerate(got):
+            q = qs[i // 2]
+            if mode == "exact":
+                r, _ = direct(db, q)
+                if a.error_bounds is not None or not np.array_equal(a.indices, r.indices) or (
+                        a.distances.tobytes() != r.distances.tobytes()):
+                    fail(f"[anytime serve] interleaved exact request {i}: {a} is not a direct "
+                         f"db.search's {r}")
+            else:
+                r, _ = direct(db, q, mode="anytime", budget=SERVE_MIXED_BUDGET)
+                same_anytime_answer(f"[anytime serve] interleaved anytime request {i}", a, r)
+            if a.batch_lanes > len(qs):
+                fail(f"[anytime serve] request {i} shared a batch of {a.batch_lanes} lanes "
+                     f"across modes")
+        mixed_batches = engine.stats().batches - batches
+        if mixed_batches < 2:
+            fail(f"[anytime serve] exact and anytime requests ran in {mixed_batches} batch")
+        answers += got
+
+        # (f) the stats: the sums over the answers served
+        st = engine.stats()
+        anytime = [a for mode, a in answers if mode == "anytime"]
+        want = dict(served=len(answers), anytime_served=len(anytime),
+                    cache_hits=sum(a.cache_hit for _, a in answers),
+                    clusters_explored=sum(a.stats.clusters_explored for a in anytime
+                                          if not a.cache_hit))
+        have = {f: getattr(st, f) for f in want}
+        mean = sum(a.error_bound for a in anytime) / len(anytime)
+        if have != want or not math.isclose(st.residual_bound_mean, mean, rel_tol=1e-12):
+            fail(f"[anytime serve] engine stats {have}, residual_bound_mean "
+                 f"{st.residual_bound_mean}; the answers sum to {want}, {mean}")
+        log(f"[anytime serve] interleaved: {len(got)} requests in {mixed_batches} batches, "
+            f"exact answers == direct db.search, anytime ones == direct mode='anytime' "
+            f"(budget {SERVE_MIXED_BUDGET:,}); engine stats == the answers' sums: {have}, "
+            f"residual_bound_mean {st.residual_bound_mean:.6g}; launches "
+            f"{({k: v for k, v in launches['14: mixed serving'].items() if v})}")
+
+        # (g) the 256 tier of the 10,000-row session: phase 13's bits
+        m = ANYTIME_SUB_LEN
+        sq = queries[:ANYTIME_QUERIES, :m]
+        sub_lines = []
+        with captured_scan_blocks() as sub_blocks:
+            for tag, budget, want_res in (
+                    ("no budget", None, searched["sub_anytime"]),
+                    (f"budget {ANYTIME_SUB_BUDGET:,}", ANYTIME_SUB_BUDGET,
+                     searched["sub_budgeted"])):
+                for i, q in enumerate(sq):
+                    a, secs = counted(launches, key, request(sub_engine, q, mode="anytime",
+                                                             budget=budget))
+                    same_anytime_answer(f"[anytime serve] sub tier {tag} query {i}", a,
+                                        want_res[i])
+                    sub_lines.append(f"{tag} query {i} {secs:.4f} s")
+        log(f"[anytime serve] the {m} tier of the {sub.n_rows:,}-row session: "
+            f"submit(mode='anytime') == phase 13's indices, distance and bound bits; "
+            f"{'; '.join(sub_lines)} a request ({smi})")
+        got = launches[key]
+        require_launched(launches, key, ("envelope", "lb_keogh", "lb_improved_pass2", "dtw"),
+                         "anytime serving")
+        if got["lb_fused"] or got["dtw_merge"]:
+            fail(f"[anytime serve] the anytime requests ran the host driver's loop: {got}")
+
+        # the CLI runs and the classify twin, while the blocks are checked
+        n_rows, length, n_q, lengths, qlen = ANYTIME_CLI
+        cli = ["-m", "repro_torch.launch.search", "--db-size", str(n_rows), "--length",
+               str(length), "--queries", str(n_q), "--anytime", ",".join(map(str, lengths)),
+               "--mode", "anytime", "--query-length", str(qlen)]
+        t_sub = time.perf_counter()
+        for budget in (None, ANYTIME_CLI_BUDGET):
+            procs[f"budget {budget}"] = start_python(
+                cli + ([] if budget is None else ["--budget", str(budget)]))
+        procs["classify"] = start_python(["examples/classify_timeseries_torch.py"])
+        pairs = check_scan_blocks("[anytime serve]", None, None, None, db.w, db.p, blocks)
+        sub_pairs = check_scan_blocks("[anytime serve] sub", None, None, None,
+                                      sub.anytime.tier(m).w, sub.p, sub_blocks)
+        log(f"[anytime serve] on {len(blocks)} whole-row and {len(sub_blocks)} subsequence "
+            f"blocks the engine's worker ran: K2 dense, K2 and K3 on "
+            f"{pairs[0] + sub_pairs[0]} pairs past LB_Keogh, K5 on {pairs[1] + sub_pairs[1]} "
+            f"DP pairs with the gate == their plain versions; launches "
+            f"{({k: v for k, v in got.items() if v})}")
+
+        # the direct runs the subprocesses are held against
+        rng = np.random.default_rng(0)  # the CLI's --seed default
+        data = random_walks(rng, n_rows, length)
+        cli_q = random_walks(rng, n_q, qlen)
+        cli_db = Database.build(data, SearchConfig(), anytime=dict(lengths=lengths), seed=0)
+        cli_want = {budget: cli_db.search(cli_q, mode="anytime", budget=budget)
+                    for budget in (None, ANYTIME_CLI_BUDGET)}
+        rng = np.random.default_rng(0)  # the example's data
+        train_x, train_y = cylinder_bell_funnel(rng, 6)
+        test_x, test_y = cylinder_bell_funnel(rng, 10)
+        w = train_x.shape[1] // 10
+
+        def classify():
+            return {("inf" if p == math.inf else p): float(np.mean(
+                Database.build(train_x, SearchConfig(w=w, p=p)).classify(train_y, test_x)
+                == test_y)) for p in (1, 2, math.inf)}
+
+        accs = counted(launches, "14: classify", classify)
+        require_launched(launches, "14: classify", ("envelope", "lb_keogh", "dtw"),
+                         "db.classify")
+        del cli_db
+
+        for budget in (None, ANYTIME_CLI_BUDGET):
+            what = f"launch.search --anytime ... budget {budget}"
+            out = finish_python(procs.pop(f"budget {budget}"), what)
+            rows = [re.match(ANYTIME_CLI_LINE, ln) for ln in out.splitlines()
+                    if ln.startswith("query ")]
+            if len(rows) != n_q or not all(rows):
+                fail(f"{what}: unparsable query lines:\n{out}")
+            if any(ln.startswith("mesh=") for ln in out.splitlines()):
+                fail(f"{what}: the anytime route attached a mesh:\n{out}")
+            want = cli_want[budget]
+            nn = [int(r.group(2)) for r in rows]
+            refined = [int(r.group(5)) for r in rows]
+            if nn != want.indices[:, 0].tolist() or refined != [
+                    s.stats.refined for s in want.per_query]:
+                fail(f"{what}: nn {nn}, refined {refined}; the direct search: "
+                     f"{want.indices[:, 0].tolist()}, "
+                     f"{[s.stats.refined for s in want.per_query]}")
+            served = [ln for ln in out.splitlines() if ln.startswith("served")]
+            log(f"[anytime serve] {what}: nn {nn} and refined {refined} == a direct search "
+                f"of the same rows; {rows[0].group(0).strip()} | {' | '.join(served)}")
+        out = finish_python(procs.pop("classify"), "examples/classify_timeseries_torch.py")
+        printed = dict(re.findall(r"^DTW_(\w+): accuracy ([0-9.]+)", out, re.M))
+        for name, acc in accs.items():
+            if printed.get(str(name)) != f"{acc:.3f}":
+                fail(f"classify_timeseries_torch.py: DTW_{name} printed "
+                     f"{printed.get(str(name))}, a direct db.classify gives {acc:.3f}")
+        if "4" not in printed or "CPU" not in out:
+            fail(f"classify_timeseries_torch.py: no DTW_4 row on the CPU:\n{out}")
+        log(f"[anytime serve] subprocesses in {time.perf_counter() - t_sub:.1f} s; "
+            f"classify_timeseries_torch.py: accuracies {printed} (p in {{1, 2, inf}} == a "
+            f"direct db.classify on the card, launches "
+            f"{({k: v for k, v in launches['14: classify'].items() if v})})")
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.communicate()
+        engine.close()
+        sub_engine.close()
+    log(f"[anytime serve] phase 14 took {time.perf_counter() - t_phase:.1f} s ({smi})")
 
 
 def main() -> int:
@@ -4084,7 +4499,9 @@ def main() -> int:
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
+        lap(name)
         out = fn(*args)
+        lap()
         spent[name] = time.perf_counter() - t0
         return out
 
@@ -4108,9 +4525,12 @@ def main() -> int:
     del mv_out
     timed("11 sharded", phase_sharded, dev, launches, main_out)
     tiers = timed("12 anytime build", phase_anytime, dev, launches, main_out)
-    timed("13 anytime search", phase_anytime_search, dev, launches, main_out, tiers)
-    del tiers
+    searched = timed("13 anytime search", phase_anytime_search, dev, launches, main_out, tiers)
+    timed("14 anytime serving", phase_anytime_serve, dev, launches, main_out, tiers, searched,
+          smi)
+    del tiers, searched
     log("[time] seconds by phase: " + "; ".join(f"{k} {v:.1f}" for k, v in spent.items()))
+    log(time_line())
     kernels = []
     for name, r in rec.items():
         source, replaces = SOURCES[name]

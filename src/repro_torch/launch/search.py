@@ -10,10 +10,11 @@ unless ``--device cpu``.
 
 The host mesh (``launch.mesh.make_host_mesh``) spans the ranks of the
 default ``torch.distributed`` group, or one rank (NCCL on the GPU, gloo
-on the CPU) when the launcher is started alone.  ``--anytime``,
-``--mode anytime`` and a ``--query-length`` other than the session's
-need the anytime tier's CLI (ROADMAP.md queue 1, item 10c) and raise
-``NotImplementedError``.
+on the CPU) when the launcher is started alone.  ``--anytime 64,128``
+builds the anytime subsequence tier at those lengths; ``--mode anytime``
+(with ``--budget``) serves budgeted best-so-far answers with error
+bounds through it, and a ``--query-length`` other than the session's
+routes through it too.  The anytime route attaches no mesh.
 
 Persistence: ``--db-path x.npz`` saves/loads the whole session bundle
 (data + envelopes + index + config, the reference's keys), so a
@@ -27,6 +28,8 @@ Usage:
       --db-path /tmp/rw.session.npz
   python -m repro_torch.launch.search --device cpu --db-size 200 --length 64 \\
       --queries 3 --index --p inf --n-refs 6
+  python -m repro_torch.launch.search --device cpu --db-size 200 --length 64 \\
+      --queries 3 --anytime 32,64 --mode anytime --query-length 32 --budget 64
 """
 
 from __future__ import annotations
@@ -40,15 +43,12 @@ import numpy as np
 
 from repro_torch.api import Database, SearchConfig
 from repro_torch.core.microbatch import drain_queries, iter_query_batches
-from repro_torch.core.pipeline import not_ported
 from repro_torch.data.synthetic import random_walks
 from repro_torch.index import load_index, save_index
 from repro_torch.index.store import npz_path
 from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes
 
 __all__ = ["drain_queries", "iter_query_batches", "main"]
-
-ANYTIME_ITEM = "10c (anytime serving and CLI)"
 
 
 def _parse_p(s: str):
@@ -94,6 +94,11 @@ def load_session(args) -> Database | None:
             f"index, flag asked for {'one' if args.index else 'none'} — "
             f"the planner serves what the bundle has"
         )
+    if args.anytime and db.anytime is None:
+        diffs.append(
+            "--anytime: bundle has no anytime tier — rebuild without "
+            "--db-path (or delete the bundle) to add one"
+        )
     if diffs:
         print(
             "warning: serving under the bundle's saved session; these "
@@ -112,9 +117,12 @@ def build_session(args, db_data: np.ndarray) -> Database:
             print(f"loaded index from {args.index_path} (R={index.n_refs})")
         else:
             index = True
+    anytime: bool | dict = False
+    if args.anytime:
+        anytime = {"lengths": tuple(int(s) for s in args.anytime.split(","))}
     t0 = time.perf_counter()
     db = Database.build(
-        db_data, _config(args), index=index, n_refs=args.n_refs,
+        db_data, _config(args), index=index, anytime=anytime, n_refs=args.n_refs,
         n_clusters=args.n_clusters or None, seed=args.seed, device=args.device,
     )
     dt = time.perf_counter() - t0
@@ -154,57 +162,64 @@ def main(argv=None):
                     help="index-only store: load the index from this .npz if "
                     "present, else build and save it")
     ap.add_argument("--anytime", type=str, default="",
-                    help="the anytime subsequence tier (not ported: ROADMAP item 10c)")
+                    help="build the anytime subsequence tier at these comma-separated "
+                    "lengths (e.g. '64,128'); required for --mode anytime")
     ap.add_argument("--mode", type=str, default="exact", choices=("exact", "anytime"),
-                    help="'anytime' needs the anytime tier (not ported: ROADMAP item 10c)")
+                    help="'anytime' serves budgeted best-so-far answers with sound "
+                    "error bounds through the cluster tier")
     ap.add_argument("--budget", type=int, default=0,
-                    help="anytime exploration budget (0 = unlimited)")
+                    help="anytime exploration budget in refined windows per query "
+                    "(0 = unlimited, which bit-matches exact)")
     ap.add_argument("--query-length", type=int, default=0,
-                    help="query length (0 = the session's series length); other "
-                    "lengths need the anytime tier")
+                    help="query length (0 = the session's series length); shorter "
+                    "lengths route through the anytime subsequence tier")
     ap.add_argument("--device", type=str, default=None,
                     help="device to serve on (default: the GPU; 'cpu' runs the "
                     "plain versions)")
     args = ap.parse_args(argv)
-    if args.anytime:
-        raise not_ported("--anytime (the anytime subsequence tier)", ANYTIME_ITEM)
-    if args.mode == "anytime":
-        raise not_ported("--mode anytime", ANYTIME_ITEM)
-    if args.budget:
-        raise ValueError(
-            "budget= only applies to mode='anytime' (exact search always "
-            "explores everything)"
-        )
 
     rng = np.random.default_rng(args.seed)
     db = load_session(args)
     if db is None:  # no bundle: synthesize and build (the cold path)
         db = build_session(args, random_walks(rng, args.db_size, args.length))
+    # queries follow the session's series length, or --query-length,
+    # which routes through the anytime subsequence tier
     qlen = args.query_length or db.length
-    if qlen != db.length:
-        raise not_ported(f"--query-length {qlen} (subsequence queries)", ANYTIME_ITEM)
     queries = random_walks(rng, args.queries, qlen)
+    budget = args.budget or None
+    anytime_route = args.mode == "anytime" or (
+        db.anytime is not None and qlen != db.length
+    )
     # --queries 0 (config-printout smoke runs) stays a graceful no-op
     batch = max(1, min(args.query_batch, args.queries))
     indexed = db.index is not None
-    if not indexed:
+    if not (indexed or anytime_route):
         mesh = make_host_mesh(device=args.device)
         db.use_mesh(mesh, sync_every=args.sync_every)
         print(f"mesh={mesh_axis_sizes(mesh)}")
     print(f"db={db.n_rows} series x {db.length} w={db.w} p={db.p} query_batch={batch}")
-    print(db.plan(batch).explain())
+    print(db.plan(batch, mode=args.mode, budget=budget, length=qlen).explain())
 
     def search_block(block_q):
-        return db.search(block_q, k=args.k)
+        # k is per-call-safe; mode/budget route per call as well
+        return db.search(block_q, k=args.k, mode=args.mode, budget=budget)
 
     t_all = time.perf_counter()
     for qi, res in enumerate(drain_queries(queries, search_block, batch)):
         s = res.stats
-        extra = (
-            f"stage0={s.lb0_pruned} ({100*s.stage0_ratio:.1f}%) "
-            f"clusters={s.clusters_pruned}/{s.clusters_total} "
-            if indexed else ""
-        )
+        if anytime_route:
+            extra = (
+                f"err<={res.error_bound:.3f} refined={s.refined}"
+                f"/{s.n_windows} clusters={s.clusters_explored}"
+                f"/{s.clusters_total} "
+            )
+        elif indexed:
+            extra = (
+                f"stage0={s.lb0_pruned} ({100*s.stage0_ratio:.1f}%) "
+                f"clusters={s.clusters_pruned}/{s.clusters_total} "
+            )
+        else:
+            extra = ""
         per_stage = " ".join(f"pruned_{name}={n}" for name, n in s.pruned_by.items())
         print(
             f"query {qi}: nn={res.index} dist={res.distance:.3f} "

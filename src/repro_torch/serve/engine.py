@@ -52,13 +52,15 @@ is stream-ordered), the kernel library loads once under a lock, and the
 launch counters and LB_Kim's tickets are taken under locks
 (``kernels/common.py``).
 
-The anytime tier's serving (``mode="anytime"``) is not ported yet
-(ROADMAP.md item 10c): ``submit`` raises ``NotImplementedError`` for it,
-and the anytime fields of :class:`EngineStats` stay 0.  Neither is an
-engine over a session whose mesh spans several ranks (item 11b): every
-rank's engine would coalesce its own arrivals, and the sharded driver's
-collectives would then pair different searches, so the constructor
-refuses it; a one-rank mesh is served.
+Anytime serving (``mode="anytime"``, sessions built with an anytime
+tier) rides the same path: a batch of like-keyed requests is one
+``db.search(mode="anytime", budget=)`` call over its real lanes only,
+and a request's ``deadline`` maps onto a budget through the engine's
+refine-rate EMA.  An engine over a session whose mesh spans several
+ranks is not ported yet (ROADMAP.md item 11b): every rank's engine would
+coalesce its own arrivals, and the sharded driver's collectives would
+then pair different searches, so the constructor refuses it; a one-rank
+mesh is served.
 """
 
 from __future__ import annotations
@@ -76,7 +78,6 @@ from repro_torch.core.microbatch import pad_rows
 from repro_torch.core.pipeline import not_ported
 from repro_torch.serve.cache import AnswerCache, query_digest
 
-ANYTIME_ITEM = "10c (anytime serving and CLI)"
 MULTI_RANK_ITEM = "11b (QueryEngine over a multi-rank mesh)"
 
 
@@ -110,9 +111,10 @@ class Answer:
     ``db.search(query)`` call returns (bit-identical — cold, coalesced
     or cached).  ``wait_ms`` is admission-to-execution queueing delay
     (0 for cache hits), ``batch_lanes`` the number of real lanes in the
-    serving batch (0 for cache hits).  ``error_bounds`` is for
-    anytime-mode answers, which wait for the anytime tier's serving
-    (item 10c): None here.
+    serving batch (0 for cache hits).  ``error_bounds`` is set for
+    anytime-mode answers only: the sound per-answer gap bounds of
+    :class:`repro_torch.anytime.AnytimeResult` (all zeros once
+    exploration finished — the answer is exact).
     """
 
     distances: np.ndarray  # (k,) ascending
@@ -162,7 +164,7 @@ class EngineStats:
     stream_samples: int  # values pushed through open_stream sessions (m*d)
     wait_ms_mean: float  # mean admission->execution delay of batch-served
     uptime_s: float
-    # anytime-tier telemetry (its serving is not ported yet: always 0):
+    # anytime-tier telemetry (0 until an anytime request is served):
     anytime_served: int = 0  # requests answered through mode="anytime"
     clusters_explored: int = 0  # leaf clusters refined, over all requests
     residual_bound_mean: float = 0.0  # mean worst error bound per answer
@@ -325,6 +327,12 @@ class QueryEngine:
         self._streams: dict[int, StreamSession] = {}
         self._next_sid = 0
         self._stream_samples = 0
+        # anytime-tier counters + the refine-rate EMA (windows/s) that
+        # maps per-request deadlines onto exploration budgets
+        self._n_anytime = 0
+        self._clusters_explored = 0
+        self._residual_sum = 0.0
+        self._refine_rate: float | None = None
         self._t_created = time.monotonic()
 
         if start:
@@ -377,9 +385,12 @@ class QueryEngine:
         like-keyed requests share a batch (and a cache entry).  A full
         tenant queue raises :class:`AdmissionFull` immediately.
 
-        ``mode="anytime"`` (best-so-far answers with error bounds under a
-        ``budget``) is the anytime tier's serving, which is not ported yet
-        (item 10c), and raises ``NotImplementedError``.
+        ``mode="anytime"`` (sessions built with an anytime tier) serves
+        best-so-far answers with error bounds; ``budget`` caps refined
+        windows per query.  With no explicit budget, a ``deadline`` maps
+        onto an exploration budget through the engine's measured refine
+        rate (EMA over past anytime batches) — tighter deadlines explore
+        fewer clusters, looser ones converge to exact.
         """
         db = self.db
         raw = np.asarray(query, dtype=db.config.precision)
@@ -404,10 +415,40 @@ class QueryEngine:
         if budget is not None and mode != "anytime":
             raise ValueError("budget= only applies to mode='anytime'")
         if mode == "anytime":
-            raise not_ported("QueryEngine.submit(mode='anytime')", ANYTIME_ITEM)
-        qlen = db.length
-        prepared = db.prepare_queries(raw)  # validates length, z-norms
-        k = db.config.validate_k(db.config.k if k is None else k, db.n_rows)
+            if db.anytime is None:
+                raise ValueError(
+                    "mode='anytime' needs the anytime tier: build the "
+                    "session with Database.build(..., anytime=True)"
+                )
+            if driver is not None:
+                raise ValueError(
+                    f"driver={driver!r} cannot be combined with "
+                    f"mode='anytime' — the cluster explorer is the driver"
+                )
+            qlen = int(raw.shape[-1])
+            tier = db.anytime.tier(qlen)  # raises with built lengths
+            prepared = db.prepare_queries(raw, length=qlen)
+            k = db.config.validate_k(
+                db.config.k if k is None else k, tier.n_windows
+            )
+            if budget is None and deadline is not None:
+                with self._cv:
+                    rate = self._refine_rate
+                if rate is not None:
+                    budget = max(1, int(rate * float(deadline)))
+            if budget is not None:
+                budget = int(budget)
+                if budget < 1:
+                    raise ValueError(
+                        f"budget={budget} must be >= 1 refined windows "
+                        f"per query (or None for unlimited)"
+                    )
+        else:
+            qlen = db.length
+            prepared = db.prepare_queries(raw)  # validates length, z-norms
+            k = db.config.validate_k(
+                db.config.k if k is None else k, db.n_rows
+            )
         # normalized execution key: an explicit method equal to the
         # config's must hit the same lane/cache entry as the default;
         # mode/budget/length join it so only like-quality requests share
@@ -429,8 +470,13 @@ class QueryEngine:
             else:
                 self._n_cache_misses += 1
         if hit is not None:
+            err = getattr(hit, "error_bounds", None)
             with self._cv:
                 self._n_served += 1
+                if mode == "anytime":
+                    self._n_anytime += 1
+                    if err is not None:
+                        self._residual_sum += float(np.max(err))
             future.set_result(
                 Answer(
                     distances=hit.distances,
@@ -441,6 +487,7 @@ class QueryEngine:
                     coalesced=False,
                     wait_ms=0.0,
                     batch_lanes=0,
+                    error_bounds=err,
                 )
             )
             return future
@@ -537,8 +584,11 @@ class QueryEngine:
     # -------------------------------------------------------------- execute
 
     def _execute(self, exec_key: tuple, lanes: list[list[_Request]]) -> None:
-        k, method, driver, _mode, _budget, _qlen = exec_key
+        k, method, driver, mode, _budget, _qlen = exec_key
         t_exec = time.monotonic()
+        if mode == "anytime":
+            self._execute_anytime(exec_key, lanes, t_exec)
+            return
         block, n_valid = pad_rows([lane[0].query for lane in lanes], self.max_batch)
         try:
             _refuse_multi_rank(self.db)  # a mesh attached after construction
@@ -573,6 +623,61 @@ class QueryEngine:
                         coalesced=j > 0,
                         wait_ms=1e3 * wait_s,
                         batch_lanes=n_valid,
+                    )
+                )
+
+    def _execute_anytime(
+        self, exec_key: tuple, lanes: list[list[_Request]], t_exec: float
+    ) -> None:
+        """One anytime batch: the cluster explorer runs per lane, so
+        real lanes stack unpadded (padding would burn real budget)."""
+        k, method, _driver, _mode, budget, _qlen = exec_key
+        block = np.stack([lane[0].query for lane in lanes])
+        try:
+            _refuse_multi_rank(self.db)  # a mesh attached after construction
+            res = self.db.search(
+                block, k=k, method=method, mode="anytime", budget=budget
+            )
+        except Exception as e:  # fail every rider, never wedge the worker
+            for lane in lanes:
+                for req in lane:
+                    req.future.set_exception(e)
+            return
+        dt = time.monotonic() - t_exec
+        with self._cv:
+            self._n_batches += 1
+            self._n_batch_lanes += len(lanes)
+            self._clusters_explored += res.stats.clusters_explored
+            # refine-rate EMA (windows/s): maps future deadlines onto
+            # budgets; seeded by the first batch, then smoothed
+            if dt > 0 and res.stats.refined:
+                rate = res.stats.refined / dt / len(lanes)
+                self._refine_rate = (
+                    rate
+                    if self._refine_rate is None
+                    else 0.7 * self._refine_rate + 0.3 * rate
+                )
+        for i, lane in enumerate(lanes):
+            single = res[i]  # AnytimeResult: distances/indices/stats ride
+            self.cache.put(lane[0].digest, single)
+            for j, req in enumerate(lane):
+                wait_s = t_exec - req.t_submit
+                with self._cv:
+                    self._n_served += 1
+                    self._n_anytime += 1
+                    self._wait_s_sum += wait_s
+                    self._residual_sum += float(np.max(single.error_bounds))
+                req.future.set_result(
+                    Answer(
+                        distances=single.distances,
+                        indices=single.indices,
+                        stats=single.stats,
+                        tenant=req.tenant,
+                        cache_hit=False,
+                        coalesced=j > 0,
+                        wait_ms=1e3 * wait_s,
+                        batch_lanes=len(lanes),
+                        error_bounds=single.error_bounds,
                     )
                 )
 
@@ -652,4 +757,11 @@ class QueryEngine:
                     else 0.0
                 ),
                 uptime_s=time.monotonic() - self._t_created,
+                anytime_served=self._n_anytime,
+                clusters_explored=self._clusters_explored,
+                residual_bound_mean=(
+                    self._residual_sum / self._n_anytime
+                    if self._n_anytime
+                    else 0.0
+                ),
             )

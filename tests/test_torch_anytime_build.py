@@ -9,7 +9,8 @@ plain version on CPU tensors); the same validation errors; ``any_*``
 bundle arrays with the reference's keys and dtypes, loading both ways;
 ``Database.build(anytime=...)`` with the reference's ``repr`` and an
 exact search equal to the session without the tier.  The search side is
-held in ``tests/test_torch_anytime_search.py``; here, what still raises.
+held in ``tests/test_torch_anytime_search.py`` and its serving in
+``tests/test_torch_serve_anytime.py``; here, what still raises.
 """
 
 import math
@@ -311,9 +312,10 @@ def test_bundles_load_both_ways(tmp_path):
 
 def test_search_side_raises_item_10b():
     """What still raises once the search side is ported (the name is kept
-    so that the test's history stays one): the engine's anytime mode
-    (item 10c), and choosing the tier's drivers by name, which raises the
-    reference's ``ValueError``; the search side itself answers."""
+    so that the test's history stays one): choosing the tier's drivers by
+    name, which raises the reference's ``ValueError``; the search side
+    itself answers, and so does the engine's anytime mode, with the
+    direct search's answer."""
     db = Database.build(DATA, SearchConfig(w=W), anytime=OPTS, device="cpu")
     jdb = JDatabase.build(DATA, JConfig(w=W), anytime=OPTS)
     q = walks(11, 1, N)[0]
@@ -325,8 +327,11 @@ def test_search_side_raises_item_10b():
         assert got == raised(lambda: jdb.plan(q, driver=driver))
         assert got[0] is ValueError and "not directly selectable" in got[1]
     with QueryEngine(db, max_batch=2, max_wait_ms=0.5) as engine:
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            engine.submit(q, mode="anytime")
+        ans = engine.submit(q, mode="anytime").result(timeout=60)
+        direct = db.search(q, mode="anytime")
+        assert bits_equal(ans.indices, direct.indices)
+        assert bits_equal(ans.distances, direct.distances)
+        assert bits_equal(ans.error_bounds, direct.error_bounds)
         assert np.array_equal(engine.submit(q).result(timeout=60).indices, db.search(q).indices)
     # without the tier, another length is the reference's ValueError
     with pytest.raises(ValueError, match="query length"):

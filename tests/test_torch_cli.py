@@ -18,6 +18,7 @@ import pathlib
 import re
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -34,6 +35,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SMALL = ["--db-size", "200", "--length", "64", "--queries", "3"]
 INDEXED = ["--index", "--p", "inf", "--n-refs", "6"]
 QUERY_LINE = re.compile(r"^query (\d+): nn=(\d+) dist=([0-9.]+) (.*)$")
+ERR = re.compile(r"err<=([0-9.]+|inf) ")
 
 
 def parse(out: str) -> list[dict]:
@@ -43,8 +45,10 @@ def parse(out: str) -> list[dict]:
         m = QUERY_LINE.match(line)
         if m:
             counts = dict(re.findall(r"(\w+)=(\d+(?:/\d+)?)", m.group(4)))
+            err = ERR.search(m.group(4))
             rows.append(dict(i=int(m.group(1)), nn=int(m.group(2)),
-                             dist=float(m.group(3)), **counts))
+                             dist=float(m.group(3)), **counts,
+                             **({"err": float(err.group(1))} if err else {})))
     return rows
 
 
@@ -112,11 +116,116 @@ def test_cli_bundle_and_index_paths(capsys, monkeypatch, tmp_path):
     assert all(close(a["dist"], b["dist"]) for a, b in zip(port, want))
 
 
+def outcome(fn):
+    """What a CLI run gave: its parsed query lines, or the error it raised
+    (type and text)."""
+    try:
+        return "lines", parse(fn())
+    except Exception as e:  # noqa: BLE001 - the outcome is the error
+        return type(e), str(e)
+    finally:
+        if dist.is_initialized():  # the mesh route's one-rank group
+            dist.destroy_process_group()
+
+
+def same_lines(port, ref):
+    """The port's query lines against the reference's: every count equal,
+    ``dist`` and ``err`` within rtol 2e-4 (plus the line's rounding)."""
+    assert len(port) == len(ref) > 0
+    for a, b in zip(port, ref):
+        assert {k: v for k, v in a.items() if k not in ("dist", "err")} == {
+            k: v for k, v in b.items() if k not in ("dist", "err")}
+        assert close(a["dist"], b["dist"]), (a, b)
+        if "err" in b:
+            assert close(a["err"], b["err"]), (a, b)
+
+
 @pytest.mark.parametrize("flags", [["--anytime", "32"], ["--mode", "anytime"],
                                    ["--query-length", "32"]], ids=lambda f: f[0])
-def test_cli_anytime_flags_raise(capsys, flags):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_port(capsys, SMALL + flags)
+def test_cli_anytime_flags_raise(capsys, monkeypatch, flags):
+    """Each anytime flag alone ends as the reference CLI's run does:
+    ``--anytime 32`` builds the tier and serves the exact lines,
+    ``--mode anytime`` without a tier and ``--query-length 32`` without
+    one raise the reference's ``ValueError``."""
+    port = outcome(lambda: run_port(capsys, SMALL + flags))
+    ref = outcome(lambda: run_reference(capsys, monkeypatch, SMALL + flags))
+    assert port[0] == ref[0]
+    if port[0] == "lines":
+        same_lines(port[1], ref[1])
+    else:
+        assert port == ref and port[0] is ValueError
+
+
+ANYTIME = ["--anytime", "32,64", "--mode", "anytime"]
+
+
+@pytest.mark.parametrize("flags", [[], ["--budget", "64"], ["--query-length", "32"],
+                                   ["--query-length", "32", "--budget", "64"]],
+                         ids=["whole", "budget", "subsequence", "subsequence_budget"])
+def test_cli_anytime_lines_match_reference(capsys, monkeypatch, flags):
+    """``--anytime 32,64 --mode anytime``: the same ``nn``, ``refined``,
+    ``clusters``, ``pruned_*`` and ``dtw`` counts, and ``dist`` and the
+    ``err<=`` bound within rtol 2e-4; no mesh on the anytime route."""
+    port_out = run_port(capsys, SMALL + ANYTIME + flags)
+    assert not dist.is_initialized()
+    assert not any(ln.startswith("mesh=") for ln in port_out.splitlines())
+    ref_out = run_reference(capsys, monkeypatch, SMALL + ANYTIME + flags)
+    port, ref = parse(port_out), parse(ref_out)
+    assert len(port) == 3 and all("refined" in r and "clusters" in r for r in port)
+    same_lines(port, ref)
+    budget = "budget 64 refined windows/query" if "--budget" in flags else "budget unlimited"
+    assert budget in port_out and "mode: anytime" in port_out
+
+
+def test_cli_anytime_bundle_round_trip_and_warning(capsys, monkeypatch, tmp_path):
+    """A bundle saved with the tier serves ``--mode anytime`` after a load
+    as the reference CLI does on the same bundle; a bundle without one
+    prints the reference's ``--anytime`` warning and serves exactly."""
+    tier, plain = str(tmp_path / "tier"), str(tmp_path / "plain")
+    sub = ANYTIME + ["--query-length", "32", "--budget", "64"]
+    built = run_port(capsys, SMALL + sub + ["--db-path", tier])
+    loaded = run_port(capsys, SMALL + sub + ["--db-path", tier])
+    assert "saved session bundle to" in built and "loaded session bundle from" in loaded
+    ref = run_reference(capsys, monkeypatch, SMALL + sub + ["--db-path", tier])
+    same_lines(parse(loaded), parse(ref))
+    assert [r["nn"] for r in parse(loaded)] == [r["nn"] for r in parse(ref)]
+    run_port(capsys, SMALL + INDEXED + ["--db-path", plain])
+    flags = SMALL + INDEXED + ["--anytime", "32", "--db-path", plain]
+    port_out = run_port(capsys, flags)
+    ref_out = run_reference(capsys, monkeypatch, flags)
+    warning = [ln.strip() for ln in port_out.splitlines() if ln.strip().startswith("--anytime:")]
+    assert warning == [ln.strip() for ln in ref_out.splitlines()
+                       if ln.strip().startswith("--anytime:")]
+    assert len(warning) == 1 and "no anytime tier" in warning[0]
+    same_lines(parse(port_out), parse(ref_out))
+
+
+def test_classify_twin_runs_on_cpu(capsys):
+    """examples/classify_timeseries_torch.py: p in {1, 2, inf} through the
+    port's ``db.classify`` and DTW_4 through ``classification_accuracy`` on
+    the CPU, each equal to repro's on the same data."""
+    import jax.numpy as jnp
+    from repro.api import Database as JDatabase
+    from repro.api import SearchConfig as JConfig
+    from repro.core.classify import classification_accuracy as j_accuracy
+    from repro.data.synthetic import cylinder_bell_funnel
+
+    spec = importlib.util.spec_from_file_location(
+        "classify_timeseries_torch", ROOT / "examples" / "classify_timeseries_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = mod.main("cpu")
+    out = capsys.readouterr().out
+    rng = np.random.default_rng(0)
+    train_x, train_y = cylinder_bell_funnel(rng, 6)
+    test_x, test_y = cylinder_bell_funnel(rng, 10)
+    w = train_x.shape[1] // 10
+    want = {4: j_accuracy(test_x, test_y, train_x, train_y, w=w, p=4)}
+    for name, p in ((1, 1), (2, 2), ("inf", jnp.inf)):
+        pred = JDatabase.build(train_x, JConfig(w=w, p=p)).classify(train_y, test_x)
+        want[name] = float(np.mean(pred == test_y))
+    assert got == want
+    assert "DTW_4: accuracy" in out and "on the CPU's plain versions" in out
 
 
 def test_cli_parse_p():

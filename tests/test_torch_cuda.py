@@ -1161,3 +1161,40 @@ def test_anytime_search_on_card(dev, p):
                 order = np.lexsort((np.arange(d.shape[1]), d[qi]))[:3]
                 np.testing.assert_array_equal(exact.indices[qi], order)
                 assert exact.distances[qi].tobytes() == d[qi, order].tobytes()
+
+
+@pytest.mark.parametrize("p", PS)
+def test_anytime_serving_on_card(dev, p):
+    """``QueryEngine.submit(mode="anytime")`` on the card: each answer,
+    unlimited and at two budgets, at the whole length and a subsequence
+    length, bit-equal to a direct ``db.search(mode="anytime", budget=)``
+    on the card, bounds included; a resubmitted request is a cache hit
+    with the same bounds; the requests launch K1, K2, K3 and K5 and no
+    host-loop kernel."""
+    from repro_torch.serve import QueryEngine
+
+    rng = np.random.default_rng(79)
+    x = rng.normal(size=(300, 96)).cumsum(axis=1).astype(np.float32)
+    db = Database.build(x, SearchConfig(k=3, p=p), anytime=dict(lengths=(48, 96), hop=8,
+                                                                 leaf_size=16), device=dev)
+    requests = [(q, b) for m in (48, 96) for q in rng.normal(size=(2, m)).cumsum(axis=1)
+                .astype(np.float32) for b in (None, db.anytime.tier(m).tree.n_coarse, 200)]
+    with QueryEngine(db, max_batch=4, max_wait_ms=1.0) as engine:
+        reset_launch_counts()
+        answers = [engine.submit(q, mode="anytime", budget=b).result(timeout=120)
+                   for q, b in requests]
+        counts = launch_counts()
+        q, b = requests[-1]
+        hit = engine.submit(q, mode="anytime", budget=b).result(timeout=120)
+        stats = engine.stats()
+    for (q, b), a in zip(requests, answers):
+        want = db.search(q, mode="anytime", budget=b)
+        for f in ("indices", "distances", "error_bounds"):
+            assert getattr(a, f).tobytes() == getattr(want, f).tobytes(), (f, b)
+        assert a.stats.refined == want.stats.refined
+    assert hit.cache_hit and hit.error_bounds.tobytes() == answers[-1].error_bounds.tobytes()
+    for name in ("envelope", "lb_keogh", "lb_improved_pass2", "dtw"):
+        assert counts[name] > 0, counts
+    assert counts["lb_fused"] == counts["dtw_merge"] == 0, counts
+    assert stats.anytime_served == len(requests) + 1
+    assert stats.clusters_explored == sum(a.stats.clusters_explored for a in answers)

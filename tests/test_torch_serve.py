@@ -299,11 +299,18 @@ def test_close_drains_pending_and_rejects_new():
 
 
 def test_anytime_mode_raises_item_10():
+    """A session without the anytime tier refuses ``mode="anytime"`` with
+    the reference engine's ``ValueError`` (type and text)."""
     db = make_db(1)
     q = queries_for(db, n=1)[0]
+    jdb = JDatabase.build(db.raw, JConfig(w=W, p=1, block=BLOCK))
+    with pytest.raises(ValueError) as want:
+        JQueryEngine(jdb, max_batch=2, start=False).submit(q, mode="anytime")
     with QueryEngine(db, max_batch=2, max_wait_ms=0.5) as engine:
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(ValueError) as got:
             engine.submit(q, mode="anytime")
+        assert str(got.value) == str(want.value)
+        assert "needs the anytime tier" in str(got.value)
         with pytest.raises(ValueError):
             engine.submit(q, budget=3)
         with pytest.raises(ValueError):
