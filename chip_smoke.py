@@ -227,6 +227,22 @@ Phases (any failure raises, exits non-zero and prints no result line):
    subprocesses run side by side.  Seconds a request at each budget,
    the engine's time beside the direct call's and the EMA in windows/s
    are printed with the card's name and power limit.
+15. Sharded serving (after phase 14): two gloo ranks on the one card
+   (subprocesses) each build phase 3's session, attach a (2,) ``("data",)``
+   mesh with ``sync_every=4``, run one sharded search (its one-off costs)
+   and make ``QueryEngine(max_batch=8, start=False)``, while
+   ``examples/search_service_torch.py`` runs at its defaults beside them
+   (8 gloo ranks on the card; it must end with its check line).  When
+   the twin has ended, rank 0 stages phase 3's 16 queries from two tenants,
+   then sends a repeated query (a cache hit) and a ``k=2`` request, while
+   rank 1's follower runs every batch rank 0 routes to the sharded
+   driver.  The answers must be phase 11's one-rank indices and distance
+   bits (top-1 phase 3's) and a direct sharded search's of the same
+   batches on both ranks; rank 1 must have mirrored the 3 sharded batches
+   and not the cache hit; each rank must launch K1, K2, K3 and K5 and no
+   K4 or K5m; K2, K3 and K5 against their plain versions on two blocks of
+   rank 1's first mirrored search.  Seconds a request and the engine's
+   time over a warm direct sharded search are printed.
 
 Launches are counted per phase (3 build, 3 search, the long-row
 session's build and search on both routes, 4 scan, 4 stream, 5 tuned,
@@ -235,7 +251,8 @@ session, stream offline and stream example, 8 serve, 9 mv build, mv
 search, mv scan and mv d=1, 10 mv stream session, mv stream offline and
 mv serve, 11 sharded, 12 anytime build, anytime search and anytime sub
 build, 13 anytime mode and anytime sub search, 14 "14: anytime serving"
-(no K4 or K5m), "14: mixed serving" and "14: classify"),
+(no K4 or K5m), "14: mixed serving" and "14: classify", 15 "15: sharded
+serving" (both ranks' counts summed)),
 each from zero, and the untuned ``kim_improved`` and ``kim_webb``
 searches; phase 2's
 comparisons are not counted.  The ``[time]`` lines give seconds by
@@ -3734,6 +3751,7 @@ def phase_sharded(dev, launches, main):
         f"close over {lanes:,} lanes a query (pruned {g['stage_pruned']}, full_dtw "
         f"{g['full_dtw']})")
     log(f"[sharded] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return res
 
 
 # ------------------------------------------------------------ phase 12
@@ -4478,6 +4496,206 @@ def phase_anytime_serve(dev, launches, main, tiers, searched, smi):
     log(f"[anytime serve] phase 14 took {time.perf_counter() - t_phase:.1f} s ({smi})")
 
 
+# ------------------------------------------------------------ phase 15
+
+#: the sharded serving phase: the engine's batch, the repeated query and
+#: the k=2 request (query indices), the launch key, and the twin's last line
+SERVE_MESH_BATCH, SERVE_MESH_REPEAT, SERVE_MESH_K2 = 8, 3, 5
+SERVE_MESH_KEY = "15: sharded serving"
+SERVICE_LAST = "all answers match the single-device scan."
+
+#: one gloo rank of the sharded engine: phase 3's session on cuda:0 with a
+#: (2,) mesh, warmed by one sharded search; once the file ``go`` exists
+#: (the twin beside it has ended, so the timed part runs alone) rank 0
+#: serves two tenants, rank 1 follows and holds K2, K3 and K5 against their
+#: plain versions on two blocks of its first mirrored search; its answers,
+#: launches and times as JSON
+SERVE_RANK = r"""
+import dataclasses, datetime, json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+(rank, world, store, out, go, n_rows, length, n_queries, seed, sync_every, batch, repeat,
+ k2) = sys.argv[1:]
+rank, world, batch = int(rank), int(world), int(batch)
+torch.set_num_threads(1)  # the stages run on the card; the ranks share the host
+dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                        world_size=world, timeout=datetime.timedelta(seconds=120))
+import chip_smoke as cs
+from repro_torch.api import Database
+from repro_torch.core.distributed import Mesh
+from repro_torch.data.synthetic import random_walks
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.serve import QueryEngine
+
+rng = np.random.default_rng(int(seed))
+x = random_walks(rng, int(n_rows), int(length))
+queries = random_walks(rng, int(n_queries), int(length))
+t0 = time.perf_counter()
+db = Database.build(x).use_mesh(Mesh((world,), ("data",), device="cuda:0"),
+                                sync_every=int(sync_every))
+torch.cuda.synchronize()
+got = dict(build_s=time.perf_counter() - t0, plan=db.plan(queries[:batch]).driver)
+blocks = []
+search = db.search
+search(queries[:batch])  # the first search's one-off costs, not timed
+
+
+def first_captured(block, **kw):
+    # the follower's first mirrored search keeps its first blocks
+    if blocks or rank == 0:
+        return search(block, **kw)
+    with cs.captured_scan_blocks(keep_first=1, keep_dtw=1) as kept:
+        res = search(block, **kw)
+    blocks.append(kept[:2])
+    return res
+
+
+db.search = first_captured
+engine = QueryEngine(db, max_batch=batch, max_wait_ms=2.0, start=False)
+torch.cuda.synchronize()
+while not os.path.exists(go):
+    time.sleep(0.05)
+dist.barrier()
+reset_launch_counts()
+if rank == 0:
+    futures = [engine.submit(q, tenant=("a", "b")[i % 2]) for i, q in enumerate(queries)]
+    t0 = time.perf_counter()
+    engine.start()
+    answers = [f.result(timeout=600) for f in futures]
+    got["served_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    answers.append(engine.submit(queries[int(repeat)], tenant="a").result(timeout=60))
+    got["hit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    answers.append(engine.submit(queries[int(k2)], tenant="b", k=2).result(timeout=600))
+    got["k2_s"] = time.perf_counter() - t0
+    got["answers"] = [dict(idx=a.indices.tolist(), dist=a.distances.astype(float).tolist(),
+                           cache_hit=a.cache_hit, lanes=a.batch_lanes, wait_ms=a.wait_ms)
+                      for a in answers]
+    got["stats"] = dataclasses.asdict(engine.stats())
+else:
+    engine.start()
+engine.close(timeout=600)
+torch.cuda.synchronize()
+got["launches"] = launch_counts()
+got["mirrored"] = engine.mirrored_batches
+# the same batches straight to the session, on every rank in turn
+t0 = time.perf_counter()
+direct = [search(queries[i : i + batch]) for i in range(0, len(queries), batch)]
+torch.cuda.synchronize()
+got["direct_s"] = time.perf_counter() - t0
+got["direct"] = dict(idx=np.concatenate([r.indices for r in direct]).tolist(),
+                     dist=np.concatenate([r.distances for r in direct]).astype(float).tolist())
+if rank == 1:
+    pairs = cs.check_scan_blocks("[sharded serve] rank 1", None, None, None, db.w, db.p,
+                                 blocks[0])
+    got["checked"] = dict(blocks=len(blocks[0]), pairs=pairs)
+dist.destroy_process_group()
+json.dump(got, open(out, "w"))
+"""
+
+
+def phase_sharded_serve(dev, launches, main, sharded, smi):
+    """A ``QueryEngine`` over phase 3's session on a two-rank gloo mesh on
+    the one card (subprocesses): rank 0 serves two tenants, rank 1 mirrors
+    its sharded batches; the answers phase 11's bits; the search service
+    twin at its defaults beside their set-up (the timed part runs after
+    it)."""
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    host = main["res"]
+    procs = {"twin": start_python(["examples/search_service_torch.py"])}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            outs = [os.path.join(tmp, f"rank{r}.json") for r in range(GLOO_RANKS)]
+            go = pathlib.Path(tmp) / "go"
+            for r in range(GLOO_RANKS):
+                procs[f"rank {r}"] = start_python(
+                    ["-c", SERVE_RANK, str(r), str(GLOO_RANKS), os.path.join(tmp, "store"),
+                     outs[r], str(go), str(N_ROWS), str(LENGTH), str(N_QUERIES), str(SEED),
+                     str(SYNC_EVERY), str(SERVE_MESH_BATCH), str(SERVE_MESH_REPEAT),
+                     str(SERVE_MESH_K2)])
+            out = finish_python(procs.pop("twin"), "examples/search_service_torch.py")
+            lines = out.strip().splitlines()
+            if not lines or not lines[-1].endswith(SERVICE_LAST):
+                fail(f"examples/search_service_torch.py did not end with its check line:\n"
+                     f"{out}")
+            log(f"[sharded serve] examples/search_service_torch.py (8 gloo ranks on the card, "
+                f"beside the two ranks' set-up): {lines[0]} | {lines[-1]}")
+            go.touch()
+            for r in range(GLOO_RANKS):  # a failure kills the rest (finally)
+                finish_python(procs[f"rank {r}"], f"[sharded serve] gloo rank {r}",
+                              timeout=RANK_TIMEOUT)
+                del procs[f"rank {r}"]
+            ranks = [json.loads(pathlib.Path(o).read_text()) for o in outs]
+        lead, follower = ranks
+        if any(r["plan"] != "sharded" for r in ranks):
+            fail(f"[sharded serve] the session did not route to the sharded driver: "
+                 f"{[r['plan'] for r in ranks]}")
+        answers = lead["answers"]
+        idx = [a["idx"] for a in answers[:N_QUERIES]]
+        dist_bits = np.asarray([a["dist"] for a in answers[:N_QUERIES]], np.float32)
+        if idx != sharded.indices.tolist() or dist_bits.tobytes() != sharded.distances.tobytes():
+            fail(f"[sharded serve] the engine's answers are not phase 11's one-rank bits: "
+                 f"{[i[0] for i in idx]} vs {sharded.indices[:, 0].tolist()}")
+        if [i[0] for i in idx] != host.indices[:, 0].tolist():
+            fail(f"[sharded serve] top-1 {[i[0] for i in idx]} != phase 3's "
+                 f"{host.indices[:, 0].tolist()}")
+        for r in ranks:
+            if r["direct"] != dict(idx=idx, dist=[a["dist"] for a in answers[:N_QUERIES]]):
+                fail("[sharded serve] a direct sharded search of the engine's batches gave "
+                     "other bits than the engine")
+        hit, k2 = answers[N_QUERIES:]
+        if not hit["cache_hit"] or hit["idx"] != idx[SERVE_MESH_REPEAT]:
+            fail(f"[sharded serve] the repeated query was not a cache hit: {hit}")
+        if k2["idx"][:1] != idx[SERVE_MESH_K2] or np.float32(k2["dist"][0]) != dist_bits[
+                SERVE_MESH_K2][0]:
+            fail(f"[sharded serve] the k=2 answer's first neighbour {k2} is not the k=1 one")
+        st = lead["stats"]
+        n_batches = N_QUERIES // SERVE_MESH_BATCH + 1
+        if (st["batches"], st["cache_hits"], st["served"]) != (n_batches, 1, N_QUERIES + 2):
+            fail(f"[sharded serve] engine stats {st}")
+        if (lead["mirrored"], follower["mirrored"]) != (n_batches, n_batches):
+            fail(f"[sharded serve] rank 0 sent {lead['mirrored']} batches, rank 1 ran "
+                 f"{follower['mirrored']}; {n_batches} sharded batches were served (the cache "
+                 f"hit is not sent)")
+        for r, got in enumerate(ranks):
+            counts = got["launches"]
+            for name in ("envelope", "lb_keogh", "lb_improved_pass2", "dtw"):
+                if counts[name] <= 0:
+                    fail(f"[sharded serve] rank {r} did not launch {name}: {counts}")
+            if counts["lb_fused"] or counts["dtw_merge"]:
+                fail(f"[sharded serve] rank {r} ran the host driver's loop: {counts}")
+        launches[SERVE_MESH_KEY] = {k: lead["launches"][k] + follower["launches"][k]
+                                    for k in lead["launches"]}
+        checked = follower["checked"]
+        per_request = lead["served_s"] / N_QUERIES
+        log(f"[sharded serve] {GLOO_RANKS} gloo ranks on cuda:0, QueryEngine(max_batch="
+            f"{SERVE_MESH_BATCH}): {N_QUERIES} requests from 2 tenants in "
+            f"{lead['served_s']:.3f} s ({per_request:.4f} s a request), the direct sharded "
+            f"search of the same {n_batches - 1} batches, warm, {lead['direct_s']:.3f} s (engine / "
+            f"direct {lead['served_s'] / lead['direct_s']:.3f}); cache hit "
+            f"{1e3 * lead['hit_s']:.2f} ms, k=2 request {lead['k2_s']:.3f} s; builds "
+            f"{lead['build_s']:.1f}/{follower['build_s']:.1f} s ({smi})")
+        log(f"[sharded serve] == phase 11's indices and distance bits, top-1 == phase 3's; "
+            f"rank 1 mirrored {follower['mirrored']} batches (not the cache hit); launches "
+            f"rank 0 {({k: v for k, v in lead['launches'].items() if v})}, rank 1 "
+            f"{({k: v for k, v in follower['launches'].items() if v})}; rank 1's first "
+            f"mirrored search, {checked['blocks']} blocks: K2 dense, K2 and K3 on "
+            f"{checked['pairs'][0]} pairs past LB_Keogh, K5 on {checked['pairs'][1]} DP pairs "
+            f"== their plain versions")
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.communicate()
+    log(f"[sharded serve] phase 15 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
 def main() -> int:
     try:
         import torch
@@ -4523,12 +4741,13 @@ def main() -> int:
     mv_out = timed("9 multivariate", phase_mv, dev, launches, main_out, rec)
     timed("10 mv stream and serve", phase_mv_stream_serve, dev, launches, mv_out)
     del mv_out
-    timed("11 sharded", phase_sharded, dev, launches, main_out)
+    sharded = timed("11 sharded", phase_sharded, dev, launches, main_out)
     tiers = timed("12 anytime build", phase_anytime, dev, launches, main_out)
     searched = timed("13 anytime search", phase_anytime_search, dev, launches, main_out, tiers)
     timed("14 anytime serving", phase_anytime_serve, dev, launches, main_out, tiers, searched,
           smi)
     del tiers, searched
+    timed("15 sharded serving", phase_sharded_serve, dev, launches, main_out, sharded, smi)
     log("[time] seconds by phase: " + "; ".join(f"{k} {v:.1f}" for k, v in spent.items()))
     log(time_line())
     kernels = []

@@ -123,6 +123,43 @@ class Mesh:
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank}, device={self.device}, {self.backend})"
 
+    # ------------------------------------------------ the serving transport
+    #
+    # A ``QueryEngine`` over a multi-rank session admits on rank 0 and sends
+    # each batch it routes to the sharded driver to every other rank, which
+    # runs the same search: the collectives of ``sharded_nn_search`` then
+    # pair the same searches.  The sends and the searches of a rank must
+    # come from one thread, so that the default group's collectives stay in
+    # one order; while an engine serves such a session no other thread of
+    # any rank may run a sharded search.  A failed collective raises.
+
+    def _object_device(self) -> torch.device:
+        # gloo takes CPU tensors; NCCL the rank's own device
+        return torch.device("cpu") if self.backend == "gloo" else self.device
+
+    def bind_device(self) -> None:
+        """Make this rank's device the calling thread's current CUDA device
+        (what NCCL's object collectives place their buffers on)."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+
+    def broadcast_batch(self, obj=None):
+        """Rank 0's ``obj`` (a picklable batch, or ``None``) on every rank
+        of the mesh; the other ranks' ``obj`` is ignored."""
+        box = [obj if self.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0, device=self._object_device())
+        return box[0]
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's ``obj``, in rank order, on every rank."""
+        out = [None] * self.size
+        if self.device.type == "cuda" and self.backend != "gloo":
+            with torch.cuda.device(self.device):
+                dist.all_gather_object(out, obj)
+        else:
+            dist.all_gather_object(out, obj)
+        return out
+
     def axes(self, axis_names=None) -> tuple[str, ...]:
         """The sharding axes: ``axis_names``, validated, or every axis."""
         names = tuple(axis_names if axis_names is not None else self.axis_names)

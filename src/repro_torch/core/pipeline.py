@@ -59,13 +59,6 @@ Method = Literal[
     "tc_box", "tc_tri",
 ]
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a reference feature a later slice of the port adds."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP.md queue 1, "
-        f"item {item}"
-    )
-
 
 class TriContext(NamedTuple):
     """Reference-index context of the ``tc_tri`` stage (rooted distances;

@@ -56,11 +56,23 @@ Anytime serving (``mode="anytime"``, sessions built with an anytime
 tier) rides the same path: a batch of like-keyed requests is one
 ``db.search(mode="anytime", budget=)`` call over its real lanes only,
 and a request's ``deadline`` maps onto a budget through the engine's
-refine-rate EMA.  An engine over a session whose mesh spans several
-ranks is not ported yet (ROADMAP.md item 11b): every rank's engine would
-coalesce its own arrivals, and the sharded driver's collectives would
-then pair different searches, so the constructor refuses it; a one-rank
-mesh is served.
+refine-rate EMA.
+
+A session whose mesh spans several ranks (``Database.use_mesh`` over a
+multi-rank ``torch.distributed`` group, one process a rank) is served
+from one controller, as the reference serves it: every rank builds the
+same session, attaches the mesh and makes the engine with the same
+arguments.  Rank 0 admits, coalesces, caches and keeps the stats; before
+it runs a batch that its planner routes to the sharded driver it sends
+the execution key and the padded block to every other rank
+(``Mesh.broadcast_batch``), whose follower thread runs the same
+``db.search``, so every rank issues the same sharded searches in the
+same order.  Cache hits, expired requests, the scan, host and indexed
+routes and anytime batches have no collectives and run on rank 0 alone.
+``close()`` on rank 0 drains, then sends the stop; a follower's
+``close()`` waits for it.  While such an engine serves, no other thread
+of any rank may run a sharded search (the collectives would pair the
+wrong calls).  The mesh is fixed at construction.
 """
 
 from __future__ import annotations
@@ -75,21 +87,11 @@ import numpy as np
 
 from repro_torch.core.cascade import SearchResult, SearchStats
 from repro_torch.core.microbatch import pad_rows
-from repro_torch.core.pipeline import not_ported
 from repro_torch.serve.cache import AnswerCache, query_digest
 
-MULTI_RANK_ITEM = "11b (QueryEngine over a multi-rank mesh)"
 
-
-def _refuse_multi_rank(db) -> None:
-    """Raise for a session whose mesh spans more than one rank: each
-    rank's engine batches its own arrivals, so the sharded driver's
-    collectives would pair different searches (item 11b ports it)."""
-    mesh = getattr(db, "mesh", None)
-    if mesh is not None and mesh.size > 1:
-        raise not_ported(
-            f"QueryEngine over a {mesh.size}-rank mesh", MULTI_RANK_ITEM
-        )
+def _ranks(mesh) -> int:
+    return 1 if mesh is None else int(mesh.size)
 
 
 class AdmissionFull(RuntimeError):
@@ -273,9 +275,16 @@ class QueryEngine:
       queue states); call :meth:`start` when ready.
 
     A multivariate session (``db.channels > 1``) takes one (n, d) query
-    per request; the coalesced batch is searched as (Q, n, d).  A session
-    whose mesh spans more than one rank raises ``NotImplementedError``
-    (item 11b); one rank is served.
+    per request; the coalesced batch is searched as (Q, n, d).
+
+    Over a session whose mesh spans several ranks, every rank makes the
+    engine with the same arguments after ``use_mesh``: the ranks exchange
+    the session's fingerprint and ``max_batch`` here, and a mismatch
+    raises ``ValueError`` on every rank.  Rank 0 is the controller; on
+    every other rank a follower thread takes the worker's place, mirrors
+    each batch rank 0 routes to the sharded driver, and ``submit`` and
+    ``open_stream`` raise ``RuntimeError``.  A batch whose session's mesh
+    is no longer the engine's fails with ``RuntimeError``.
     """
 
     def __init__(
@@ -295,13 +304,21 @@ class QueryEngine:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
-        _refuse_multi_rank(db)
         self.db = db
         self.max_batch = int(max_batch)
         self.max_wait = float(max_wait_ms) / 1e3
         self.max_queue = int(max_queue)
         self.cache = cache if cache is not None else AnswerCache(cache_capacity)
         self._fingerprint = db.fingerprint  # pinned once: keys are stable
+        # the mesh is pinned too: over several ranks rank 0 controls and
+        # every other rank follows (mirrors its sharded batches)
+        self._mesh = getattr(db, "mesh", None)
+        self._follower = False
+        if _ranks(self._mesh) > 1:
+            self._check_same_engine()
+            self._follower = self._mesh.rank != 0
+        self._n_mirrored = 0  # sharded batches sent (rank 0) or run
+        self._follow_error: BaseException | None = None
 
         self._cv = threading.Condition()
         self._tenants: OrderedDict[str, deque[_Request]] = OrderedDict()
@@ -310,7 +327,9 @@ class QueryEngine:
         self._closed = False
         self._started = False
         self._worker = threading.Thread(
-            target=self._run, name="query-engine", daemon=True
+            target=self._follow if self._follower else self._run,
+            name="query-engine-follower" if self._follower else "query-engine",
+            daemon=True,
         )
 
         # counters (all under _cv except the cache's own)
@@ -340,6 +359,31 @@ class QueryEngine:
 
     # ------------------------------------------------------------ lifecycle
 
+    def _check_same_engine(self) -> None:
+        """Every rank's (fingerprint, max_batch), exchanged over the mesh:
+        a sharded search over different sessions or block shapes would
+        pair wrong collectives and answer wrongly without an error."""
+        mine = (self._fingerprint, self.max_batch)
+        ranks = self._mesh.gather_objects(mine)
+        if any(r != ranks[0] for r in ranks):
+            rows = "; ".join(
+                f"rank {i}: fingerprint {fp[:12]}, max_batch {mb}"
+                for i, (fp, mb) in enumerate(ranks)
+            )
+            raise ValueError(
+                f"QueryEngine over a {len(ranks)}-rank mesh: the ranks' "
+                f"sessions or max_batch differ ({rows}); every rank must "
+                f"build the same session and make the engine with the same "
+                f"arguments"
+            )
+
+    @property
+    def mirrored_batches(self) -> int:
+        """Sharded batches sent to the other ranks (rank 0) or run for
+        rank 0 (a follower); 0 without a multi-rank mesh."""
+        with self._cv:
+            return self._n_mirrored
+
     def start(self) -> "QueryEngine":
         if not self._started:
             self._started = True
@@ -348,12 +392,26 @@ class QueryEngine:
 
     def close(self, timeout: float | None = None) -> None:
         """Drain every admitted request, then stop the worker.  Open
-        stream sessions stay usable (they never touch the worker)."""
+        stream sessions stay usable (they never touch the worker).
+
+        Over a multi-rank mesh rank 0's worker then sends the stop, so a
+        never-started controller or follower is started here; a follower
+        waits for the stop and re-raises any error its thread hit."""
         with self._cv:
             self._closed = True
             self._cv.notify_all()
+        if _ranks(self._mesh) > 1:
+            self.start()
         if self._started:
             self._worker.join(timeout)
+        if self._follower:
+            if self._worker.is_alive():
+                raise RuntimeError(
+                    f"QueryEngine follower (rank {self._mesh.rank}): no stop "
+                    f"from rank 0 within {timeout} s"
+                )
+            if self._follow_error is not None:
+                raise self._follow_error
 
     def __enter__(self) -> "QueryEngine":
         return self.start()
@@ -392,6 +450,7 @@ class QueryEngine:
         rate (EMA over past anytime batches) — tighter deadlines explore
         fewer clusters, looser ones converge to exact.
         """
+        self._refuse_on_follower("submit")
         db = self.db
         raw = np.asarray(query, dtype=db.config.precision)
         if db.channels > 1:
@@ -583,6 +642,61 @@ class QueryEngine:
 
     # -------------------------------------------------------------- execute
 
+    def _refuse_on_follower(self, what: str) -> None:
+        if self._follower:
+            raise RuntimeError(
+                f"{what} on rank {self._mesh.rank}: a QueryEngine over a "
+                f"{self._mesh.size}-rank mesh admits requests on the mesh's "
+                f"rank 0; this rank only mirrors its sharded batches"
+            )
+
+    def _check_mesh(self) -> None:
+        """Raise if the session's mesh is no longer the one the engine was
+        made with, where either spans several ranks: the ranks would no
+        longer run the same sharded searches."""
+        mesh = getattr(self.db, "mesh", None)
+        if mesh is not self._mesh and max(_ranks(mesh), _ranks(self._mesh)) > 1:
+            raise RuntimeError(
+                "the session's mesh changed after the QueryEngine was made: "
+                "make the engine after use_mesh, on every rank of the mesh"
+            )
+
+    def _mirror(self, exec_key: tuple, block: np.ndarray) -> None:
+        """On rank 0 of a multi-rank mesh, send a batch the planner routes
+        to the sharded driver to every other rank before running it."""
+        if _ranks(self._mesh) <= 1:
+            return
+        k, method, driver = exec_key[:3]
+        if self.db.plan(block, driver=driver, method=method, k=k).driver != "sharded":
+            return
+        self._mesh.broadcast_batch((exec_key, block))
+        with self._cv:
+            self._n_mirrored += 1
+
+    def _follow(self) -> None:
+        """A follower's loop: run each batch rank 0 sends, in its order,
+        until the stop (``None``).  A search that raises is recorded and
+        the loop goes on, as rank 0's worker fails the batch and goes on;
+        a failed receive ends it."""
+        self._mesh.bind_device()
+        while True:
+            try:
+                msg = self._mesh.broadcast_batch()
+            except Exception as e:  # the transport failed: nothing to pair
+                self._follow_error = e
+                return
+            if msg is None:
+                return
+            exec_key, block = msg
+            k, method, driver = exec_key[:3]
+            with self._cv:
+                self._n_mirrored += 1
+            try:
+                self.db.search(block, k=k, method=method, driver=driver)
+            except Exception as e:
+                if self._follow_error is None:
+                    self._follow_error = e
+
     def _execute(self, exec_key: tuple, lanes: list[list[_Request]]) -> None:
         k, method, driver, mode, _budget, _qlen = exec_key
         t_exec = time.monotonic()
@@ -591,7 +705,8 @@ class QueryEngine:
             return
         block, n_valid = pad_rows([lane[0].query for lane in lanes], self.max_batch)
         try:
-            _refuse_multi_rank(self.db)  # a mesh attached after construction
+            self._check_mesh()
+            self._mirror(exec_key, block)
             res = self.db.search(block, k=k, method=method, driver=driver)
         except Exception as e:  # fail every rider, never wedge the worker
             for lane in lanes:
@@ -634,7 +749,7 @@ class QueryEngine:
         k, method, _driver, _mode, budget, _qlen = exec_key
         block = np.stack([lane[0].query for lane in lanes])
         try:
-            _refuse_multi_rank(self.db)  # a mesh attached after construction
+            self._check_mesh()  # no collectives: rank 0 alone runs it
             res = self.db.search(
                 block, k=k, method=method, mode="anytime", budget=budget
             )
@@ -682,6 +797,16 @@ class QueryEngine:
                 )
 
     def _run(self) -> None:
+        if _ranks(self._mesh) <= 1:
+            self._serve()
+            return
+        self._mesh.bind_device()
+        try:
+            self._serve()
+        finally:
+            self._mesh.broadcast_batch(None)  # the followers' stop
+
+    def _serve(self) -> None:
         while True:
             with self._cv:
                 while self._pending == 0 and not self._closed:
@@ -709,6 +834,7 @@ class QueryEngine:
         """A streaming client over this session's artifacts: forwards to
         ``db.stream`` (db rows as templates + build-time envelopes when
         ``templates`` is None) and registers the session for stats."""
+        self._refuse_on_follower("open_stream")
         matcher = self.db.stream(templates, threshold=threshold, **kw)
         with self._cv:
             sid = self._next_sid

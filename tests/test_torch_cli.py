@@ -9,13 +9,17 @@ through the stage-0 triangle index: the same ``nn``, ``stage0=``,
 both serve through a one-device host mesh (the sharded driver) and print
 the same mesh line, ``nn``, ``dist``, ``pruned_*`` and ``dtw=``; the
 port's one-rank gloo group is destroyed after the test.  The quickstart
-twin runs small, its exactness asserts included.
+twin runs small, its exactness asserts included; the search service twin
+runs at its full size over 8 gloo ranks beside the reference example
+over 8 host devices, both as subprocesses.
 """
 
 import importlib.util
 import math
+import os
 import pathlib
 import re
+import subprocess
 import sys
 
 import numpy as np
@@ -25,6 +29,7 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 import torch.distributed as dist  # noqa: E402
+from helpers import SRC, run_in_subprocess  # noqa: E402
 from repro.launch import search as j_cli  # noqa: E402
 from repro_torch.api.planner import SMALL_DB_ROWS  # noqa: E402
 from repro_torch.launch import search as t_cli  # noqa: E402
@@ -226,6 +231,44 @@ def test_classify_twin_runs_on_cpu(capsys):
         want[name] = float(np.mean(pred == test_y))
     assert got == want
     assert "DTW_4: accuracy" in out and "on the CPU's plain versions" in out
+
+
+SERVICE_LINE = re.compile(r"^query (\d+) \[(\w+)\]: nn=#(\d+) dist=([0-9.]+) "
+                          r"dtw_lanes= *(\d+) pruned=([0-9.]+)% lanes=\d+ wait=[0-9.]+ms$")
+
+
+def test_search_service_twin_matches_reference():
+    """examples/search_service_torch.py over 8 gloo ranks on the CPU and
+    examples/search_service.py over 8 host devices, side by side: each
+    query's ``nn``, ``dist``, ``dtw_lanes`` and ``pruned`` equal (``lanes``
+    and ``wait`` follow timing), and the twin's bit-equality asserts
+    against the single-device scan pass."""
+    env = {**os.environ, "PYTHONPATH": SRC + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "OMP_NUM_THREADS": "1"}
+    port = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / "search_service_torch.py"), "--device", "cpu"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ref_out = run_in_subprocess((ROOT / "examples" / "search_service.py").read_text(), 8,
+                                    {"JAX_PLATFORMS": "cpu"})
+        port_out, port_err = port.communicate(timeout=300)
+    finally:
+        if port.poll() is None:
+            port.kill()
+            port.communicate()
+    assert port.returncode == 0, port_out + port_err
+
+    def rows(out):
+        found = [SERVICE_LINE.match(ln) for ln in out.splitlines() if ln.startswith("query ")]
+        assert len(found) == 10 and all(found), out
+        return {int(m.group(1)): m.group(2, 3, 4, 5, 6) for m in found}
+
+    assert rows(port_out) == rows(ref_out)
+    assert "mesh {'data': 2, 'model': 4}, db 2048 series" in port_out.splitlines()
+    assert "driver: sharded (repro_torch.core.distributed.sharded_nn_search)" in port_out
+    last = port_out.strip().splitlines()[-1]
+    assert last.startswith("served 10 queries from 2 tenants") and last.endswith(
+        "all answers match the single-device scan.")
 
 
 def test_cli_parse_p():

@@ -18,8 +18,8 @@ engines); the refine-rate EMA follows ``0.7 * old + 0.3 * new`` under a
 stubbed engine clock; ``EngineStats``' anytime fields equal repro's; and
 every validation error has the reference's type and text.  Within the
 port, each answer is bit-equal to a direct ``db.search(mode="anytime",
-budget=)``, a one-rank mesh is served and a multi-rank one refused on
-the anytime path.
+budget=)``, a one-rank mesh is served, and a multi-rank mesh attached
+after the engine was made fails the anytime batch.
 """
 
 import functools
@@ -303,7 +303,8 @@ def test_one_rank_mesh_is_served_on_the_anytime_path():
 
 def test_multi_rank_mesh_refused_on_the_anytime_path():
     """A stand-in mesh of two ranks (only its size is read) attached after
-    construction fails the anytime request instead of searching."""
+    construction fails the anytime request with the ``RuntimeError`` that
+    names the fix instead of searching."""
     data = random_walks(np.random.default_rng(3), N_DB, N)
     db = Database.build(data, SearchConfig(w=W, p=1, k=K), anytime=OPTS, device="cpu")
     engine = QueryEngine(db, max_batch=2, max_wait_ms=0.0, start=False)
@@ -311,7 +312,7 @@ def test_multi_rank_mesh_refused_on_the_anytime_path():
         fut = engine.submit(queries(1, M)[0], mode="anytime", budget=16)
         db.mesh = types.SimpleNamespace(size=2)
         engine.start()
-        with pytest.raises(NotImplementedError, match="item 11b"):
+        with pytest.raises(RuntimeError, match="make the engine after use_mesh"):
             fut.result(timeout=60)
     finally:
         engine.close()
